@@ -1,0 +1,93 @@
+"""CLI: the ADP inference sweep on the card.
+
+    python -m cartnet_tpu_torch.cli --dataset synthetic --limit 8 --inference \
+        [--checkpoint_path best.ckpt] [--bf16] [--device cuda|cpu]
+
+Flags and the synthetic splits mirror cartnet_tpu/cli.py; only the
+``--inference`` mode and the ``synthetic`` source are ported. Without a
+checkpoint the weights are random, drawn from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import torch
+
+from cartnet_tpu_torch.config import DataConfig, ModelConfig, resolve_device
+from cartnet_tpu_torch.data.batching import make_batches
+from cartnet_tpu_torch.data.synthetic import synthetic_dataset
+from cartnet_tpu_torch.interop import load_reference_checkpoint
+from cartnet_tpu_torch.models.cartnet import CartNet
+from cartnet_tpu_torch.runner import inference
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("cartnet_tpu_torch")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--dataset", type=str, default="synthetic",
+                   help="synthetic (the only source ported so far)")
+    p.add_argument("--limit", type=int, default=None,
+                   help="truncate dataset (smoke runs)")
+    p.add_argument("--inference", action="store_true",
+                   help="run the ADP inference sweep (the ported mode)")
+    p.add_argument("--inference_output", type=str, default="./inference.pkl")
+    p.add_argument("--checkpoint_path", type=str, default=None,
+                   help="reference best.ckpt or state_dict .pt")
+    p.add_argument("--radius", type=float, default=5.0)
+    p.add_argument("--num_layers", type=int, default=4)
+    p.add_argument("--dim_in", type=int, default=256)
+    p.add_argument("--dim_rbf", type=int, default=64)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    return p
+
+
+def args_to_configs(args):
+    # the synthetic source carries no measured temperature input (as in the
+    # reference CLI); the sweep needs the Cholesky ADP head
+    model = ModelConfig(
+        dim_in=args.dim_in, dim_rbf=args.dim_rbf, num_layers=args.num_layers,
+        radius=args.radius, use_temperature=False, cholesky=True,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    data = DataConfig(name=args.dataset, radius=args.radius,
+                      batch_size=args.batch)
+    return model, data
+
+
+def load_test_split(data: DataConfig, limit=None):
+    """The synthetic source's test split: the reference CLI's records
+    (seed 123, ~32 atoms per crystal), train/val/test = n / k / k."""
+    if data.name != "synthetic":
+        raise ValueError(f"dataset {data.name!r} is not ported yet")
+    n = limit or 128
+    k = max(n // 4, 2)
+    recs = synthetic_dataset(n + 2 * k, mean_atoms=32, radius=data.radius,
+                             adp=True, seed=123)
+    return recs[n + k:n + 2 * k]
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    args = build_parser().parse_args(argv)
+    if not args.inference:
+        raise ValueError("only --inference is ported; training comes with "
+                         "the next slice")
+    device = resolve_device(args.device)
+    model_cfg, data_cfg = args_to_configs(args)
+    model = CartNet(model_cfg, device=device, seed=args.seed)
+    if args.checkpoint_path:
+        model.load_state_dict(load_reference_checkpoint(args.checkpoint_path),
+                              strict=True)
+        logging.info("loaded checkpoint %s", args.checkpoint_path)
+    batches = make_batches(load_test_split(data_cfg, args.limit),
+                           data_cfg.batch_size)
+    return inference(model, batches, args.inference_output, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,55 @@
+"""Immutable typed configuration (port of cartnet_tpu/config.py).
+
+Only what the inference sweep reads: the model hyperparameters and the data
+settings of the synthetic source. Dtypes are torch dtypes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Model hyperparameters (reference defaults)."""
+
+    name: str = "cartnet"
+    dim_in: int = 256
+    dim_rbf: int = 64
+    num_layers: int = 4
+    radius: float = 5.0
+    invariant: bool = False
+    use_temperature: bool = True
+    use_envelope: bool = True
+    use_atom_types: bool = True
+    cholesky: bool = True  # Cholesky ADP head vs scalar head
+    # numerics: params are stored in param_dtype and cast to compute_dtype
+    # once per forward; BN running stats stay in param_dtype
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    bn_momentum: float = 0.1
+    bn_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset / batching settings used by the inference sweep."""
+
+    name: str = "synthetic"
+    radius: float = 5.0
+    batch_size: int = 4
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. The card is the default; without
+    one, only an explicit ``device="cpu"`` runs. Also pins f32 matmuls and
+    convolutions to full f32 precision (no TF32)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev

@@ -1,0 +1,78 @@
+"""Weights into the port: JAX-package pytrees and reference checkpoints.
+
+The port's modules already use the reference's state_dict key space, so a
+reference ``best.ckpt`` (``{"model_state": state_dict, ...}``) loads as is.
+``params_from_jax`` is the port's own copy of the mapping that
+cartnet_tpu/interop.py::export_state_dict applies to the JAX package's
+(params, bn_state) pytrees, taken as nested dicts of numpy arrays:
+
+  * JAX ``w`` is [in, out]; torch ``nn.Linear.weight`` is [out, in];
+  * embeddings are [num, dim] on both sides;
+  * BN ``gamma/beta`` -> ``weight/bias``; ``mean/var/count`` ->
+    ``running_mean/running_var/num_batches_tracked``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from cartnet_tpu_torch.config import ModelConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a))  # a writable copy
+
+
+def _lin(prefix: str, p: Dict[str, Any], sd: Dict[str, torch.Tensor]):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def params_from_jax(params_np, bn_state_np,
+                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """JAX-package (params, bn_state) as numpy dicts -> the port's
+    state_dict (CPU tensors; ``load_state_dict`` moves them)."""
+    if cfg.name != "cartnet":
+        raise ValueError(f"only CartNet is ported, got {cfg.name!r}")
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params_np["encoder"]
+    if "embedding" in enc:
+        sd["encoder.embedding.weight"] = _t(enc["embedding"]["w"])
+    if "temp_proj" in enc:
+        _lin("encoder.temperature_proj_atom", enc["temp_proj"], sd)
+    if "bias" in enc:
+        sd["encoder.bias"] = _t(enc["bias"])
+    if "atom_mlp" in enc:
+        # reference Sequential(SiLU, Linear, SiLU): the Linear is index 1
+        _lin("encoder.encoder_atom.1", enc["atom_mlp"], sd)
+    _lin("encoder.encoder_edge.0", enc["edge_mlp"]["lin0"], sd)
+    _lin("encoder.encoder_edge.2", enc["edge_mlp"]["lin1"], sd)
+    sd["encoder.rbf.means"] = _t(enc["rbf_means"])
+    sd["encoder.rbf.betas"] = _t(enc["rbf_betas"])
+    for i in range(cfg.num_layers):
+        lp, ls = params_np[f"layer{i}"], bn_state_np[f"layer{i}"]
+        for ours, theirs in (("mlp_gate", "MLP_gate"),
+                             ("mlp_aggr", "MLP_aggr")):
+            _lin(f"layers.{i}.{theirs}.0", lp[ours]["lin0"], sd)
+            _lin(f"layers.{i}.{theirs}.2", lp[ours]["lin1"], sd)
+        for ours, theirs in (("bn", "norm"), ("bn2", "norm2")):
+            sd[f"layers.{i}.{theirs}.weight"] = _t(lp[ours]["gamma"])
+            sd[f"layers.{i}.{theirs}.bias"] = _t(lp[ours]["beta"])
+            sd[f"layers.{i}.{theirs}.running_mean"] = _t(ls[ours]["mean"])
+            sd[f"layers.{i}.{theirs}.running_var"] = _t(ls[ours]["var"])
+            sd[f"layers.{i}.{theirs}.num_batches_tracked"] = _t(
+                np.asarray(ls[ours]["count"], np.int64))
+    _lin("head.MLP.0", params_np["head"]["mlp"]["lin0"], sd)
+    _lin("head.MLP.2", params_np["head"]["mlp"]["lin1"], sd)
+    return sd
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of a reference ``best.ckpt`` (or a bare state_dict
+    ``.pt``), on the CPU."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return obj.get("model_state", obj) if isinstance(obj, dict) else obj

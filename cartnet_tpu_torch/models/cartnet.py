@@ -1,0 +1,252 @@
+"""CartNet eval forward (port of cartnet_tpu/models/cartnet.py).
+
+Modules and buffers carry the reference's state_dict names
+(``encoder.encoder_edge.0.weight``, ``layers.{i}.MLP_gate.0.weight``,
+``layers.{i}.norm.running_mean``, ``head.MLP.2.bias`` ...), so
+``load_state_dict(strict=True)`` takes a reference ``best.ckpt`` as well as
+weights exported from the JAX package.
+
+Numerics follow the reference: params are stored in ``param_dtype`` and cast
+once per forward to ``compute_dtype`` (BN running stats are not cast). With
+bf16 compute, eval BN2 promotes the node features to f32 after layer 0 while
+the edge features stay bf16, so the kernels see bf16 node tables in layer 0
+and f32 ones after (see ops/kernels/).
+
+Each layer's edge work runs through two kernels: the fused edge phase
+(gathers + both edge MLPs) and the fused sigma chain + segment sum. The
+per-node projections xi = x @ Wi and xj = x @ Wj stay plain matmuls.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from cartnet_tpu_torch.config import ModelConfig, resolve_device
+from cartnet_tpu_torch.data.schema import CrystalBatch
+from cartnet_tpu_torch.nn.core import (embedding, linear, mlp_silu,
+                                       torch_linear_init_, xavier_uniform_)
+from cartnet_tpu_torch.nn.norm import masked_batch_norm, masked_bn_scale_shift
+from cartnet_tpu_torch.ops import rbf as rbf_ops
+from cartnet_tpu_torch.ops.kernels.edge_kernels import edge_phase_fwd
+from cartnet_tpu_torch.ops.kernels.segment_kernels import sigma_segsum
+from cartnet_tpu_torch.ops.linalg3 import assemble_cholesky_upper
+from cartnet_tpu_torch.ops.segment import masked_segment_sum, segment_sum
+
+Cast = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _lin_pairs(seq: nn.Sequential, cast: Cast):
+    return [(cast(m.weight), cast(m.bias)) for m in seq
+            if isinstance(m, nn.Linear)]
+
+
+class ExpNormalSmearing(nn.Module):
+    """Holds the non-trainable ``means``/``betas`` buffers."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        means, betas = rbf_ops.exp_normal_params(0.0, cfg.radius, cfg.dim_rbf,
+                                                 cfg.param_dtype)
+        self.register_buffer("means", means)
+        self.register_buffer("betas", betas)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.cfg = cfg
+        if cfg.use_atom_types:
+            self.embedding = nn.Embedding(119, 2 * d, dtype=dt)
+            xavier_uniform_(self.embedding.weight, gen)
+        elif not cfg.use_temperature:
+            # a single learned row broadcast to all atoms (torch N(0,1))
+            self.embedding = nn.Embedding(1, d, dtype=dt)
+            with torch.no_grad():
+                self.embedding.weight.normal_(generator=gen)
+        if cfg.use_temperature:
+            self.temperature_proj_atom = nn.Linear(1, 2 * d, dtype=dt)
+            torch_linear_init_(self.temperature_proj_atom, gen)
+        elif cfg.use_atom_types:
+            self.bias = nn.Parameter(torch.zeros(2 * d, dtype=dt))
+        if cfg.use_temperature or cfg.use_atom_types:
+            # Sequential(SiLU, Linear, SiLU): activation BEFORE the linear
+            self.encoder_atom = nn.Sequential(
+                nn.SiLU(), nn.Linear(2 * d, d, dtype=dt), nn.SiLU())
+            torch_linear_init_(self.encoder_atom[1], gen)
+        dim_edge = cfg.dim_rbf + (0 if cfg.invariant else 3)
+        self.encoder_edge = nn.Sequential(
+            nn.Linear(dim_edge, 2 * d, dtype=dt), nn.SiLU(),
+            nn.Linear(2 * d, d, dtype=dt), nn.SiLU())
+        torch_linear_init_(self.encoder_edge[0], gen)
+        torch_linear_init_(self.encoder_edge[2], gen)
+        self.rbf = ExpNormalSmearing(cfg)
+
+    def forward(self, batch: CrystalBatch, cast: Cast):
+        """-> (x [N, d], e [E, d]) in the compute dtype."""
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        temp, atom = cfg.use_temperature, cfg.use_atom_types
+        if temp:
+            t = linear(batch.temperature[:, None].to(dt),
+                       cast(self.temperature_proj_atom.weight),
+                       cast(self.temperature_proj_atom.bias))
+        if temp and atom:
+            x = (embedding(cast(self.embedding.weight), batch.z, dt)
+                 + embedding(t, batch.graph_id, dt))
+        elif atom:
+            x = embedding(cast(self.embedding.weight), batch.z, dt) \
+                + cast(self.bias)
+        elif temp:
+            x = embedding(t, batch.graph_id, dt)
+        else:
+            x = cast(self.embedding.weight)[0].to(dt).expand(
+                batch.num_nodes, cfg.dim_in)
+        if temp or atom:
+            lin = self.encoder_atom[1]
+            x = F.silu(linear(F.silu(x), cast(lin.weight), cast(lin.bias)))
+        feats = rbf_ops.exp_normal_smearing(
+            batch.cart_dist.to(dt), cast(self.rbf.means).to(dt),
+            cast(self.rbf.betas).to(dt), cfg.radius)
+        if not cfg.invariant:
+            feats = torch.cat([feats, batch.cart_dir.to(dt)], dim=-1)
+        e = mlp_silu(feats, _lin_pairs(self.encoder_edge, cast),
+                     final_act=True)
+        return x, e
+
+
+class CartNetLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.cfg = cfg
+        for name in ("MLP_gate", "MLP_aggr"):
+            seq = nn.Sequential(nn.Linear(3 * d, d, dtype=dt), nn.SiLU(),
+                                nn.Linear(d, d, dtype=dt))
+            torch_linear_init_(seq[0], gen)
+            torch_linear_init_(seq[2], gen)
+            setattr(self, name, seq)
+        self.norm = nn.BatchNorm1d(d, eps=cfg.bn_eps,
+                                   momentum=cfg.bn_momentum, dtype=dt)
+        self.norm2 = nn.BatchNorm1d(d, eps=cfg.bn_eps,
+                                    momentum=cfg.bn_momentum, dtype=dt)
+
+    def forward(self, x, e, batch: CrystalBatch,
+                env: Optional[torch.Tensor], cast: Cast):
+        """One message-passing layer in eval mode -> (x_out, e_out)."""
+        d, eps = x.shape[-1], self.cfg.bn_eps
+        # the gate/aggr MLPs' first layers act on [x_dst | x_src | e]: their
+        # node blocks merge into one [d, 2d] projection per endpoint
+        g0, g1 = self.MLP_gate[0], self.MLP_gate[2]
+        a0, a1 = self.MLP_aggr[0], self.MLP_aggr[2]
+        wg, wa = cast(g0.weight).t(), cast(a0.weight).t()        # [3d, d]
+        wi = torch.cat([wg[:d], wa[:d]], dim=1)
+        wj = torch.cat([wg[d:2 * d], wa[d:2 * d]], dim=1)
+        we = torch.cat([wg[2 * d:], wa[2 * d:]], dim=1).contiguous()
+        b = torch.cat([cast(g0.bias), cast(a0.bias)])
+        pdt = torch.promote_types(x.dtype, wi.dtype)
+        xi = torch.matmul(x.to(pdt), wi.to(pdt))                   # [N, 2d]
+        xj = torch.matmul(x.to(pdt), wj.to(pdt))
+        gate, sender, _, _, _ = edge_phase_fwd(
+            xi, xj, e, we, b,
+            cast(g1.weight).t().contiguous(), cast(g1.bias),
+            cast(a1.weight).t().contiguous(), cast(a1.bias),
+            batch.edge_dst, batch.edge_src, batch.edge_mask)
+        scale, shift = masked_bn_scale_shift(
+            cast(self.norm.weight), cast(self.norm.bias),
+            self.norm.running_mean, self.norm.running_var, eps)
+        env_col = (env[:, None] if env is not None else
+                   torch.ones((batch.num_edges, 1), device=e.device))
+        e_out, aggr = sigma_segsum(
+            gate, scale.float(), shift.float(),
+            env_col.to(gate.dtype).contiguous(), sender, e, batch.edge_dst,
+            batch.edge_mask, batch.dst_rowptr, batch.num_nodes)
+        aggr = masked_batch_norm(
+            aggr, cast(self.norm2.weight), cast(self.norm2.bias),
+            self.norm2.running_mean, self.norm2.running_var, eps)
+        return F.silu(aggr) + x, e_out
+
+
+class CholeskyHead(nn.Module):
+    """[N, d] -> SPD U [N, 3, 3]."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.MLP = nn.Sequential(nn.Linear(d, d // 2, dtype=dt), nn.SiLU(),
+                                 nn.Linear(d // 2, 6, dtype=dt))
+        torch_linear_init_(self.MLP[0], gen)
+        torch_linear_init_(self.MLP[2], gen)
+
+    def forward(self, x, cast: Cast):
+        out = mlp_silu(x, _lin_pairs(self.MLP, cast))
+        return assemble_cholesky_upper(F.softplus(out[:, :3]), out[:, 3:])
+
+
+class ScalarHead(nn.Module):
+    """[N, d] -> per-graph scalar [G] via masked scatter-mean."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.MLP = nn.Sequential(nn.Linear(d, d // 2, dtype=dt), nn.SiLU(),
+                                 nn.Linear(d // 2, 1, dtype=dt))
+        torch_linear_init_(self.MLP[0], gen)
+        torch_linear_init_(self.MLP[2], gen)
+
+    def forward(self, x, batch: CrystalBatch, cast: Cast):
+        out = mlp_silu(x, _lin_pairs(self.MLP, cast))
+        s = masked_segment_sum(out, batch.graph_id, batch.node_mask,
+                               batch.num_graphs)
+        cnt = segment_sum(batch.node_mask.to(out.dtype), batch.graph_id,
+                          batch.num_graphs)
+        return (s / torch.clamp(cnt, min=1.0)[:, None])[:, 0]
+
+
+class CartNet(nn.Module):
+    """Encoder -> num_layers CartNet layers -> Cholesky (or scalar) head.
+
+    Built on the CPU from ``seed`` with a torch.Generator, then moved to
+    ``device`` (the card unless the caller passes ``device="cpu"``). ``forward`` is the eval forward: (pred, pred_mask), where
+    pred is [N, 3, 3] (Cholesky, mask = non-H real nodes) or [G] (scalar,
+    mask = real graphs).
+    """
+
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        if cfg.name != "cartnet":
+            raise ValueError(f"only CartNet is ported, got {cfg.name!r}")
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed)
+        self.encoder = Encoder(cfg, gen)
+        self.layers = nn.ModuleList(CartNetLayer(cfg, gen)
+                                    for _ in range(cfg.num_layers))
+        self.head = (CholeskyHead(cfg, gen) if cfg.cholesky
+                     else ScalarHead(cfg, gen))
+        self.to(device)
+        self.eval()
+
+    def cast(self, t: torch.Tensor) -> torch.Tensor:
+        """Param dtype -> compute dtype (other dtypes pass through)."""
+        cfg = self.cfg
+        return t.to(cfg.compute_dtype) if t.dtype == cfg.param_dtype else t
+
+    def envelope(self, batch: CrystalBatch, dtype: torch.dtype):
+        """CosineCutoff(dist), shared by every layer (None when off)."""
+        if not self.cfg.use_envelope:
+            return None
+        return rbf_ops.cosine_cutoff(batch.cart_dist.to(dtype),
+                                     self.cfg.radius)
+
+    def forward(self, batch: CrystalBatch):
+        x, e = self.encoder(batch, self.cast)
+        env = self.envelope(batch, x.dtype)
+        for layer in self.layers:
+            x, e = layer(x, e, batch, env, self.cast)
+        if self.cfg.cholesky:
+            return self.head(x, self.cast), batch.non_h_mask
+        return self.head(x, batch, self.cast), batch.graph_mask
