@@ -1,11 +1,13 @@
-"""CLI: the ADP inference sweep on the card.
+"""CLI: training and the ADP inference sweep, on the card.
 
+    python -m cartnet_tpu_torch.cli --dataset synthetic --limit N \
+        --epochs E --batch_accumulation A [--bf16] [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit 8 --inference \
         [--checkpoint_path best.ckpt] [--bf16] [--device cuda|cpu]
 
-Flags and the synthetic splits mirror cartnet_tpu/cli.py; only the
-``--inference`` mode and the ``synthetic`` source are ported. Without a
-checkpoint the weights are random, drawn from ``--seed``.
+Flags and the synthetic splits mirror cartnet_tpu/cli.py; the ``synthetic``
+source is the one ported. Without a checkpoint the weights are random,
+drawn from ``--seed``; with one, training starts from it.
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ import logging
 
 import torch
 
-from cartnet_tpu_torch.config import DataConfig, ModelConfig, resolve_device
+from cartnet_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                      OptimConfig, resolve_device)
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import load_reference_checkpoint
 from cartnet_tpu_torch.models.cartnet import CartNet
-from cartnet_tpu_torch.runner import inference
+from cartnet_tpu_torch.runner import inference, run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,7 +35,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=None,
                    help="truncate dataset (smoke runs)")
     p.add_argument("--inference", action="store_true",
-                   help="run the ADP inference sweep (the ported mode)")
+                   help="run the ADP inference sweep instead of training")
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch_accumulation", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--warmup", type=float, default=0.01)
+    p.add_argument("--loss", type=str, default="MAE", help="MAE or MSE")
+    p.add_argument("--augment", action="store_true",
+                   help="SO(3) augmentation (not ported yet)")
     p.add_argument("--inference_output", type=str, default="./inference.pkl")
     p.add_argument("--checkpoint_path", type=str, default=None,
                    help="reference best.ckpt or state_dict .pt")
@@ -46,46 +56,55 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def args_to_configs(args):
+def args_to_config(args) -> Config:
     # the synthetic source carries no measured temperature input (as in the
-    # reference CLI); the sweep needs the Cholesky ADP head
+    # reference CLI); the ported source has ADP targets (Cholesky head)
     model = ModelConfig(
         dim_in=args.dim_in, dim_rbf=args.dim_rbf, num_layers=args.num_layers,
         radius=args.radius, use_temperature=False, cholesky=True,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     data = DataConfig(name=args.dataset, radius=args.radius,
                       batch_size=args.batch)
-    return model, data
+    optim = OptimConfig(lr=args.lr, max_epoch=args.epochs,
+                        warmup=args.warmup,
+                        batch_accumulation=args.batch_accumulation,
+                        loss=args.loss)
+    return Config(model=model, data=data, optim=optim, seed=args.seed)
 
 
-def load_test_split(data: DataConfig, limit=None):
-    """The synthetic source's test split: the reference CLI's records
-    (seed 123, ~32 atoms per crystal), train/val/test = n / k / k."""
+def load_datasets(data: DataConfig, limit=None):
+    """The synthetic source's (train, val, test) splits: the reference CLI's
+    records (seed 123, ~32 atoms per crystal), sizes n / k / k with
+    n = limit (default 128) and k = max(n // 4, 2)."""
     if data.name != "synthetic":
         raise ValueError(f"dataset {data.name!r} is not ported yet")
     n = limit or 128
     k = max(n // 4, 2)
     recs = synthetic_dataset(n + 2 * k, mean_atoms=32, radius=data.radius,
                              adp=True, seed=123)
-    return recs[n + k:n + 2 * k]
+    return recs[:n], recs[n:n + k], recs[n + k:n + 2 * k]
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
-    if not args.inference:
-        raise ValueError("only --inference is ported; training comes with "
-                         "the next slice")
+    if args.augment:
+        raise NotImplementedError("--augment: SO(3) augmentation is not "
+                                  "ported yet (ROADMAP P2)")
     device = resolve_device(args.device)
-    model_cfg, data_cfg = args_to_configs(args)
-    model = CartNet(model_cfg, device=device, seed=args.seed)
+    cfg = args_to_config(args)
+    state_dict = None
     if args.checkpoint_path:
-        model.load_state_dict(load_reference_checkpoint(args.checkpoint_path),
-                              strict=True)
+        state_dict = load_reference_checkpoint(args.checkpoint_path)
         logging.info("loaded checkpoint %s", args.checkpoint_path)
-    batches = make_batches(load_test_split(data_cfg, args.limit),
-                           data_cfg.batch_size)
+    splits = load_datasets(cfg.data, args.limit)
+    if not args.inference:
+        return run(cfg, splits, device, state_dict)
+    model = CartNet(cfg.model, device=device, seed=args.seed)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    batches = make_batches(splits[2], cfg.data.batch_size)
     return inference(model, batches, args.inference_output, device)
 
 

@@ -1,12 +1,14 @@
 """Immutable typed configuration (port of cartnet_tpu/config.py).
 
-Only what the inference sweep reads: the model hyperparameters and the data
-settings of the synthetic source. Dtypes are torch dtypes.
+What the inference sweep and the trainer read: the model hyperparameters,
+the data settings of the synthetic source, the optimizer/schedule and the
+device-side step guard. Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -40,6 +42,39 @@ class DataConfig:
     name: str = "synthetic"
     radius: float = 5.0
     batch_size: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Adam + OneCycle (PyTorch OneCycleLR defaults mirrored)."""
+
+    lr: float = 1e-3
+    max_epoch: int = 50
+    warmup: float = 0.01  # OneCycle pct_start
+    batch_accumulation: int = 1
+    loss: str = "MAE"  # MAE | MSE
+    div_factor: float = 25.0
+    final_div_factor: float = 1e4
+    cycle_momentum: bool = True
+    base_momentum: float = 0.85
+    max_momentum: float = 0.95
+    grad_clip: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardConfig:
+    """The device-side non-finite step guard (train/guard.py)."""
+
+    enabled: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    guard: GuardConfig = dataclasses.field(default_factory=GuardConfig)
+    seed: int = 0
 
 
 def resolve_device(device="cuda") -> torch.device:

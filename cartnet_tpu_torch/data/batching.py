@@ -146,14 +146,17 @@ def collate(records: Sequence[dict], max_nodes: int, max_edges: int,
     edir[:e] = dire
     emask[:e] = mask
     src_perm = np.argsort(esrc, kind="stable").astype(np.int32)
-    rowptr = np.searchsorted(edst, np.arange(max_nodes + 1),
-                             side="left").astype(np.int32)
+    rows = np.arange(max_nodes + 1)
+    rowptr = np.searchsorted(edst, rows, side="left").astype(np.int32)
+    src_sorted = esrc[src_perm]
     return CrystalBatch(
         z=z, pos=pos, graph_id=graph_id, node_mask=node_mask,
         non_h_mask=non_h, edge_src=esrc, edge_dst=edst, cart_dir=edir,
         cart_dist=edist, edge_mask=emask, cell=cell, temperature=temp,
         graph_mask=graph_mask, y=y, dst_rowptr=rowptr,
-        edge_src_perm=src_perm, edge_src_sorted=esrc[src_perm],
+        src_rowptr=np.searchsorted(src_sorted, rows,
+                                   side="left").astype(np.int32),
+        edge_src_perm=src_perm, edge_src_sorted=src_sorted,
         edge_mask_src_sorted=emask[src_perm],
         src_degree=np.bincount(esrc[emask],
                                minlength=max_nodes).astype(np.float32))

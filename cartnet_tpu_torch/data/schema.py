@@ -42,8 +42,10 @@ class CrystalBatch:
     # CSR offsets of edge_dst: the edges of node n are
     # [dst_rowptr[n], dst_rowptr[n+1]) — the sigma/segment-sum kernel's rows
     dst_rowptr: Any = None            # [N+1] int32
-    # src-sorted companions for the training slice's deterministic
-    # src-side reductions: edge_src[edge_src_perm] is ascending
+    # src-sorted companions for the deterministic src-side reductions of
+    # the edge-phase backward: edge_src[edge_src_perm] is ascending, and
+    # the sorted positions of node n are [src_rowptr[n], src_rowptr[n+1])
+    src_rowptr: Any = None                      # [N+1] int32
     edge_src_perm: Optional[Any] = None         # [E] int32
     edge_src_sorted: Optional[Any] = None       # [E] int32
     edge_mask_src_sorted: Optional[Any] = None  # [E] bool

@@ -1,4 +1,4 @@
-"""CartNet eval forward (port of cartnet_tpu/models/cartnet.py).
+"""CartNet forward, eval and train (port of cartnet_tpu/models/cartnet.py).
 
 Modules and buffers carry the reference's state_dict names
 (``encoder.encoder_edge.0.weight``, ``layers.{i}.MLP_gate.0.weight``,
@@ -15,6 +15,15 @@ and f32 ones after (see ops/kernels/).
 Each layer's edge work runs through two kernels: the fused edge phase
 (gathers + both edge MLPs) and the fused sigma chain + segment sum. The
 per-node projections xi = x @ Wi and xj = x @ Wj stay plain matmuls.
+
+In training (``model.train()``) a layer is the JAX package's flagship
+train path (``fused_edge_sigma`` -> ``_fes_plain``): the edge phase as an
+autograd Function (K1 forward with the saved residual and per-tile BN
+moments, K5 backward) -> the window-moment merge into train-mode BN
+scale/shift -> the sigma chain as an autograd Function (K2 forward, K4
+backward) -> train-mode BN2 -> silu(aggr) + x. Train BN2 keeps x's dtype,
+so with bf16 compute the node tables stay bf16 in every layer. Each train
+forward advances the BN running stats in place.
 """
 
 from __future__ import annotations
@@ -29,10 +38,15 @@ from cartnet_tpu_torch.config import ModelConfig, resolve_device
 from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.nn.core import (embedding, linear, mlp_silu,
                                        torch_linear_init_, xavier_uniform_)
-from cartnet_tpu_torch.nn.norm import masked_batch_norm, masked_bn_scale_shift
+from cartnet_tpu_torch.nn.norm import (bn_scale_shift_from_window_moments,
+                                       bn_state_update, masked_batch_norm,
+                                       masked_batch_norm_train,
+                                       masked_bn_scale_shift)
 from cartnet_tpu_torch.ops import rbf as rbf_ops
-from cartnet_tpu_torch.ops.kernels.edge_kernels import edge_phase_fwd
-from cartnet_tpu_torch.ops.kernels.segment_kernels import sigma_segsum
+from cartnet_tpu_torch.ops.kernels.edge_kernels import (TILE_EDGES, EdgePhase,
+                                                        edge_phase_fwd)
+from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
+                                                           sigma_segsum)
 from cartnet_tpu_torch.ops.linalg3 import assemble_cholesky_upper
 from cartnet_tpu_torch.ops.segment import masked_segment_sum, segment_sum
 
@@ -45,14 +59,16 @@ def _lin_pairs(seq: nn.Sequential, cast: Cast):
 
 
 class ExpNormalSmearing(nn.Module):
-    """Holds the non-trainable ``means``/``betas`` buffers."""
+    """Holds ``means``/``betas``. They are parameters, as in the JAX package
+    (``params["encoder"]["rbf_means"/"rbf_betas"]``, which Adam updates);
+    the state_dict keys are the reference buffers' names."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         means, betas = rbf_ops.exp_normal_params(0.0, cfg.radius, cfg.dim_rbf,
                                                  cfg.param_dtype)
-        self.register_buffer("means", means)
-        self.register_buffer("betas", betas)
+        self.means = nn.Parameter(means)
+        self.betas = nn.Parameter(betas)
 
 
 class Encoder(nn.Module):
@@ -134,26 +150,34 @@ class CartNetLayer(nn.Module):
         self.norm2 = nn.BatchNorm1d(d, eps=cfg.bn_eps,
                                     momentum=cfg.bn_momentum, dtype=dt)
 
-    def forward(self, x, e, batch: CrystalBatch,
-                env: Optional[torch.Tensor], cast: Cast):
-        """One message-passing layer in eval mode -> (x_out, e_out)."""
-        d, eps = x.shape[-1], self.cfg.bn_eps
-        # the gate/aggr MLPs' first layers act on [x_dst | x_src | e]: their
-        # node blocks merge into one [d, 2d] projection per endpoint
+    def _weights(self, cast: Cast):
+        """(wi, wj, we, b, w1g, b1g, w1a, b1a) in the compute dtype. The
+        gate/aggr MLPs' first layers act on [x_dst | x_src | e]: their node
+        blocks merge into one [d, 2d] projection per endpoint."""
+        d = self.cfg.dim_in
         g0, g1 = self.MLP_gate[0], self.MLP_gate[2]
         a0, a1 = self.MLP_aggr[0], self.MLP_aggr[2]
         wg, wa = cast(g0.weight).t(), cast(a0.weight).t()        # [3d, d]
-        wi = torch.cat([wg[:d], wa[:d]], dim=1)
-        wj = torch.cat([wg[d:2 * d], wa[d:2 * d]], dim=1)
-        we = torch.cat([wg[2 * d:], wa[2 * d:]], dim=1).contiguous()
-        b = torch.cat([cast(g0.bias), cast(a0.bias)])
+        return (torch.cat([wg[:d], wa[:d]], dim=1),
+                torch.cat([wg[d:2 * d], wa[d:2 * d]], dim=1),
+                torch.cat([wg[2 * d:], wa[2 * d:]], dim=1).contiguous(),
+                torch.cat([cast(g0.bias), cast(a0.bias)]),
+                cast(g1.weight).t().contiguous(), cast(g1.bias),
+                cast(a1.weight).t().contiguous(), cast(a1.bias))
+
+    def forward(self, x, e, batch: CrystalBatch,
+                env: Optional[torch.Tensor], cast: Cast):
+        """One message-passing layer -> (x_out, e_out); train mode when
+        ``self.training``."""
+        if self.training:
+            return self._train_forward(x, e, batch, env, cast)
+        eps = self.cfg.bn_eps
+        wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
         pdt = torch.promote_types(x.dtype, wi.dtype)
         xi = torch.matmul(x.to(pdt), wi.to(pdt))                   # [N, 2d]
         xj = torch.matmul(x.to(pdt), wj.to(pdt))
         gate, sender, _, _, _ = edge_phase_fwd(
-            xi, xj, e, we, b,
-            cast(g1.weight).t().contiguous(), cast(g1.bias),
-            cast(a1.weight).t().contiguous(), cast(a1.bias),
+            xi, xj, e, we, b, w1g, b1g, w1a, b1a,
             batch.edge_dst, batch.edge_src, batch.edge_mask)
         scale, shift = masked_bn_scale_shift(
             cast(self.norm.weight), cast(self.norm.bias),
@@ -167,6 +191,31 @@ class CartNetLayer(nn.Module):
         aggr = masked_batch_norm(
             aggr, cast(self.norm2.weight), cast(self.norm2.bias),
             self.norm2.running_mean, self.norm2.running_var, eps)
+        return F.silu(aggr) + x, e_out
+
+    def _train_forward(self, x, e, batch: CrystalBatch,
+                       env: Optional[torch.Tensor], cast: Cast):
+        """The train-mode layer (the JAX package's ``_fes_plain``
+        composition); advances norm/norm2's running stats."""
+        eps, mom = self.cfg.bn_eps, self.cfg.bn_momentum
+        wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
+        gate, sender, e_res, s1w, m2w = EdgePhase.apply(
+            torch.matmul(x, wi), torch.matmul(x, wj), e, we, b, w1g, b1g,
+            w1a, b1a, batch.edge_dst, batch.edge_src, batch.edge_mask,
+            batch.dst_rowptr, batch.edge_src_perm, batch.src_rowptr)
+        scale, shift = bn_scale_shift_from_window_moments(
+            self.norm, cast(self.norm.weight), cast(self.norm.bias), s1w,
+            m2w, batch.edge_mask, TILE_EDGES, mom, eps)
+        env_col = (env[:, None] if env is not None else
+                   torch.ones((batch.num_edges, 1), device=e.device))
+        e_out, aggr = SigmaSegsum.apply(
+            gate, scale, shift, env_col.to(gate.dtype).contiguous(), sender,
+            e_res, batch.edge_dst, batch.edge_mask, batch.dst_rowptr,
+            batch.num_nodes)
+        aggr, (mean, var, n) = masked_batch_norm_train(
+            aggr, cast(self.norm2.weight), cast(self.norm2.bias),
+            batch.node_mask, eps)
+        bn_state_update(self.norm2, mean, var, n, mom)
         return F.silu(aggr) + x, e_out
 
 
@@ -210,9 +259,10 @@ class CartNet(nn.Module):
     """Encoder -> num_layers CartNet layers -> Cholesky (or scalar) head.
 
     Built on the CPU from ``seed`` with a torch.Generator, then moved to
-    ``device`` (the card unless the caller passes ``device="cpu"``). ``forward`` is the eval forward: (pred, pred_mask), where
-    pred is [N, 3, 3] (Cholesky, mask = non-H real nodes) or [G] (scalar,
-    mask = real graphs).
+    ``device`` (the card unless the caller passes ``device="cpu"``), in
+    eval mode. ``forward`` -> (pred, pred_mask), where pred is [N, 3, 3]
+    (Cholesky, mask = non-H real nodes) or [G] (scalar, mask = real
+    graphs); after ``model.train()`` it is the train forward.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):

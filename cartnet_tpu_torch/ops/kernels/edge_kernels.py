@@ -17,6 +17,14 @@ Node tables (xi, xj) come in bf16 or f32; e and the weights share the compute
 dtype. Every edge is computed, pads included (pads point at real rows).
 On a CUDA tensor ``edge_phase_fwd`` launches ``csrc/edge_phase_fwd.cu`` or
 raises; on a CPU tensor it runs ``edge_phase_fwd_plain``.
+
+The backward (port of ``edge_phase_bwd_call`` -> ``_bwd_kernel``, driven by
+``_ep_bwd``) is ``edge_phase_bwd``: on a CUDA tensor it launches
+``csrc/edge_phase_bwd.cu`` (three launches per call: a tile pass, a
+weight-gradient pass, a fixed-order reduce pass; no atomics) or raises; on a
+CPU tensor it runs ``edge_phase_bwd_plain``. It needs node tables and edges
+in one dtype, as training has them. ``EdgePhase`` is the autograd Function:
+forward K1 with the saved residual and the moments, backward K5.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ TILE_EDGES = 64
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0  # kernel launches (CUDA path only)
+launches = 0  # forward kernel launches (CUDA path only)
+bwd_launches = 0  # backward kernel launches (CUDA path only)
 
 
 def window_moments(gate, emask, tile: int):
@@ -159,3 +168,184 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
     global launches
     launches += 1
     return gate, sender, res, s1w, m2w
+
+
+# ------------------------------------------------------------ backward (K5)
+
+def edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
+                         dgate, dsender, deres, dst, src, emask,
+                         num_nodes: int, *, tile: int = TILE_EDGES):
+    """The backward kernel's function in plain PyTorch (same casts and
+    rounding) -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a); dxi/dxj
+    [num_nodes, 2d] and the weight/bias gradients are f32, de in e.dtype.
+    ``meanw``/``ds1w``/``dm2w`` are per-``tile``-edge window rows."""
+    cdt = e.dtype
+    E, d = gate.shape
+    f = lambda t: t.float()
+    pre, sig = f(saved[:, :2 * d]), f(saved[:, 2 * d:])
+    h32 = pre * sig
+    h = h32.to(cdt)
+    nt = E // tile
+    mf = emask.reshape(nt, tile, 1).float()
+    corr = (f(ds1w)[:, None, :] + 2.0 * f(dm2w)[:, None, :]
+            * (f(gate).reshape(nt, tile, d) - f(meanw)[:, None, :]))
+    dg = (f(dgate).reshape(nt, tile, d) + mf * corr).reshape(E, d).to(cdt)
+    ds = dsender.to(cdt)
+    dh = torch.cat([torch.matmul(f(dg), f(w1g).t()),
+                    torch.matmul(f(ds), f(w1a).t())], dim=1)
+    dpre = dh * (sig + h32 * (1.0 - sig))
+    dpre_c = f(dpre.to(cdt))
+    de = (f(deres) + torch.matmul(dpre_c, f(we).t())).to(e.dtype)
+    node = torch.where(emask[:, None], dpre_c, torch.zeros_like(dpre_c))
+    dxi = torch.zeros((num_nodes, 2 * d), dtype=torch.float32,
+                      device=e.device).index_add_(0, dst, node)
+    dxj = torch.zeros_like(dxi).index_add_(0, src, node)
+    return (de, dxi, dxj, torch.matmul(f(e).t(), dpre_c), dpre.sum(dim=0),
+            torch.matmul(f(h[:, :d]).t(), f(dg)), f(dg).sum(dim=0),
+            torch.matmul(f(h[:, d:]).t(), f(ds)), f(ds).sum(dim=0))
+
+
+def _check_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
+               dsender, deres, dst, src, emask, dst_rowptr, src_perm,
+               src_rowptr):
+    E, d = e.shape
+    N = dst_rowptr.shape[0] - 1
+    nt = E // TILE_EDGES
+    shapes = {"we": (we, (d, 2 * d)), "w1g": (w1g, (d, d)),
+              "w1a": (w1a, (d, d)), "saved": (saved, (E, 4 * d)),
+              "gate": (gate, (E, d)), "meanw": (meanw, (nt, d)),
+              "ds1w": (ds1w, (nt, d)), "dm2w": (dm2w, (nt, d)),
+              "dgate": (dgate, (E, d)), "dsender": (dsender, (E, d)),
+              "deres": (deres, (E, d)), "dst": (dst, (E,)),
+              "src": (src, (E,)), "emask": (emask, (E,)),
+              "src_perm": (src_perm, (E,)),
+              "src_rowptr": (src_rowptr, (N + 1,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+        if t.device != e.device:
+            raise ValueError(f"{name} on {t.device}, e on {e.device}")
+    if E % TILE_EDGES:
+        raise ValueError(f"E={E} must be a multiple of {TILE_EDGES}")
+    if e.dtype not in _DTYPES:
+        raise TypeError(f"e must be f32/bf16, got {e.dtype}")
+    for name, t in (("we", we), ("w1g", w1g), ("w1a", w1a),
+                    ("saved", saved), ("gate", gate), ("dgate", dgate),
+                    ("dsender", dsender), ("deres", deres)):
+        if t.dtype != e.dtype:
+            raise TypeError(f"{name} is {t.dtype}; the backward takes node "
+                            f"tables, edges and weights in one dtype "
+                            f"({e.dtype})")
+    for name, t in (("meanw", meanw), ("ds1w", ds1w), ("dm2w", dm2w)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be f32")
+    for name, t in (("dst", dst), ("src", src), ("dst_rowptr", dst_rowptr),
+                    ("src_perm", src_perm), ("src_rowptr", src_rowptr)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+    if emask.dtype != torch.bool:
+        raise TypeError("emask must be bool")
+
+
+def _lib_bwd():
+    lib = _build.load("edge_phase_bwd")
+    fn = lib.edge_phase_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.edge_phase_bwd_workspace.argtypes = [ctypes.c_int] * 3
+        lib.edge_phase_bwd_smem.argtypes = [ctypes.c_int] * 2
+        for name in ("edge_phase_bwd_workspace", "edge_phase_bwd_smem"):
+            getattr(lib, name).restype = ctypes.c_longlong
+    return lib
+
+
+def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
+                   dsender, deres, dst, src, emask, dst_rowptr, src_perm,
+                   src_rowptr):
+    """The edge-phase backward -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a,
+    db1a), as ``edge_phase_bwd_plain``; see the module docstring."""
+    _check_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
+               dsender, deres, dst, src, emask, dst_rowptr, src_perm,
+               src_rowptr)
+    E, d = e.shape
+    N = dst_rowptr.shape[0] - 1
+    if e.device.type == "cpu":
+        return edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw,
+                                    ds1w, dm2w, dgate, dsender, deres, dst,
+                                    src, emask, N)
+    if e.device.type != "cuda":
+        raise ValueError(f"unsupported device {e.device}")
+    args = (e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate, dsender,
+            deres, emask, dst_rowptr, src_perm, src_rowptr)
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("edge_phase_bwd needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in args[:6]):
+        raise ValueError("edge_phase_bwd needs 16-byte aligned e, weights, "
+                         "saved and gate")
+    lib = _lib_bwd()
+    is_bf16 = int(e.dtype == torch.bfloat16)
+    if d % 128 or E == 0 or lib.edge_phase_bwd_smem(d, is_bf16) > _SMEM_LIMIT:
+        raise ValueError(f"edge_phase_bwd kernel needs d % 128 == 0, "
+                         f"d <= 256 and E > 0 (E={E}, d={d})")
+    dev, f32 = e.device, torch.float32
+    de = torch.empty_like(e)
+    dg_buf = torch.empty((E, d), dtype=e.dtype, device=dev)
+    dpre_buf = torch.empty((E, 2 * d), dtype=e.dtype, device=dev)
+    dxi = torch.empty((N, 2 * d), dtype=f32, device=dev)
+    dxj = torch.empty((N, 2 * d), dtype=f32, device=dev)
+    dw = torch.empty(4 * d * d, dtype=f32, device=dev)
+    dbias = torch.empty(4 * d, dtype=f32, device=dev)
+    work = torch.empty(lib.edge_phase_bwd_workspace(E, d, is_bf16),
+                       dtype=f32, device=dev)
+    outs = (de, dg_buf, dpre_buf, dxi, dxj, dw, dbias, work)
+    err = lib.edge_phase_bwd(*(t.data_ptr() for t in args + outs), E, N, d,
+                             is_bf16, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "edge_phase_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    d2 = 2 * d * d
+    return (de, dxi, dxj, dw[:d2].view(d, 2 * d),
+            dbias[:2 * d], dw[d2:d2 + d * d].view(d, d), dbias[2 * d:3 * d],
+            dw[d2 + d * d:].view(d, d), dbias[3 * d:])
+
+
+class EdgePhase(torch.autograd.Function):
+    """(xi, xj, e, we, b, w1g, b1g, w1a, b1a) -> (gate, sender, e_res, s1_w,
+    M2_w) through K1 with the saved residual and the per-tile moments.
+    e_res is e passed through, so the layer's residual cotangent arrives
+    here as ``deres`` and leaves folded into de (once). The backward forms
+    mean_w = s1_w / max(n_w, 1) and runs K5; gradients come back in the
+    primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
+                dst_rowptr, src_perm, src_rowptr):
+        gate, sender, saved, s1w, m2w = edge_phase_fwd(
+            xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
+            saved=True, moments=True)
+        ctx.save_for_backward(e, we, w1g, w1a, dst, src, emask, dst_rowptr,
+                              src_perm, src_rowptr, saved, gate, s1w)
+        ctx.dtypes = [t.dtype for t in (xi, xj, e, we, b, w1g, b1g, w1a,
+                                        b1a)]
+        return gate, sender, e, s1w, m2w
+
+    @staticmethod
+    def backward(ctx, dgate, dsender, deres, ds1w, dm2w):
+        (e, we, w1g, w1a, dst, src, emask, dst_rowptr, src_perm, src_rowptr,
+         saved, gate, s1w) = ctx.saved_tensors
+        nt = s1w.shape[0]
+        n_w = emask.reshape(nt, -1).sum(dim=1, dtype=torch.float32)[:, None]
+        meanw = s1w / torch.clamp(n_w, min=1.0)
+        c = lambda t, dt: t.to(dt).contiguous()
+        grads = edge_phase_bwd(
+            e, we, w1g, w1a, saved, gate, meanw, c(ds1w, torch.float32),
+            c(dm2w, torch.float32), c(dgate, gate.dtype),
+            c(dsender, gate.dtype), c(deres, e.dtype), dst, src, emask,
+            dst_rowptr, src_perm, src_rowptr)
+        de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a = grads
+        # in the primal order: xi, xj, e, we, b, w1g, b1g, w1a, b1a
+        primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
+        return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
+            + (None,) * 6

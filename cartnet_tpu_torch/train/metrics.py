@@ -1,6 +1,8 @@
 """Loss and ADP evaluation metrics (port of cartnet_tpu/train/metrics.py).
 
   * masked MAE/MSE over real elements;
+  * ellipsoid volume and its relative error, summed with S12 per epoch
+    (``adp_stat_sums``);
   * S12 similarity index in its inverse-free, scale-normalized form;
   * voxelized 3D IoU of two ellipsoids on a deterministic 64^3 linspace grid.
 
@@ -27,6 +29,19 @@ def masked_mae_mse(pred, true, mask):
     count = torch.clamp(torch.sum(m) * math.prod(pred.shape[mask.dim():]),
                         min=1.0)
     return torch.sum(torch.abs(diff)) / count, torch.sum(diff * diff) / count
+
+
+def get_volume(u):
+    """Ellipsoid volume 4/3 pi sqrt(det U), det clamped at 0 (an f32
+    cofactor det of a near-singular SPD U can land just below 0)."""
+    return (4.0 / 3.0) * math.pi * torch.sqrt(torch.clamp(det3(u), min=0.0))
+
+
+def get_error_volume(pred, true):
+    """|V(pred) - V(true)| / (V(pred) + eps), the reference's argument
+    order included."""
+    vp = get_volume(pred)
+    return torch.abs(vp - get_volume(true)) / (vp + SMOOTH)
 
 
 def get_similarity_index(pred, true):
@@ -68,3 +83,19 @@ def compute_3d_iou(pred, true, num_points: int = 64):
     inter = (mp & mt).sum(dim=1).float()
     union = (mp | mt).sum(dim=1).float()
     return (inter + SMOOTH) / (union + SMOOTH)
+
+
+def _safe33(u, mask):
+    """Pad rows of a [N, 3, 3] stack replaced by I, so det/inv stay finite
+    (NaN * 0 would poison the masked sums)."""
+    eye = torch.eye(3, dtype=u.dtype, device=u.device)
+    return torch.where(mask[:, None, None], u, eye)
+
+
+def adp_stat_sums(pred, true, mask):
+    """Masked sums (volume error, S12, count) of the per-epoch ADP stats."""
+    p = _safe33(pred.float(), mask)
+    t = _safe33(true.float(), mask)
+    mf = mask.float()
+    return ((get_error_volume(p, t) * mf).sum(),
+            (get_similarity_index(p, t) * mf).sum(), mf.sum())

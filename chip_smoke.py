@@ -5,21 +5,34 @@
 
 Phases, one JSON line each (every line names the card and its power limit):
   1. device   the card (nvidia-smi name and power limit, also printed raw)
-  2. build    nvcc builds both kernels from csrc/ (one process per source)
+  2. build    nvcc builds the four kernels from csrc/ (one process per source)
   3. check    each kernel against its plain PyTorch version on the card, at
-              the main path's shapes, in every dtype combination the main path
-              feeds it, with the edge kernel's optional outputs off and on;
-              plus a bitwise repeat of every kernel run
+              the main path's shapes: K1/K2 in every dtype combination the
+              inference forward feeds them, with K1's optional outputs off
+              and on; K4/K5 (the backward kernels) in the bf16 training case
+              and the f32 case, with random cotangents that are zero on pad
+              rows; plus a bitwise repeat of every kernel run
   4. main     the ADP inference sweep (runner.inference) over 2 batches of 4
               synthetic ADP-scale crystals, flagship model (dim 256, 64 RBF,
               4 layers, Cholesky head, bf16 compute, random weights from seed
               0): launch counts per kernel, finite predictions, and agreement
               with the same model run through the plain versions
-  5. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
+  5. train    the training path (loop.make_steps / loop.train_epoch) on the
+              same batches with the flagship training config (temperature +
+              atom-type inputs, bf16): 32 micro-steps with batch_accumulation
+              16, i.e. 2 optimizer updates; launch counts per kernel (4 of
+              each of K1, K2, K4, K5 per micro-step), finite losses, no
+              skipped step, advanced BN running stats; a short training run
+              through the CLI (train, val, test) with its launch counts;
+              then one micro-step from the same state through the kernels
+              and through the plain versions (loss, every gradient, BN
+              stats), in bf16 and in f32
+  6. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, the bound for the same work, the
-              forward time per batch, and one profiled forward (device time
-              by kernel, idle share of the device)
-  6. kernels  the summary line {"kernels": [...]}
+              forward time per batch and the train micro-step time, and one
+              profiled forward and one profiled micro-step (device time by
+              kernel, idle share of the device)
+  7. kernels  the summary line {"kernels": [...]}
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
 script, it exits non-zero and prints no result.
@@ -27,6 +40,8 @@ script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -40,9 +55,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}  # tensor-core bf16; f32 FMA
-CHECK_TOL = {"f32": 1e-5, "bf16": 1e-2}  # max |kernel - plain| / max |plain|
-PRED_TOL = 3e-2  # bf16 forward, kernels vs plain versions, normalized
+# max |kernel - plain| / max |plain|: f32 elementwise outputs; f32 sums over
+# all edges (weight/bias gradients, dscale/dshift, dxi/dxj: 2*10^4-term
+# sums in another order); anything that bf16 rounding touches
+CHECK_TOL = {"f32": 1e-5, "sum": 1e-4, "bf16": 1e-2}
+PRED_TOL = 3e-2  # bf16 forward / train step, kernels vs plain, normalized
+# f32 train step, kernels vs plain: 10x the largest per-parameter error of
+# the port's f32 step against the JAX package in the CPU tests (1.4e-4)
+F32_STEP_TOL = 1e-3
 RUNS = 30
+KERNELS = ("edge_phase_fwd", "sigma_segsum_fwd", "sigma_segsum_bwd",
+           "edge_phase_bwd")
+TRAIN_MICRO_STEPS, TRAIN_ACCUM = 32, 16
 
 
 def emit(**obj):
@@ -138,20 +162,30 @@ def sigma_cost(args, outs, E, d):
     return bound(nbytes(*args) + nbytes(*outs), 9 * E * d, "f32")
 
 
-def profile_forward(model, batch, top: int = 10) -> dict:
-    """One profiled forward after warm-up: device time by kernel name, the
-    device's busy time against the wall time, and the host launch count."""
+def sigma_bwd_cost(args, outs, E, d):
+    # per element ~20 f32 operations (sigmoid chain, products, three sums)
+    return bound(nbytes(*args) + nbytes(*outs), 20 * E * d, "f32")
+
+
+def edge_bwd_cost(args, outs, d, E, op_dtype):
+    """dh = [dg|ds] @ W1^T, de = dpre @ We^T, dWe, dW1g, dW1a: 16 E d^2."""
+    return bound(nbytes(*args) + nbytes(*outs), 16 * E * d * d, op_dtype)
+
+
+def profile_call(fn, top: int = 10) -> dict:
+    """One profiled call of ``fn`` after a warm-up call: device time by
+    kernel name, the device's busy time against the wall time, and the
+    number of device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
-        model(batch)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kern = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -164,6 +198,186 @@ def profile_forward(model, batch, top: int = 10) -> dict:
                                   if ev.device_type
                                   == torch.autograd.DeviceType.CUDA),
             "top_kernels_ms": [[name[:80], ms] for name, ms in ranked]}
+
+
+def check_outputs(card, kernel, case, names, got, again, want, tol_of,
+                  **extra) -> float:
+    """One check line per kernel call: each output against the plain
+    version, with a bitwise repeat; fails outside tolerance. -> the largest
+    abs error."""
+    import torch
+    outputs, bad = {}, []
+    for oname, g, a, w in zip(names, got, again, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{kernel} {case} {oname}: {g.dtype}{tuple(g.shape)} vs "
+                 f"{w.dtype}{tuple(w.shape)}")
+        abs_err, rel = normalized_err(g, w)
+        bitwise = bool(torch.equal(g, a))
+        tol = tol_of(oname)
+        outputs[oname] = dict(dtype=str(g.dtype).replace("torch.", ""),
+                              max_abs_err=abs_err, max_rel_err=rel, tol=tol,
+                              bitwise_repeat=bitwise)
+        if not (rel <= tol and bitwise and math.isfinite(abs_err)):
+            bad.append(oname)
+    emit(phase="check", card=card, kernel=kernel, case=case, **extra,
+         outputs=outputs)
+    if bad:
+        fail(f"{kernel} {case}: {bad} outside tolerance or not bitwise "
+             f"repeatable")
+    return max(o["max_abs_err"] for o in outputs.values())
+
+
+def backward_inputs(batch, dt, d, gen, dev):
+    """K5 and K4 operands at the batch's shapes in the training dtype
+    ``dt``: K5's saved residual, gate and window moments come from a K1
+    run; cotangents are random and zero on pad-edge rows, as the model's
+    are. -> (K5 args, K4 args), in the wrappers' argument order."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    E, N = batch.num_edges, batch.num_nodes
+    m = batch.edge_mask[:, None]
+    rn = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    cot = lambda: (rn(E, d) * m).to(dt)
+    args = edge_inputs(batch, dt, dt, d, gen, dev)
+    idx = (batch.edge_dst, batch.edge_src, batch.edge_mask)
+    gate, _, saved, s1w, _ = ek.edge_phase_fwd(*args, *idx, saved=True,
+                                               moments=True)
+    nt = s1w.shape[0]
+    n_w = batch.edge_mask.reshape(nt, -1).sum(dim=1,
+                                              dtype=torch.float32)[:, None]
+    edge = (args[2], args[3], args[5], args[7], saved, gate,
+            s1w / torch.clamp(n_w, min=1.0), 0.01 * rn(nt, d),
+            0.01 * rn(nt, d), cot(), cot(), cot(), *idx, batch.dst_rowptr,
+            batch.edge_src_perm, batch.src_rowptr)
+    sig = sigma_inputs(batch, dt, dt, d, gen, dev)
+    sigma = (*sig[:5], cot(), rn(N, d).to(dt), batch.edge_dst,
+             batch.edge_mask)
+    return edge, sigma
+
+
+EDGE_BWD_OUT = ("de", "dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a",
+                "db1a")
+SIGMA_BWD_OUT = ("dgate", "dscale", "dshift", "denv", "dsender")
+
+
+def edge_bwd_plain(*a):
+    """K5's plain version with the wrapper's arguments."""
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    return ek.edge_phase_bwd_plain(*a[:15], a[15].shape[0] - 1)
+
+
+def sigma_fwd_plain(*a):
+    """K2's plain version with the wrapper's arguments."""
+    from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    return sk.sigma_segsum_plain(*a[:8], a[9])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the training path's four kernel calls to the plain versions."""
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    kept = (ek.edge_phase_fwd, ek.edge_phase_bwd, sk.sigma_segsum,
+            sk.sigma_segsum_bwd)
+    ek.edge_phase_fwd, ek.edge_phase_bwd = (ek.edge_phase_fwd_plain,
+                                            edge_bwd_plain)
+    sk.sigma_segsum, sk.sigma_segsum_bwd = (sigma_fwd_plain,
+                                            sk.sigma_segsum_bwd_plain)
+    try:
+        yield
+    finally:
+        (ek.edge_phase_fwd, ek.edge_phase_bwd, sk.sigma_segsum,
+         sk.sigma_segsum_bwd) = kept
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """Each kernel wrapper's launch count (optionally set to 0 first)."""
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    if reset:
+        ek.launches = sk.launches = ek.bwd_launches = sk.bwd_launches = 0
+    return dict(zip(KERNELS, (ek.launches, sk.launches, sk.bwd_launches,
+                              ek.bwd_launches)))
+
+
+def grad_errors(names, got, want) -> dict:
+    """max |kernel - plain| of each gradient over the largest gradient entry
+    of its layer (encoder, layers.i, head). Per-parameter normalization is
+    ill-posed here: under train BN some gradients (the gate MLP's biases)
+    cancel to a small remainder of large per-edge terms, and in bf16 that
+    remainder is mostly rounding noise."""
+    group = lambda n: ".".join(n.split(".")[:2 if n.startswith("layers")
+                                               else 1])
+    scale = {}
+    for n, w in zip(names, want):
+        scale[group(n)] = max(scale.get(group(n), 0.0),
+                              float(w.float().abs().max()))
+    return {n: normalized_err(g, w)[0] / max(scale[group(n)], 1e-30)
+            for n, g, w in zip(names, got, want)}
+
+
+def train_vs_plain(card, cfg, model, batch, tol) -> None:
+    """One micro-step from the model's current state through the kernels
+    and through the plain versions: loss and BN running stats normalized
+    within ``tol``; gradients by grad_errors. In f32 each gradient is held
+    to ``tol`` as well. In bf16 the gradients under train BN carry bf16
+    rounding noise of order 10% that compounds over the layers in either
+    path, so there each gradient's distance from the f32 gradient at the
+    same weights (plain versions, f32 compute) may be at most twice the
+    plain bf16 path's own distance plus ``tol``."""
+    import torch
+    from cartnet_tpu_torch.models.cartnet import CartNet
+    from cartnet_tpu_torch.train import loop
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    pnames = [n for n, _ in model.named_parameters()]
+    bnames = [n for n, _ in model.named_buffers()]
+
+    def one_micro(c, m):
+        m.load_state_dict(sd0)
+        opt = loop.build_optimizer(c, m.parameters(), 1)
+        st, stats = loop.make_steps(c)[0](loop.init_train_state(m, opt),
+                                          batch)
+        torch.cuda.synchronize()
+        return (stats["loss"].reshape(1).clone(),
+                [g.clone() for g in st.grad_accum],
+                [b.clone() for b in loop.bn_buffers(m)])
+
+    k_loss, k_grads, k_bn = one_micro(cfg, model)
+    with plain_kernels():
+        p_loss, p_grads, p_bn = one_micro(cfg, model)
+    model.load_state_dict(sd0)
+    errs = {"loss": normalized_err(k_loss, p_loss)[1]}
+    errs.update({n: normalized_err(a, b)[1]
+                 for n, a, b in zip(bnames, k_bn, p_bn)})
+    g_err = grad_errors(pnames, k_grads, p_grads)
+    line = dict(compute_dtype=str(cfg.model.compute_dtype), tol=tol,
+                loss=float(k_loss), loss_plain=float(p_loss),
+                loss_rel_err=errs["loss"],
+                bn_stats_max_rel_err=max(errs[n] for n in bnames),
+                grads_max_rel_err_per_layer=max(g_err.values()),
+                grads_worst=max(g_err, key=g_err.get))
+    bad = [n for n, e in errs.items() if e > tol]
+    if cfg.model.compute_dtype == torch.float32:
+        bad += [n for n, e in g_err.items() if e > tol]
+    else:
+        cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=torch.float32))
+        with plain_kernels():
+            _, r_grads, _ = one_micro(cfg32, CartNet(
+                cfg32.model, device=batch.z.device, seed=0))
+        k_ref = grad_errors(pnames, k_grads, r_grads)
+        p_ref = grad_errors(pnames, p_grads, r_grads)
+        ratio = {n: (k_ref[n] - tol) / max(p_ref[n], 1e-30) for n in pnames}
+        worst = max(ratio, key=ratio.get)
+        line.update(grads_vs_f32_kernels=k_ref[worst],
+                    grads_vs_f32_plain=p_ref[worst], grads_vs_f32_worst=worst,
+                    grads_vs_f32_max_kernels=max(k_ref.values()),
+                    grads_vs_f32_max_plain=max(p_ref.values()))
+        bad += [n for n in pnames if k_ref[n] > 2 * p_ref[n] + tol]
+    emit(phase="train_vs_plain", card=card, **line, failed=bad)
+    if bad:
+        fail(f"train step kernels vs plain ({cfg.model.compute_dtype}): "
+             f"{bad}")
 
 
 # ----------------------------------------------------------------- main
@@ -180,13 +394,15 @@ def main() -> int:
         print(f"chip_smoke: the cartnet_tpu_torch package is not beside this "
               f"script ({err})", file=sys.stderr)
         return 2
-    from cartnet_tpu_torch import runner
-    from cartnet_tpu_torch.config import ModelConfig, resolve_device
+    from cartnet_tpu_torch import cli, runner
+    from cartnet_tpu_torch.config import (Config, ModelConfig, OptimConfig,
+                                          resolve_device)
     from cartnet_tpu_torch.data.batching import make_batches
     from cartnet_tpu_torch.data.synthetic import synthetic_dataset
     from cartnet_tpu_torch.models import cartnet as model_mod
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    from cartnet_tpu_torch.train import loop
 
     # 1. device
     dev = resolve_device("cuda")
@@ -200,10 +416,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build_all(["edge_phase_fwd", "sigma_segsum_fwd"])
+    _build.build_all(KERNELS)
     build_s = time.perf_counter() - t0
     ptxas = {}
-    for src in ("edge_phase_fwd", "sigma_segsum_fwd"):
+    for src in KERNELS:
         log = (_build.BUILD_DIR / f"{src}.log")
         ptxas[src] = [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln] \
@@ -222,11 +438,14 @@ def main() -> int:
     # (node tables / gate dtype, edge dtype, calls per forward at bf16)
     cases = {"layer0_bf16": (bf, bf, 1), "layers1to3_bf16": (f32, bf, 3),
              "f32_config": (f32, f32, 0)}
+    # training: one dtype throughout (calls per micro-step at bf16)
+    train_cases = {"train_bf16": (bf, 4), "f32_config": (f32, 0)}
 
     # 3. kernel checks
-    check_err = {"edge_phase_fwd": 0.0, "sigma_segsum_fwd": 0.0}
+    check_err = dict.fromkeys(KERNELS, 0.0)
     timing_inputs = {}
     for case, (tdt, edt, _) in cases.items():
+        tol = CHECK_TOL["f32" if tdt == edt == f32 else "bf16"]
         args = edge_inputs(b0, tdt, edt, d, gen, dev)
         for extras in (False, True):
             kw = dict(saved=extras, moments=extras)
@@ -235,28 +454,19 @@ def main() -> int:
             want = ek.edge_phase_fwd_plain(*args, *idx, tile=ek.TILE_EDGES,
                                            **kw)
             torch.cuda.synchronize()
-            tol = CHECK_TOL["f32" if tdt == edt == f32 else "bf16"]
-            for oname, g, a, w in zip(("gate", "sender", "saved", "s1_w",
-                                       "M2_w"), got, again, want):
-                if w is None:
-                    if g is not None:
-                        fail(f"edge_phase_fwd returned {oname} unasked")
-                    continue
-                if g.dtype != w.dtype or g.shape != w.shape:
-                    fail(f"edge_phase_fwd {case} {oname}: {g.dtype}"
-                         f"{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
-                abs_err, rel = normalized_err(g, w)
-                bitwise = bool(torch.equal(g, a))
-                emit(phase="check", card=card, kernel="edge_phase_fwd",
-                     case=case, optional_outputs=extras, output=oname,
-                     dtype=str(g.dtype), max_abs_err=abs_err,
-                     max_rel_err=rel, tol=tol, bitwise_repeat=bitwise)
-                if not (rel <= tol and bitwise and math.isfinite(abs_err)):
-                    fail(f"edge_phase_fwd {case} {oname} rel err {rel} "
-                         f"(tol {tol}), bitwise repeat {bitwise}")
-                if case != "f32_config":
-                    check_err["edge_phase_fwd"] = max(
-                        check_err["edge_phase_fwd"], abs_err)
+            names = ("gate", "sender", "saved", "s1_w", "M2_w")
+            if any((g is None) != (w is None) for g, w in zip(got, want)):
+                fail("edge_phase_fwd returned optional outputs unasked")
+            keep = [i for i, w in enumerate(want) if w is not None]
+            err = check_outputs(card, "edge_phase_fwd", case,
+                                [names[i] for i in keep],
+                                [got[i] for i in keep],
+                                [again[i] for i in keep],
+                                [want[i] for i in keep], lambda _: tol,
+                                optional_outputs=extras)
+            if case != "f32_config":
+                check_err["edge_phase_fwd"] = max(
+                    check_err["edge_phase_fwd"], err)
         timing_inputs[("edge", case)] = args
 
         sargs = sigma_inputs(b0, tdt, edt, d, gen, dev)
@@ -266,23 +476,32 @@ def main() -> int:
                                 b0.dst_rowptr, N)
         want = sk.sigma_segsum_plain(*sargs, b0.edge_dst, b0.edge_mask, N)
         torch.cuda.synchronize()
-        tol = CHECK_TOL["f32" if tdt == edt == f32 else "bf16"]
-        for oname, g, a, w in zip(("e_out", "aggr"), got, again, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                fail(f"sigma_segsum {case} {oname}: dtype/shape mismatch")
-            abs_err, rel = normalized_err(g, w)
-            bitwise = bool(torch.equal(g, a))
-            emit(phase="check", card=card, kernel="sigma_segsum_fwd",
-                 case=case, output=oname, dtype=str(g.dtype),
-                 max_abs_err=abs_err, max_rel_err=rel, tol=tol,
-                 bitwise_repeat=bitwise)
-            if not (rel <= tol and bitwise and math.isfinite(abs_err)):
-                fail(f"sigma_segsum {case} {oname} rel err {rel} (tol {tol})"
-                     f", bitwise repeat {bitwise}")
-            if case != "f32_config":
-                check_err["sigma_segsum_fwd"] = max(
-                    check_err["sigma_segsum_fwd"], abs_err)
+        err = check_outputs(card, "sigma_segsum_fwd", case, ("e_out", "aggr"),
+                            got, again, want, lambda _: tol)
+        if case != "f32_config":
+            check_err["sigma_segsum_fwd"] = max(
+                check_err["sigma_segsum_fwd"], err)
         timing_inputs[("sigma", case)] = sargs
+
+    for case, (dt, _) in train_cases.items():
+        eargs, sargs = backward_inputs(b0, dt, d, gen, dev)
+        sums = ("dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a", "db1a",
+                "dscale", "dshift")
+        tol_of = (lambda o: CHECK_TOL["bf16"]) if dt == bf else (
+            lambda o: CHECK_TOL["sum" if o in sums else "f32"])
+        for kname, fn, plain, names, a in (
+                ("edge_phase_bwd", ek.edge_phase_bwd, edge_bwd_plain,
+                 EDGE_BWD_OUT, eargs),
+                ("sigma_segsum_bwd", sk.sigma_segsum_bwd,
+                 sk.sigma_segsum_bwd_plain, SIGMA_BWD_OUT, sargs)):
+            got, again, want = fn(*a), fn(*a), plain(*a)
+            torch.cuda.synchronize()
+            err = check_outputs(card, kname, case, names, got, again, want,
+                                tol_of)
+            if dt == bf:
+                check_err[kname] = max(check_err[kname], err)
+        timing_inputs[("edge_bwd", case)] = eargs
+        timing_inputs[("sigma_bwd", case)] = sargs
 
     # 4. main path: the inference sweep through the kernels
     cfg = ModelConfig(dim_in=d, dim_rbf=64, num_layers=4, cholesky=True,
@@ -290,40 +509,35 @@ def main() -> int:
     model = model_mod.CartNet(cfg, device=dev, seed=0)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out_path = str(_build.BUILD_DIR / "chip_smoke_inference.pkl")
-    ek.launches = sk.launches = 0
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     out = runner.inference(model, batches, out_path, device=dev)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = {"edge_phase_fwd": ek.launches,
-                "sigma_segsum_fwd": sk.launches}
-    per_forward = cfg.num_layers
-    expect = per_forward * len(batches)
+    launches_inf = launch_counts()
+    expect = cfg.num_layers * len(batches)
+    expect_inf = dict.fromkeys(KERNELS, 0)
+    expect_inf.update(edge_phase_fwd=expect, sigma_segsum_fwd=expect)
     preds = [torch.as_tensor(p) for p in out["pred"]]
     finite = all(bool(torch.isfinite(p).all()) for p in preds)
     n_atoms = sum(p.shape[0] for p in preds)
     emit(phase="main", card=card, batches=len(batches), structures=len(preds),
          atoms=n_atoms, nodes=N, edges=E,
          real_edges=[int(b.edge_mask.sum()) for b in batches],
-         launches=launches, expected_launches_each=expect,
+         launches=launches_inf, expected_launches=expect_inf,
          sweep_seconds=round(sweep_s, 3), finite=finite,
          mean_mae=float(statistics.fmean(out["mae"])))
-    if any(v != expect for v in launches.values()):
-        fail(f"launch counts {launches}, expected {expect} each")
+    if launches_inf != expect_inf:
+        fail(f"launch counts {launches_inf}, expected {expect_inf}")
     if not finite or len(preds) != len(recs):
         fail("non-finite or missing predictions")
 
     # the same model through the plain versions on the card
-    def plain_sigma(gate, scale, shift, env, sender, e_in, dst, mask, rowptr,
-                    n):
-        return sk.sigma_segsum_plain(gate, scale, shift, env, sender, e_in,
-                                     dst, mask, n)
-
     kernel_fns = (model_mod.edge_phase_fwd, model_mod.sigma_segsum)
 
     def use_plain(on: bool):
         model_mod.edge_phase_fwd, model_mod.sigma_segsum = (
-            (ek.edge_phase_fwd_plain, plain_sigma) if on else kernel_fns)
+            (ek.edge_phase_fwd_plain, sigma_fwd_plain) if on else kernel_fns)
 
     pred_err = 0.0
     fwd_ms, fwd_plain_ms = [], []
@@ -346,72 +560,180 @@ def main() -> int:
     if pred_err > PRED_TOL:
         fail(f"kernel forward vs plain forward: rel err {pred_err}")
 
-    # 5. times at the main path's shapes
-    rows = {}
-    for kname in ("edge_phase_fwd", "sigma_segsum_fwd"):
-        rows[kname] = {}
-        for case, (tdt, edt, calls) in cases.items():
-            if kname == "edge_phase_fwd":
-                args = timing_inputs[("edge", case)]
-                fk = lambda a=args: ek.edge_phase_fwd(*a, *idx)
-                fp = lambda a=args: ek.edge_phase_fwd_plain(*a, *idx)
-                outs = fk()[:2]
-                ops_dt = "f32" if edt == f32 else "bf16"
-                t_bound, by = edge_cost(list(args) + list(idx), outs, d, E,
-                                        ops_dt)
-            else:
-                args = timing_inputs[("sigma", case)]
-                extra = (b0.edge_mask, b0.dst_rowptr)
-                fk = lambda a=args: sk.sigma_segsum(
-                    *a, b0.edge_dst, b0.edge_mask, b0.dst_rowptr, N)
-                fp = lambda a=args: sk.sigma_segsum_plain(
-                    *a, b0.edge_dst, b0.edge_mask, N)
-                outs = fk()
-                t_bound, by = sigma_cost(list(args) + list(extra), outs, E, d)
-            plain1 = cuda_median_ms(fp)
-            kern = cuda_median_ms(fk)
-            plain2 = cuda_median_ms(fp)
-            row = dict(ms=kern, plain_ms=statistics.fmean([plain1, plain2]),
-                       bound_ms=t_bound, bound_by=by, calls=calls)
-            rows[kname][case] = row
-            emit(phase="time", card=card, kernel=kname, case=case,
-                 runs=RUNS, **row,
-                 share_of_bound=t_bound / kern if kern else None)
+    # 5. train: the flagship training config through make_steps/train_epoch
+    tcfg = Config(model=ModelConfig(dim_in=d, dim_rbf=64, num_layers=4,
+                                    cholesky=True, use_temperature=True,
+                                    use_atom_types=True, compute_dtype=bf),
+                  optim=OptimConfig(max_epoch=1,
+                                    batch_accumulation=TRAIN_ACCUM))
+    tmodel = model_mod.CartNet(tcfg.model, device=dev, seed=0)
+    opt = loop.build_optimizer(tcfg, tmodel.parameters(), TRAIN_MICRO_STEPS)
+    state = loop.init_train_state(tmodel, opt)
+    micro, update, _ = loop.make_steps(tcfg)
+    dev_batches = [b.to(dev) for b in batches]
+    epoch = dev_batches * (TRAIN_MICRO_STEPS // len(dev_batches))
+    bn0 = [t.clone() for t in loop.bn_buffers(tmodel)]
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    state, rows = loop.train_epoch(state, epoch, micro, update, TRAIN_ACCUM,
+                                   dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches_train = launch_counts()
+    losses = [float(r[0]["loss"]) for r in rows]
+    bn_moved = all(not torch.equal(a, b)
+                   for a, b in zip(bn0, loop.bn_buffers(tmodel)))
+    expect_train = 4 * len(epoch)
+    emit(phase="train", card=card, micro_steps=len(epoch),
+         batch_accumulation=TRAIN_ACCUM, optimizer_steps=state.step,
+         launches=launches_train, expected_launches_each=expect_train,
+         launches_per_micro_step={k: v / len(epoch)
+                                  for k, v in launches_train.items()},
+         loss_first=losses[0], loss_last=losses[-1],
+         finite=all(math.isfinite(x) for x in losses),
+         bad_steps=int(state.bad_steps), bn_stats_updated=bn_moved,
+         seconds=round(train_s, 3))
+    if any(v != expect_train for v in launches_train.values()):
+        fail(f"train launch counts {launches_train}, expected "
+             f"{expect_train} each")
+    if not all(math.isfinite(x) for x in losses) or int(state.bad_steps):
+        fail("non-finite train losses or skipped steps")
+    if state.step != len(epoch) // TRAIN_ACCUM or not bn_moved:
+        fail(f"{state.step} optimizer steps, BN stats moved: {bn_moved}")
+
+    # the user's entry point: one short training run through the CLI
+    # (flagship widths, the CLI's synthetic splits of 8 / 2 / 2 crystals:
+    # 2 train micro-steps, 1 val and 1 test batch)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    cstate, ctest = cli.main(["--dataset", "synthetic", "--limit", "8",
+                              "--epochs", "1", "--batch_accumulation", "2",
+                              "--bf16"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches_cli = launch_counts()
+    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2)))
+    emit(phase="cli", card=card, launches=launches_cli,
+         expected_launches=expect_cli, optimizer_steps=cstate.step,
+         bad_steps=int(cstate.bad_steps), test=ctest,
+         seconds=round(cli_s, 3))
+    if launches_cli != expect_cli or cstate.step != 1 or not all(
+            math.isfinite(v) for v in ctest.values()):
+        fail(f"CLI training run: launches {launches_cli}, "
+             f"{cstate.step} optimizer steps, test stats {ctest}")
+
+    # one micro-step from the same state, kernels vs plain versions: the
+    # trained bf16 model, and the f32 config at its initial state
+    train_vs_plain(card, tcfg, tmodel, dev_batches[0], PRED_TOL)
+    cfg32 = dataclasses.replace(
+        tcfg, model=dataclasses.replace(tcfg.model, compute_dtype=f32))
+    train_vs_plain(card, cfg32, model_mod.CartNet(cfg32.model, device=dev,
+                                                  seed=0),
+                   dev_batches[0], F32_STEP_TOL)
+
+    # 6. times at the main path's shapes
+    rows_t = {k: {} for k in KERNELS}
+
+    def time_row(kname, case, fk, fp, t_bound, by, calls):
+        plain1 = cuda_median_ms(fp)
+        kern = cuda_median_ms(fk)
+        plain2 = cuda_median_ms(fp)
+        row = dict(ms=kern, plain_ms=statistics.fmean([plain1, plain2]),
+                   bound_ms=t_bound, bound_by=by, calls=calls)
+        rows_t[kname][case] = row
+        emit(phase="time", card=card, kernel=kname, case=case, runs=RUNS,
+             **row, share_of_bound=t_bound / kern if kern else None)
+
+    for case, (tdt, edt, calls) in cases.items():
+        args = timing_inputs[("edge", case)]
+        ops_dt = "f32" if edt == f32 else "bf16"
+        t_bound, by = edge_cost(list(args) + list(idx),
+                                ek.edge_phase_fwd(*args, *idx)[:2], d, E,
+                                ops_dt)
+        time_row("edge_phase_fwd", case,
+                 lambda a=args: ek.edge_phase_fwd(*a, *idx),
+                 lambda a=args: ek.edge_phase_fwd_plain(*a, *idx),
+                 t_bound, by, calls)
+        args = timing_inputs[("sigma", case)]
+        extra = (b0.edge_mask, b0.dst_rowptr)
+        fk = lambda a=args: sk.sigma_segsum(*a, b0.edge_dst, b0.edge_mask,
+                                            b0.dst_rowptr, N)
+        t_bound, by = sigma_cost(list(args) + list(extra), fk(), E, d)
+        time_row("sigma_segsum_fwd", case, fk,
+                 lambda a=args: sk.sigma_segsum_plain(*a, b0.edge_dst,
+                                                      b0.edge_mask, N),
+                 t_bound, by, calls)
+    # the training case of K1 (saved residual and moments on) and of K2
+    args = timing_inputs[("edge", "layer0_bf16")]
+    kw = dict(saved=True, moments=True)
+    t_bound, by = edge_cost(list(args) + list(idx),
+                            ek.edge_phase_fwd(*args, *idx, **kw), d, E,
+                            "bf16")
+    time_row("edge_phase_fwd", "train_bf16",
+             lambda: ek.edge_phase_fwd(*args, *idx, **kw),
+             lambda: ek.edge_phase_fwd_plain(*args, *idx, **kw), t_bound, by,
+             4)
+    rows_t["sigma_segsum_fwd"]["train_bf16"] = dict(
+        rows_t["sigma_segsum_fwd"]["layer0_bf16"], calls=4)
+    for case, (dt, calls) in train_cases.items():
+        eargs = timing_inputs[("edge_bwd", case)]
+        t_bound, by = edge_bwd_cost(eargs, ek.edge_phase_bwd(*eargs), d, E,
+                                    "bf16" if dt == bf else "f32")
+        time_row("edge_phase_bwd", case,
+                 lambda a=eargs: ek.edge_phase_bwd(*a),
+                 lambda a=eargs: edge_bwd_plain(*a), t_bound, by, calls)
+        sargs = timing_inputs[("sigma_bwd", case)]
+        t_bound, by = sigma_bwd_cost(sargs, sk.sigma_segsum_bwd(*sargs), E, d)
+        time_row("sigma_segsum_bwd", case,
+                 lambda a=sargs: sk.sigma_segsum_bwd(*a),
+                 lambda a=sargs: sk.sigma_segsum_bwd_plain(*a), t_bound, by,
+                 calls)
     emit(phase="forward", card=card, batch_ms_kernels=fwd_ms,
          batch_ms_plain=fwd_plain_ms, runs=20)
-    emit(phase="profile", card=card, **profile_forward(model, b0))
 
-    # 6. summary: per launch, averaged over one bf16 forward's launches
-    # (layer 0 with bf16 node tables, layers 1-3 with f32 ones)
-    def mix(kname, key):
-        rs = rows[kname].values()
-        return (sum(r[key] * r["calls"] for r in rs)
-                / sum(r["calls"] for r in rs))
+    def forward():
+        with torch.inference_mode():
+            model(b0)
 
+    emit(phase="profile", card=card, what="forward", **profile_call(forward))
+    step = lambda: micro(state, dev_batches[0])
+    step_ms = cuda_median_ms(step, 20)
+    with plain_kernels():
+        step_plain_ms = cuda_median_ms(step, 20)
+    real_edges = statistics.fmean(int(b.edge_mask.sum()) for b in batches)
+    emit(phase="train_step", card=card, micro_step_ms=step_ms,
+         micro_step_ms_plain=step_plain_ms, runs=20,
+         mean_real_edges=real_edges,
+         edges_per_s=real_edges / (step_ms / 1e3),
+         edges_per_s_plain=real_edges / (step_plain_ms / 1e3))
+    emit(phase="profile", card=card, what="train_micro_step",
+         **profile_call(step))
+
+    # 7. summary: per launch on the training path (all four kernels run in
+    # every micro-step, in the bf16 training case)
     kernels = []
     for kname, src, replaces in (
             ("edge_phase_fwd", "cartnet_tpu_torch/csrc/edge_phase_fwd.cu",
              "cartnet_tpu/ops/pallas/edge_kernels.py:162"),
             ("sigma_segsum_fwd", "cartnet_tpu_torch/csrc/sigma_segsum_fwd.cu",
-             "cartnet_tpu/ops/pallas/segment_kernels.py:191")):
-        by_ops = sum(r["calls"] for r in rows[kname].values()
-                     if r["bound_by"] == "operations")
-        by_bytes = sum(r["calls"] for r in rows[kname].values()
-                       if r["bound_by"] == "bytes")
+             "cartnet_tpu/ops/pallas/segment_kernels.py:191"),
+            ("sigma_segsum_bwd", "cartnet_tpu_torch/csrc/sigma_segsum_bwd.cu",
+             "cartnet_tpu/ops/pallas/segment_kernels.py:223"),
+            ("edge_phase_bwd", "cartnet_tpu_torch/csrc/edge_phase_bwd.cu",
+             "cartnet_tpu/ops/pallas/edge_kernels.py:269")):
+        r = rows_t[kname]["train_bf16"]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": check_err[kname], "ms": mix(kname, "ms"),
-            "plain_ms": mix(kname, "plain_ms"),
-            "bound_ms": mix(kname, "bound_ms"),
-            "bound_by": "operations" if by_ops > by_bytes else "bytes",
-            "library_ms": None})
+            "replaces": replaces, "launches": launches_train[kname],
+            "launches_inference": launches_inf[kname],
+            "max_abs_err": check_err[kname], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

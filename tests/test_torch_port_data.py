@@ -80,9 +80,41 @@ def test_collate_matches(edge_align):
     assert rowptr[0] == 0 and rowptr[-1] == max_edges
     np.testing.assert_array_equal(
         np.diff(rowptr), np.bincount(ours.edge_dst, minlength=max_nodes))
+    # src_rowptr: CSR offsets of the src-sorted edge order
+    srowptr = ours.src_rowptr
+    assert srowptr.dtype == np.int32 and srowptr.shape == (max_nodes + 1,)
+    np.testing.assert_array_equal(
+        np.diff(srowptr), np.bincount(ours.edge_src, minlength=max_nodes))
+    for n in np.unique(ours.edge_src):
+        sel = ours.edge_src_perm[srowptr[n]:srowptr[n + 1]]
+        assert (ours.edge_src[sel] == n).all() and (np.diff(sel) > 0).all()
     last_real = np.flatnonzero(ours.edge_mask)[-1]
     # edge_align puts masked pad edges between graphs' real edges
     assert (~ours.edge_mask[:last_real]).any() == bool(edge_align)
+
+
+@pytest.mark.parametrize("mean_atoms", [20, 120])
+def test_pipeline_matches_jax(mean_atoms):
+    """Same pad sizes, alignment and RCM, and the same seeded shuffle per
+    epoch (train) or fixed order (val/test), as the JAX BatchPipeline."""
+    from cartnet_tpu.data.pipeline import BatchPipeline as JPipe
+    from cartnet_tpu_torch.data.pipeline import BatchPipeline
+    recs = tsyn.synthetic_dataset(7, mean_atoms=mean_atoms, adp=True, seed=2)
+    for shuffle in (True, False):
+        ours = BatchPipeline(recs, 2, shuffle=shuffle, seed=5)
+        ref = JPipe(recs, 2, shuffle=shuffle, seed=5, prefetch=0)
+        assert len(ours) == len(ref) == 4
+        assert (ours.max_nodes, ours.max_edges, ours.edge_align) == (
+            ref.max_nodes, ref.max_edges, ref.edge_align)
+        assert ours.edge_align == (512 if mean_atoms == 120 else 0)
+        for _ in range(2):  # two epochs: the shuffle advances per epoch
+            for a, b in zip(ours, ref):
+                for f in SHARED_FIELDS:
+                    np.testing.assert_array_equal(
+                        np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
+                        err_msg=f)
+    with pytest.raises(NotImplementedError, match="P2"):
+        BatchPipeline(recs, 2, augment=True)
 
 
 def test_make_batches_aligns_adp_scale():
