@@ -3,11 +3,14 @@
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit N \
         --epochs E --batch_accumulation A [--bf16] [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit 8 --inference \
-        [--checkpoint_path best.ckpt] [--bf16] [--device cuda|cpu]
+        [--model CartNet|eComformer] [--checkpoint_path best.ckpt] [--bf16] \
+        [--device cuda|cpu]
 
 Flags and the synthetic splits mirror cartnet_tpu/cli.py; the ``synthetic``
-source is the one ported. Without a checkpoint the weights are random,
-drawn from ``--seed``; with one, training starts from it.
+source is the one ported. ``--model`` is case-insensitive; the eComformer
+serves (``--inference``) but does not train yet. Without a checkpoint the
+weights are random, drawn from ``--seed``; with one (a reference CartNet
+``best.ckpt`` or a state_dict the port saved), training starts from it.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ from cartnet_tpu_torch.config import (Config, DataConfig, ModelConfig,
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import load_reference_checkpoint
-from cartnet_tpu_torch.models.cartnet import CartNet
+from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.runner import inference, run
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("cartnet_tpu_torch")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--model", type=str, default="CartNet",
+                   help="CartNet or eComformer (case-insensitive)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--dataset", type=str, default="synthetic",
                    help="synthetic (the only source ported so far)")
@@ -60,8 +65,9 @@ def args_to_config(args) -> Config:
     # the synthetic source carries no measured temperature input (as in the
     # reference CLI); the ported source has ADP targets (Cholesky head)
     model = ModelConfig(
-        dim_in=args.dim_in, dim_rbf=args.dim_rbf, num_layers=args.num_layers,
-        radius=args.radius, use_temperature=False, cholesky=True,
+        name=args.model.lower(), dim_in=args.dim_in, dim_rbf=args.dim_rbf,
+        num_layers=args.num_layers, radius=args.radius,
+        use_temperature=False, cholesky=True,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     data = DataConfig(name=args.dataset, radius=args.radius,
                       batch_size=args.batch)
@@ -101,7 +107,7 @@ def main(argv=None):
     splits = load_datasets(cfg.data, args.limit)
     if not args.inference:
         return run(cfg, splits, device, state_dict)
-    model = CartNet(cfg.model, device=device, seed=args.seed)
+    model = create_model(cfg.model, device, args.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     batches = make_batches(splits[2], cfg.data.batch_size)

@@ -1,10 +1,13 @@
 """Weights into the port: JAX-package pytrees and reference checkpoints.
 
-The port's modules already use the reference's state_dict key space, so a
-reference ``best.ckpt`` (``{"model_state": state_dict, ...}``) loads as is.
+The port's CartNet modules already use the reference's state_dict key
+space, so a reference ``best.ckpt`` (``{"model_state": state_dict, ...}``)
+loads as is, and so does a state_dict the port saved (any model).
 ``params_from_jax`` is the port's own copy of the mapping that
 cartnet_tpu/interop.py::export_state_dict applies to the JAX package's
-(params, bn_state) pytrees, taken as nested dicts of numpy arrays:
+CartNet (params, bn_state) pytrees, taken as nested dicts of numpy arrays;
+``ecomformer_params_from_jax`` does the same for the eComformer, whose
+state_dict names follow the JAX pytree:
 
   * JAX ``w`` is [in, out]; torch ``nn.Linear.weight`` is [out, in];
   * embeddings are [num, dim] on both sides;
@@ -30,6 +33,15 @@ def _lin(prefix: str, p: Dict[str, Any], sd: Dict[str, torch.Tensor]):
     sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
     if "b" in p:
         sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _bn(prefix: str, p, s, sd: Dict[str, torch.Tensor]):
+    sd[f"{prefix}.weight"] = _t(p["gamma"])
+    sd[f"{prefix}.bias"] = _t(p["beta"])
+    sd[f"{prefix}.running_mean"] = _t(s["mean"])
+    sd[f"{prefix}.running_var"] = _t(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = _t(np.asarray(s["count"],
+                                                        np.int64))
 
 
 def params_from_jax(params_np, bn_state_np,
@@ -60,14 +72,47 @@ def params_from_jax(params_np, bn_state_np,
             _lin(f"layers.{i}.{theirs}.0", lp[ours]["lin0"], sd)
             _lin(f"layers.{i}.{theirs}.2", lp[ours]["lin1"], sd)
         for ours, theirs in (("bn", "norm"), ("bn2", "norm2")):
-            sd[f"layers.{i}.{theirs}.weight"] = _t(lp[ours]["gamma"])
-            sd[f"layers.{i}.{theirs}.bias"] = _t(lp[ours]["beta"])
-            sd[f"layers.{i}.{theirs}.running_mean"] = _t(ls[ours]["mean"])
-            sd[f"layers.{i}.{theirs}.running_var"] = _t(ls[ours]["var"])
-            sd[f"layers.{i}.{theirs}.num_batches_tracked"] = _t(
-                np.asarray(ls[ours]["count"], np.int64))
+            _bn(f"layers.{i}.{theirs}", lp[ours], ls[ours], sd)
     _lin("head.MLP.0", params_np["head"]["mlp"]["lin0"], sd)
     _lin("head.MLP.2", params_np["head"]["mlp"]["lin1"], sd)
+    return sd
+
+
+def ecomformer_params_from_jax(params_np, bn_state_np,
+                               cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ecomformer_init`` (params, bn_state) as numpy
+    dicts -> the port's EComformer state_dict (CPU tensors). The JAX
+    package exports no Comformer checkpoint, so this is the only way in
+    for Comformer weights."""
+    if cfg.name != "ecomformer":
+        raise ValueError(f"expected an eComformer config, got {cfg.name!r}")
+    p, s = params_np, bn_state_np
+    sd: Dict[str, torch.Tensor] = {
+        "embedding.weight": _t(p["embedding"]["w"]),
+        "rbf_centers": _t(p["rbf_centers"]),
+        "rbf_gamma": _t(np.asarray(p["rbf_gamma"]).reshape(())),
+    }
+    _lin("temp_proj", p["temp_proj"], sd)
+    _lin("rbf.lin", p["rbf"]["lin"], sd)
+    for i in range(3):
+        cp, cs = p[f"conv{i}"], s[f"conv{i}"]
+        for name in ("lin_key", "lin_query", "lin_value", "lin_edge",
+                     "lin_concate"):
+            _lin(f"conv{i}.{name}", cp[name], sd)
+        for mlp in ("key_update", "msg_update"):
+            _lin(f"conv{i}.{mlp}.0", cp[mlp]["lin0"], sd)
+            _lin(f"conv{i}.{mlp}.2", cp[mlp]["lin1"], sd)
+        for bn in ("bn", "bn_att"):
+            _bn(f"conv{i}.{bn}", cp[bn], cs[bn], sd)
+    ep = p["equi"]
+    for name in ("node_linear", "skip_linear", "node_linear_2"):
+        _lin(f"equi.{name}", ep[name], sd)
+    for tp in ("tp1", "tp2"):
+        for lin in ("lin0", "lin1"):
+            _lin(f"equi.{tp}.{lin}", ep[tp]["fc"][lin], sd)
+    _bn("equi.bn", ep["bn"], s["equi"]["bn"], sd)
+    _lin("head.MLP.0", p["head"]["mlp"]["lin0"], sd)
+    _lin("head.MLP.2", p["head"]["mlp"]["lin1"], sd)
     return sd
 
 

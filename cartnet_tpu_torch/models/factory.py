@@ -1,0 +1,29 @@
+"""Model factory: name -> model (port of cartnet_tpu/models/factory.py).
+
+``create_model(cfg, device, seed)`` builds the ported model named by
+``cfg.name`` (case-insensitive) with random weights from ``seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from cartnet_tpu_torch.config import ModelConfig
+from cartnet_tpu_torch.models.cartnet import CartNet
+from cartnet_tpu_torch.models.comformer import EComformer
+
+_REGISTRY = {"cartnet": CartNet, "ecomformer": EComformer}
+_NOT_PORTED = {"icomformer": "the iComformer is not ported yet: it needs "
+                             "conv_edge_apply and the Comformer training "
+                             "slice first (ROADMAP C1b)"}
+
+
+def create_model(cfg: ModelConfig, device="cuda", seed: int = 0):
+    name = cfg.name.lower()
+    if name in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[name])
+    if name not in _REGISTRY:
+        raise ValueError(f"model {cfg.name!r} not implemented; available: "
+                         f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name](dataclasses.replace(cfg, name=name), device=device,
+                           seed=seed)

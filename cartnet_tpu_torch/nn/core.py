@@ -12,7 +12,7 @@ addmm), so bf16 results round where the reference's do.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,5 +59,33 @@ def mlp_silu(x: torch.Tensor,
 def embedding(weight: torch.Tensor, idx: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
     """Row lookup weight[idx] in ``dtype``: the exact row copies that the
-    reference's one-hot embedding and per-graph gathers produce."""
+    reference's one-hot embedding and per-graph gathers produce
+    (``embedding_onehot`` and ``gather_rows_onehot`` there)."""
     return weight.to(dtype).index_select(0, idx)
+
+
+def cast_params(module: torch.nn.Module, compute_dtype: torch.dtype,
+                param_dtype: torch.dtype,
+                skip: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``module`` by name (but those under a prefix in
+    ``skip``), the ones in ``param_dtype`` cast to ``compute_dtype``: the
+    reference's cast of the whole params pytree once at the top of a model
+    apply. Buffers (BN running stats) are not parameters and are not
+    cast."""
+    return {name: p.to(compute_dtype) if p.dtype == param_dtype else p
+            for name, p in module.named_parameters()
+            if not name.startswith(skip)}
+
+
+class Params:
+    """A view of a ``cast_params`` table under a submodule's name prefix:
+    ``p["lin.weight"]`` is ``table[prefix + "lin.weight"]``."""
+
+    def __init__(self, table: Dict[str, torch.Tensor], prefix: str = ""):
+        self.table, self.prefix = table, prefix
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.table[self.prefix + name]
+
+    def sub(self, name: str) -> "Params":
+        return Params(self.table, f"{self.prefix}{name}.")

@@ -1,7 +1,8 @@
 """Radial basis and cutoff primitives (port of cartnet_tpu/ops/rbf.py).
 
   * ExpNormalSmearing (PhysNet-style), non-trainable in CartNet;
-  * CosineCutoff (cutoff_lower = 0 path used by CartNet).
+  * CosineCutoff (cutoff_lower = 0 path used by CartNet);
+  * RBFExpansion (SchNet/Comformer-style, gamma = 1 / lengthscale).
 """
 
 from __future__ import annotations
@@ -42,3 +43,17 @@ def exp_normal_smearing(dist, means, betas, cutoff_upper: float,
     env = cosine_cutoff(d, cutoff_upper, cutoff_lower)
     return env * torch.exp(
         -betas * (torch.exp(alpha * (-d + cutoff_lower)) - means) ** 2)
+
+
+def rbf_expansion_params(vmin: float, vmax: float, bins: int,
+                         dtype=torch.float32):
+    """Evenly spaced centers and the reference's default gamma =
+    1 / lengthscale (not 1 / lengthscale**2) -> (centers [bins], gamma [])."""
+    centers = torch.as_tensor(np.linspace(vmin, vmax, bins), dtype=dtype)
+    gamma = torch.tensor(1.0 / ((vmax - vmin) / (bins - 1)), dtype=dtype)
+    return centers, gamma
+
+
+def rbf_expansion(x, centers, gamma):
+    """Gaussian RBF expansion: [...] -> [..., bins]."""
+    return torch.exp(-gamma * (x[..., None] - centers) ** 2)

@@ -1,5 +1,6 @@
 """Run orchestration: training and the ADP inference sweep (port of
-cartnet_tpu/runner.py::run, ::train and ::inference).
+cartnet_tpu/runner.py::run, ::train and ::inference). The sweep serves any
+ported model (CartNet, eComformer); training is CartNet's only.
 
 ``train`` runs the epochs: a train epoch, a val pass, best-epoch tracking by
 val MAE with the best weights kept in memory, then the final test pass with
@@ -27,7 +28,8 @@ from cartnet_tpu_torch.data.pipeline import (BatchPipeline,
                                              choose_pad_sizes_from_counts,
                                              edge_align_for, record_counts)
 from cartnet_tpu_torch.data.schema import CrystalBatch
-from cartnet_tpu_torch.models.cartnet import CartNet
+from cartnet_tpu_torch.models.comformer import TRAINING_TODO
+from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.train.loop import (build_lr_fn, build_optimizer,
                                           epoch_means, eval_epoch,
                                           init_train_state, make_steps,
@@ -53,10 +55,13 @@ def pipelines(cfg: Config, splits):
 
 def run(cfg: Config, splits, device="cuda", state_dict=None):
     """Build pipelines, model (random from ``cfg.seed``, or ``state_dict``)
-    and optimizer, then ``train``."""
+    and optimizer, then ``train``. Only CartNet trains so far."""
+    if cfg.model.name.lower() != "cartnet":
+        raise NotImplementedError(f"training {cfg.model.name!r}: "
+                                  f"{TRAINING_TODO}")
     device = resolve_device(device)
     pipes = pipelines(cfg, splits)
-    model = CartNet(cfg.model, device=device, seed=cfg.seed)
+    model = create_model(cfg.model, device, cfg.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     n_params = sum(p.numel() for p in model.parameters())

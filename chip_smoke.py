@@ -5,34 +5,48 @@
 
 Phases, one JSON line each (every line names the card and its power limit):
   1. device   the card (nvidia-smi name and power limit, also printed raw)
-  2. build    nvcc builds the four kernels from csrc/ (one process per source)
+  2. build    nvcc builds the six kernels from csrc/ (one process per source,
+              all started together)
   3. check    each kernel against its plain PyTorch version on the card, at
-              the main path's shapes: K1/K2 in every dtype combination the
-              inference forward feeds them, with K1's optional outputs off
-              and on; K4/K5 (the backward kernels) in the bf16 training case
-              and the f32 case, with random cotangents that are zero on pad
-              rows; plus a bitwise repeat of every kernel run
-  4. main     the ADP inference sweep (runner.inference) over 2 batches of 4
-              synthetic ADP-scale crystals, flagship model (dim 256, 64 RBF,
-              4 layers, Cholesky head, bf16 compute, random weights from seed
-              0): launch counts per kernel, finite predictions, and agreement
-              with the same model run through the plain versions
-  5. train    the training path (loop.make_steps / loop.train_epoch) on the
-              same batches with the flagship training config (temperature +
-              atom-type inputs, bf16): 32 micro-steps with batch_accumulation
-              16, i.e. 2 optimizer updates; launch counts per kernel (4 of
-              each of K1, K2, K4, K5 per micro-step), finite losses, no
-              skipped step, advanced BN running stats; a short training run
-              through the CLI (train, val, test) with its launch counts;
-              then one micro-step from the same state through the kernels
-              and through the plain versions (loss, every gradient, BN
-              stats), in bf16 and in f32
-  6. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
-              and its plain version, the bound for the same work, the
-              forward time per batch and the train micro-step time, and one
-              profiled forward and one profiled micro-step (device time by
+              the main paths' shapes: K1/K2 in every dtype combination the
+              CartNet inference forward feeds them, with K1's optional
+              outputs off and on; K4/K5 (the backward kernels) in the bf16
+              training case and the f32 case, with random cotangents that
+              are zero on pad rows; K3 (CSR segment sum) in f32 [E, 128] and
+              bf16 [E, 64] / [E, 128] over the src sort, and K7 (TP
+              contraction, l1 and l2) with bf16 h/W and f32 a, bf16 a, and
+              the f32 config; plus a bitwise repeat of every kernel run
+  4. main     the CartNet ADP inference sweep (runner.inference) over 2
+              batches of 4 synthetic ADP-scale crystals, flagship model (dim
+              256, 64 RBF, 4 layers, Cholesky head, bf16 compute, random
+              weights from seed 0): launch counts per kernel, finite
+              predictions, and agreement with the same model run through the
+              plain versions
+  5. train    the CartNet training path (loop.make_steps / loop.train_epoch)
+              on the same batches with the flagship training config
+              (temperature + atom-type inputs, bf16): 32 micro-steps with
+              batch_accumulation 16, i.e. 2 optimizer updates; launch counts
+              per kernel (4 of each of K1, K2, K4, K5 per micro-step),
+              finite losses, no skipped step, advanced BN running stats; a
+              short training run through the CLI (train, val, test) with its
+              launch counts; then one micro-step from the same state through
+              the kernels and through the plain versions (loss, every
+              gradient, BN stats), in bf16 and in f32
+  6. ecomformer  the eComformer inference sweep on the same 2 batches (dim
+              256, 3 convs + the equivariant block, Cholesky head, bf16,
+              random weights from seed 0): K1 3, K2 3, K3 2, K7 2 launches
+              per forward, finite predictions, the kernel forward against
+              the plain forward; then a short sweep through the CLI
+              (--model eComformer --inference)
+  7. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
+              and its plain version, and their device time alone (profiler,
+              without the host's launch overhead), the bound for the same
+              work, K3's index_add_ time and the [E, d] x [d, 5120] GEMM
+              beside K7, the forward times per batch (CartNet, eComformer)
+              and the train micro-step time, and one profiled CartNet
+              forward, eComformer forward and micro-step (device time by
               kernel, idle share of the device)
-  7. kernels  the summary line {"kernels": [...]}
+  8. kernels  the summary line {"kernels": [...]}
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
 script, it exits non-zero and prints no result.
@@ -64,8 +78,10 @@ PRED_TOL = 3e-2  # bf16 forward / train step, kernels vs plain, normalized
 # the port's f32 step against the JAX package in the CPU tests (1.4e-4)
 F32_STEP_TOL = 1e-3
 RUNS = 30
-KERNELS = ("edge_phase_fwd", "sigma_segsum_fwd", "sigma_segsum_bwd",
-           "edge_phase_bwd")
+# kernel = csrc source name: K1, K2, K4, K5 (CartNet), K3, K7 (eComformer)
+CARTNET_KERNELS = ("edge_phase_fwd", "sigma_segsum_fwd", "sigma_segsum_bwd",
+                   "edge_phase_bwd")
+KERNELS = CARTNET_KERNELS + ("segment_sum_csr", "tp_contract_fwd")
 TRAIN_MICRO_STEPS, TRAIN_ACCUM = 32, 16
 
 
@@ -107,6 +123,24 @@ def cuda_median_ms(fn, runs: int = RUNS) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn``: the durations of the CUDA kernels it
+    launches, summed under torch.profiler (CUPTI) over ``calls`` calls.
+    Unlike ``cuda_median_ms`` it leaves out the host's time between the
+    launches, which the events of a single small call include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / calls
 
 
 def nbytes(*ts) -> int:
@@ -272,6 +306,87 @@ def sigma_fwd_plain(*a):
     return sk.sigma_segsum_plain(*a[:8], a[9])
 
 
+def seg_args(batch, dt, width, gen, dev):
+    """K3 operands as the eComformer's scatter onto sources gives them:
+    random values [E, width], the src sort's rowptr, mask and perm."""
+    import torch
+    v = torch.randn(batch.num_edges, width, generator=gen).to(dt).to(dev)
+    return (v, batch.src_rowptr, batch.edge_mask_src_sorted,
+            batch.edge_src_perm)
+
+
+def seg_cost(args, out, real_edges: int):
+    """Bytes: the masked-in value rows (pads are never read), the index
+    arrays and the output; one f32 add per value read."""
+    v = args[0]
+    n_bytes = (real_edges * v.shape[1] * v.element_size()
+               + nbytes(*args[1:]) + nbytes(out))
+    return bound(n_bytes, real_edges * v.shape[1], "f32")
+
+
+def tp_args(batch, hdt, adt, d, gen, dev):
+    """K7 operands at the batch's shapes: fc hidden h [E, d] (softplus of
+    a normal, as the fc gives it), a0 [E, 64], a1/a2 [E, 8], the fc's
+    second layer wt [5120, d] and b [5120], U(+-1/sqrt(d))."""
+    import torch
+    import torch.nn.functional as F
+    E = batch.num_edges
+    rn = lambda *s: torch.randn(*s, generator=gen)
+    ru = lambda *s: (torch.rand(*s, generator=gen) * 2 - 1) / math.sqrt(d)
+    vals = dict(h=F.softplus(rn(E, d)).to(hdt), a0=rn(E, 64).to(adt),
+                a1=rn(E, 8).to(adt), a2=rn(E, 8).to(adt),
+                wt=ru(5120, d).to(hdt), b=ru(5120).to(hdt))
+    return {k: v.to(dev) for k, v in vals.items()}
+
+
+def tp_calls(a):
+    """(l1 args, l2 args) of the K7 entries."""
+    return ((a["h"], a["a0"], a["wt"], a["b"]),
+            (a["h"], a["a0"], a["a1"], a["a2"], a["wt"], a["b"]))
+
+
+def tp_plain(l2: bool):
+    """K7's plain version with an entry's arguments."""
+    from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
+    if l2:
+        return lambda h, a0, a1, a2, wt, b: k7.tp_contract_plain(
+            k7.PATHS_L2, h, [a0, a1, a2], wt, b)
+    return lambda h, a, wt, b: k7.tp_contract_plain(k7.PATHS_L1, h, [a], wt,
+                                                    b)
+
+
+def tp_cost(args, outs):
+    """The weight-generation GEMM (2 E d 5120) and one multiply-add per
+    generated weight; bytes: every operand and output once."""
+    h = args[0]
+    E, d = h.shape
+    n_ops = 2 * E * d * 5120 + 2 * E * 5120
+    return bound(nbytes(*args) + nbytes(*outs), n_ops,
+                 "bf16" if h.dtype.itemsize == 2 else "f32")
+
+
+@contextlib.contextmanager
+def plain_ecomformer_kernels():
+    """Route the eComformer forward's four kernel calls to the plain
+    versions."""
+    from cartnet_tpu_torch.models import comformer as cm
+    from cartnet_tpu_torch.ops import segment as seg
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    from cartnet_tpu_torch.ops.kernels import segsum_kernels as k3
+    from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
+    kept = (cm.edge_phase_fwd, cm.sigma_segsum, seg.segment_sum_csr,
+            k7.tp_contract_l1, k7.tp_contract_l2)
+    cm.edge_phase_fwd, cm.sigma_segsum = (ek.edge_phase_fwd_plain,
+                                          sigma_fwd_plain)
+    seg.segment_sum_csr = k3.segment_sum_csr_plain
+    k7.tp_contract_l1, k7.tp_contract_l2 = tp_plain(False), tp_plain(True)
+    try:
+        yield
+    finally:
+        (cm.edge_phase_fwd, cm.sigma_segsum, seg.segment_sum_csr,
+         k7.tp_contract_l1, k7.tp_contract_l2) = kept
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the training path's four kernel calls to the plain versions."""
@@ -294,10 +409,13 @@ def launch_counts(reset: bool = False) -> dict:
     """Each kernel wrapper's launch count (optionally set to 0 first)."""
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    from cartnet_tpu_torch.ops.kernels import segsum_kernels as k3
+    from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
     if reset:
         ek.launches = sk.launches = ek.bwd_launches = sk.bwd_launches = 0
+        k3.launches = k7.launches = 0
     return dict(zip(KERNELS, (ek.launches, sk.launches, sk.bwd_launches,
-                              ek.bwd_launches)))
+                              ek.bwd_launches, k3.launches, k7.launches)))
 
 
 def grad_errors(names, got, want) -> dict:
@@ -400,8 +518,11 @@ def main() -> int:
     from cartnet_tpu_torch.data.batching import make_batches
     from cartnet_tpu_torch.data.synthetic import synthetic_dataset
     from cartnet_tpu_torch.models import cartnet as model_mod
+    from cartnet_tpu_torch.models.factory import create_model
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    from cartnet_tpu_torch.ops.kernels import segsum_kernels as k3
+    from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
     from cartnet_tpu_torch.train import loop
 
     # 1. device
@@ -440,6 +561,12 @@ def main() -> int:
              "f32_config": (f32, f32, 0)}
     # training: one dtype throughout (calls per micro-step at bf16)
     train_cases = {"train_bf16": (bf, 4), "f32_config": (f32, 0)}
+    # eComformer, calls per bf16 forward: K3 (values dtype, width), K7
+    # (h / W dtype, a dtype; one l1 and one l2 call each)
+    seg_cases = {"f32_128": (f32, 128, 1), "bf16_64": (bf, 64, 1),
+                 "bf16_128": (bf, 128, 0)}
+    tp_cases = {"bf16_f32a": (bf, f32, 1), "bf16": (bf, bf, 0),
+                "f32_config": (f32, f32, 0)}
 
     # 3. kernel checks
     check_err = dict.fromkeys(KERNELS, 0.0)
@@ -502,6 +629,37 @@ def main() -> int:
                 check_err[kname] = max(check_err[kname], err)
         timing_inputs[("edge_bwd", case)] = eargs
         timing_inputs[("sigma_bwd", case)] = sargs
+
+    # K3 and K7 in the dtype cases of the eComformer forward (calls per
+    # bf16 forward); K3's bf16 [E, 128] case is the JAX package's padded
+    # width, the port scatters out_e [E, 64] alone
+    for case, (dt, width, _) in seg_cases.items():
+        sargs = seg_args(b0, dt, width, gen, dev)
+        got, again = k3.segment_sum_csr(*sargs), k3.segment_sum_csr(*sargs)
+        want = k3.segment_sum_csr_plain(*sargs)
+        torch.cuda.synchronize()
+        err = check_outputs(card, "segment_sum_csr", case, ("out",), (got,),
+                            (again,), (want,),
+                            lambda _: CHECK_TOL["sum" if dt == f32
+                                                else "bf16"])
+        check_err["segment_sum_csr"] = max(check_err["segment_sum_csr"], err)
+        timing_inputs[("seg", case)] = sargs
+    for case, (hdt, adt, _) in tp_cases.items():
+        targs = tp_args(b0, hdt, adt, d, gen, dev)
+        tol = CHECK_TOL["sum" if hdt == f32 else "bf16"]
+        for l2, names, a in zip((False, True), (("c0", "c1", "c2"), ("out",)),
+                                tp_calls(targs)):
+            fn = k7.tp_contract_l2 if l2 else k7.tp_contract_l1
+            got, again, want = ([o] if l2 else list(o) for o in (
+                fn(*a), fn(*a), tp_plain(l2)(*a)))
+            torch.cuda.synchronize()
+            err = check_outputs(card, "tp_contract_fwd",
+                                f"{'l2' if l2 else 'l1'}_{case}", names, got,
+                                again, want, lambda _: tol)
+            if case == "bf16_f32a":
+                check_err["tp_contract_fwd"] = max(
+                    check_err["tp_contract_fwd"], err)
+        timing_inputs[("tp", case)] = targs
 
     # 4. main path: the inference sweep through the kernels
     cfg = ModelConfig(dim_in=d, dim_rbf=64, num_layers=4, cholesky=True,
@@ -583,19 +741,20 @@ def main() -> int:
     losses = [float(r[0]["loss"]) for r in rows]
     bn_moved = all(not torch.equal(a, b)
                    for a, b in zip(bn0, loop.bn_buffers(tmodel)))
-    expect_train = 4 * len(epoch)
+    expect_train = dict.fromkeys(KERNELS, 0)
+    expect_train.update(dict.fromkeys(CARTNET_KERNELS, 4 * len(epoch)))
     emit(phase="train", card=card, micro_steps=len(epoch),
          batch_accumulation=TRAIN_ACCUM, optimizer_steps=state.step,
-         launches=launches_train, expected_launches_each=expect_train,
+         launches=launches_train, expected_launches=expect_train,
          launches_per_micro_step={k: v / len(epoch)
                                   for k, v in launches_train.items()},
          loss_first=losses[0], loss_last=losses[-1],
          finite=all(math.isfinite(x) for x in losses),
          bad_steps=int(state.bad_steps), bn_stats_updated=bn_moved,
          seconds=round(train_s, 3))
-    if any(v != expect_train for v in launches_train.values()):
+    if launches_train != expect_train:
         fail(f"train launch counts {launches_train}, expected "
-             f"{expect_train} each")
+             f"{expect_train}")
     if not all(math.isfinite(x) for x in losses) or int(state.bad_steps):
         fail("non-finite train losses or skipped steps")
     if state.step != len(epoch) // TRAIN_ACCUM or not bn_moved:
@@ -612,7 +771,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches_cli = launch_counts()
-    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2)))
+    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2, 0, 0)))
     emit(phase="cli", card=card, launches=launches_cli,
          expected_launches=expect_cli, optimizer_steps=cstate.step,
          bad_steps=int(cstate.bad_steps), test=ctest,
@@ -631,18 +790,98 @@ def main() -> int:
                                                   seed=0),
                    dev_batches[0], F32_STEP_TOL)
 
-    # 6. times at the main path's shapes
+    # 6. eComformer serving: the inference sweep through K1, K2, K3, K7
+    ecfg = ModelConfig(name="ecomformer", dim_in=d, cholesky=True,
+                       compute_dtype=bf)
+    emodel = create_model(ecfg, dev, 0)
+    per_fwd = dict(edge_phase_fwd=3, sigma_segsum_fwd=3, segment_sum_csr=2,
+                   tp_contract_fwd=2)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    eout = runner.inference(
+        emodel, batches, str(_build.BUILD_DIR / "chip_smoke_ecomformer.pkl"),
+        device=dev)
+    torch.cuda.synchronize()
+    esweep_s = time.perf_counter() - t0
+    launches_eco = launch_counts()
+    expect_eco = dict.fromkeys(KERNELS, 0)
+    expect_eco.update({k: v * len(batches) for k, v in per_fwd.items()})
+    epreds = [torch.as_tensor(p) for p in eout["pred"]]
+    efinite = all(bool(torch.isfinite(p).all()) for p in epreds)
+    emit(phase="ecomformer", card=card, batches=len(batches),
+         structures=len(epreds), atoms=sum(p.shape[0] for p in epreds),
+         params=sum(p.numel() for p in emodel.parameters()),
+         launches=launches_eco, expected_launches=expect_eco,
+         sweep_seconds=round(esweep_s, 3), finite=efinite,
+         mean_mae=float(statistics.fmean(eout["mae"])))
+    if launches_eco != expect_eco:
+        fail(f"eComformer launch counts {launches_eco}, expected "
+             f"{expect_eco}")
+    if not efinite or len(epreds) != len(recs):
+        fail("non-finite or missing eComformer predictions")
+
+    epred_err = 0.0
+    efwd_ms, efwd_plain_ms = [], []
+    with torch.inference_mode():
+        for b in batches:
+            bd = b.to(dev)
+            pk, mask = emodel(bd)
+            with plain_ecomformer_kernels():
+                pp, _ = emodel(bd)
+                efwd_plain_ms.append(cuda_median_ms(lambda: emodel(bd), 20))
+            efwd_ms.append(cuda_median_ms(lambda: emodel(bd), 20))
+            m = mask.bool()
+            abs_err, rel = normalized_err(pk[m], pp[m])
+            epred_err = max(epred_err, rel)
+            emit(phase="ecomformer_vs_plain", card=card, max_abs_err=abs_err,
+                 max_rel_err=rel, tol=PRED_TOL)
+    if epred_err > PRED_TOL:
+        fail(f"eComformer kernel forward vs plain forward: rel err "
+             f"{epred_err}")
+
+    # the user's entry point: the CLI sweep over the synthetic test split
+    # (2 crystals, 1 batch)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    cout = cli.main(["--dataset", "synthetic", "--limit", "8", "--inference",
+                     "--model", "eComformer", "--bf16", "--inference_output",
+                     str(_build.BUILD_DIR / "chip_smoke_cli_ecomformer.pkl")])
+    torch.cuda.synchronize()
+    ecli_s = time.perf_counter() - t0
+    launches_ecli = launch_counts()
+    expect_ecli = dict.fromkeys(KERNELS, 0)
+    expect_ecli.update(per_fwd)
+    cfinite = all(bool(torch.isfinite(torch.as_tensor(p)).all())
+                  for p in cout["pred"])
+    emit(phase="ecomformer_cli", card=card, launches=launches_ecli,
+         expected_launches=expect_ecli, structures=len(cout["pred"]),
+         finite=cfinite, mean_mae=float(statistics.fmean(cout["mae"])),
+         seconds=round(ecli_s, 3))
+    if launches_ecli != expect_ecli or not cfinite or not cout["pred"]:
+        fail(f"eComformer CLI sweep: launches {launches_ecli}, finite "
+             f"{cfinite}")
+
+    # 7. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}
 
-    def time_row(kname, case, fk, fp, t_bound, by, calls):
+    def time_row(kname, case, fk, fp, t_bound, by, calls, **others):
+        """Kernel and plain times (plain before and after), and those of
+        ``others`` (name_ms -> fn), at warm L2: CUDA events around one
+        call, and the device time alone (``device_ms``)."""
         plain1 = cuda_median_ms(fp)
         kern = cuda_median_ms(fk)
         plain2 = cuda_median_ms(fp)
         row = dict(ms=kern, plain_ms=statistics.fmean([plain1, plain2]),
-                   bound_ms=t_bound, bound_by=by, calls=calls)
+                   bound_ms=t_bound, bound_by=by, calls=calls,
+                   device_ms=device_ms(fk), plain_device_ms=device_ms(fp))
+        for k, fn in others.items():
+            row[k] = cuda_median_ms(fn)
+            row[k.replace("_ms", "_device_ms")] = device_ms(fn)
         rows_t[kname][case] = row
         emit(phase="time", card=card, kernel=kname, case=case, runs=RUNS,
-             **row, share_of_bound=t_bound / kern if kern else None)
+             **row, share_of_bound=t_bound / kern if kern else None,
+             device_share_of_bound=t_bound / row["device_ms"]
+             if row["device_ms"] else None)
 
     for case, (tdt, edt, calls) in cases.items():
         args = timing_inputs[("edge", case)]
@@ -688,14 +927,49 @@ def main() -> int:
                  lambda a=sargs: sk.sigma_segsum_bwd(*a),
                  lambda a=sargs: sk.sigma_segsum_bwd_plain(*a), t_bound, by,
                  calls)
+    # K3 beside one index_add_ of the same values into an [N + 1, D] table
+    # of their dtype (pads to row N; preallocated, zeroing not timed)
+    real0 = int(b0.edge_mask.sum())
+    ids_lib = torch.where(b0.edge_mask, b0.edge_src,
+                          torch.full_like(b0.edge_src, N))
+    for case, (dt, width, calls) in seg_cases.items():
+        sargs = timing_inputs[("seg", case)]
+        t_bound, by = seg_cost(sargs, k3.segment_sum_csr(*sargs), real0)
+        table = torch.zeros((N + 1, width), dtype=dt, device=dev)
+        time_row("segment_sum_csr", case,
+                 lambda a=sargs: k3.segment_sum_csr(*a),
+                 lambda a=sargs: k3.segment_sum_csr_plain(*a), t_bound, by,
+                 calls, library_ms=lambda a=sargs, t=table: t.index_add_(
+                     0, ids_lib, a[0]))
+    # K7 beside the [E, d] x [d, 5120] GEMM alone (a note: no single call
+    # computes K7)
+    for case, (hdt, adt, calls) in tp_cases.items():
+        targs = timing_inputs[("tp", case)]
+        wt_t = targs["wt"].t()
+        for l2, a in zip((False, True), tp_calls(targs)):
+            fn = k7.tp_contract_l2 if l2 else k7.tp_contract_l1
+            outs = fn(*a)
+            t_bound, by = tp_cost(a, [outs] if l2 else outs)
+            time_row("tp_contract_fwd", f"{'l2' if l2 else 'l1'}_{case}",
+                     lambda a=a, fn=fn: fn(*a), lambda a=a, l2=l2:
+                     tp_plain(l2)(*a), t_bound, by, calls,
+                     gemm_ms=lambda h=targs["h"]: torch.matmul(h, wt_t))
     emit(phase="forward", card=card, batch_ms_kernels=fwd_ms,
          batch_ms_plain=fwd_plain_ms, runs=20)
+    emit(phase="forward", card=card, model="ecomformer",
+         batch_ms_kernels=efwd_ms, batch_ms_plain=efwd_plain_ms, runs=20)
 
     def forward():
         with torch.inference_mode():
             model(b0)
 
+    def eforward():
+        with torch.inference_mode():
+            emodel(b0)
+
     emit(phase="profile", card=card, what="forward", **profile_call(forward))
+    emit(phase="profile", card=card, what="ecomformer_forward",
+         **profile_call(eforward))
     step = lambda: micro(state, dev_batches[0])
     step_ms = cuda_median_ms(step, 20)
     with plain_kernels():
@@ -709,8 +983,10 @@ def main() -> int:
     emit(phase="profile", card=card, what="train_micro_step",
          **profile_call(step))
 
-    # 7. summary: per launch on the training path (all four kernels run in
-    # every micro-step, in the bf16 training case)
+    # 8. summary: K1, K2, K4, K5 per launch on the CartNet training path
+    # (all four run in every micro-step, in the bf16 training case); K3 and
+    # K7 per launch on the eComformer serving path, in its first call's
+    # case (K3 on the f32 [E, 128] irreps, K7 l1 with bf16 h/W and f32 a)
     kernels = []
     for kname, src, replaces in (
             ("edge_phase_fwd", "cartnet_tpu_torch/csrc/edge_phase_fwd.cu",
@@ -728,7 +1004,25 @@ def main() -> int:
             "launches_inference": launches_inf[kname],
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"]})
+    for kname, src, replaces, case in (
+            ("segment_sum_csr", "cartnet_tpu_torch/csrc/segment_sum_csr.cu",
+             "cartnet_tpu/ops/pallas/segment_kernels.py:38", "f32_128"),
+            ("tp_contract_fwd", "cartnet_tpu_torch/csrc/tp_contract_fwd.cu",
+             "cartnet_tpu/ops/pallas/tp_kernels.py:88", "l1_bf16_f32a")):
+        r = rows_t[kname][case]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches_eco[kname],
+            "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r.get("library_device_ms"),
+            "gemm_ms": r.get("gemm_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
