@@ -1,14 +1,15 @@
 """CLI: training and the ADP inference sweep, on the card.
 
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit N \
-        --epochs E --batch_accumulation A [--bf16] [--device cuda|cpu]
+        --epochs E --batch_accumulation A [--model CartNet|eComformer] \
+        [--bf16] [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit 8 --inference \
         [--model CartNet|eComformer] [--checkpoint_path best.ckpt] [--bf16] \
         [--device cuda|cpu]
 
 Flags and the synthetic splits mirror cartnet_tpu/cli.py; the ``synthetic``
-source is the one ported. ``--model`` is case-insensitive; the eComformer
-serves (``--inference``) but does not train yet. Without a checkpoint the
+source is the one ported. ``--model`` is case-insensitive; CartNet and the
+eComformer both serve (``--inference``) and train. Without a checkpoint the
 weights are random, drawn from ``--seed``; with one (a reference CartNet
 ``best.ckpt`` or a state_dict the port saved), training starts from it.
 """

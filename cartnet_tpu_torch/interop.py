@@ -83,7 +83,9 @@ def ecomformer_params_from_jax(params_np, bn_state_np,
     """The JAX package's ``ecomformer_init`` (params, bn_state) as numpy
     dicts -> the port's EComformer state_dict (CPU tensors). The JAX
     package exports no Comformer checkpoint, so this is the only way in
-    for Comformer weights."""
+    for Comformer weights. A gradient pytree (``grad_accum``) has the
+    params' structure and maps the same way: gradients land under the
+    parameters' names, ``bn_state_np`` under the BN buffers'."""
     if cfg.name != "ecomformer":
         raise ValueError(f"expected an eComformer config, got {cfg.name!r}")
     p, s = params_np, bn_state_np

@@ -1,5 +1,5 @@
-"""eComformer eval forward (port of cartnet_tpu/models/comformer.py:42-204,
-287-347).
+"""eComformer forward, eval and train (port of
+cartnet_tpu/models/comformer.py:42-204, 287-347).
 
 ``ComformerConv`` is the gated single-head attention conv on the JAX
 package's fused branch: the key/msg MLPs over [x_dst | x_src | e] have
@@ -20,8 +20,12 @@ and cast once per forward (``nn.core.cast_params``); BN running stats are
 not cast, so with bf16 compute eval BN promotes x to f32 after conv0 while
 the edge features stay bf16 (ROADMAP §3 has the whole dtype contract).
 
-Training is not ported: ``EComformer.train()`` raises (the backward needs
-K8, ROADMAP C1b).
+In training (``model.train()``) the conv runs the edge phase as the
+``EdgePhase`` Function without BN moments (K1 forward, K5 backward), the q
+gather through ``gather_sorted`` (K3 backward), two-pass train BN on alpha
+into ``SigmaSegsum`` (K2 forward, K4 backward), and train BN on the nodes;
+each train forward advances the BN running stats in place. Train BN keeps
+x's dtype, so with bf16 compute every kernel sees bf16 operands (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -38,13 +42,16 @@ from cartnet_tpu_torch.models.cartnet import CholeskyHead, ScalarHead
 from cartnet_tpu_torch.models.equivariant import EquiBlock
 from cartnet_tpu_torch.nn.core import (Params, cast_params, embedding, linear,
                                        torch_linear_init_)
-from cartnet_tpu_torch.nn.norm import masked_batch_norm, masked_bn_scale_shift
+from cartnet_tpu_torch.nn.norm import (bn_state_update, masked_batch_norm,
+                                       masked_batch_norm_train,
+                                       masked_bn_scale_shift,
+                                       masked_bn_scale_shift_train)
 from cartnet_tpu_torch.ops import rbf as rbf_ops
-from cartnet_tpu_torch.ops.kernels.edge_kernels import edge_phase_fwd
-from cartnet_tpu_torch.ops.kernels.segment_kernels import sigma_segsum
-
-TRAINING_TODO = ("Comformer training is not ported yet: its backward needs "
-                 "the TP backward kernel K8 (ROADMAP C1b)")
+from cartnet_tpu_torch.ops.kernels.edge_kernels import (EdgePhase,
+                                                        edge_phase_fwd)
+from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
+                                                           sigma_segsum)
+from cartnet_tpu_torch.ops.segment import gather_sorted
 
 
 def _lin(p: Params, name: str, x):
@@ -78,8 +85,9 @@ class ComformerConv(nn.Module):
                                      momentum=cfg.bn_momentum, dtype=dt)
 
     def forward(self, x, edge_attr, batch: CrystalBatch, p: Params):
-        """x [N, d], edge_attr [E, d] -> x [N, d] (eval)."""
-        d, eps = x.shape[1], self.cfg.bn_eps
+        """x [N, d], edge_attr [E, d] -> x [N, d]; train mode when
+        ``self.training`` (advances bn/bn_att's running stats)."""
+        d, eps, mom = x.shape[1], self.cfg.bn_eps, self.cfg.bn_momentum
         k, q, v = (_lin(p, n, x) for n in ("lin_key", "lin_query",
                                             "lin_value"))
         e = _lin(p, "lin_edge", edge_attr)
@@ -90,24 +98,47 @@ class ComformerConv(nn.Module):
         xj = torch.cat([mm(k, wk[d:2 * d]), mm(v, wm[d:2 * d])], dim=1)
         we = torch.cat([wk[2 * d:], wm[2 * d:]], dim=1).contiguous()
         b = torch.cat([p["key_update.0.bias"], p["msg_update.0.bias"]])
-        key_j, msg, _, _, _ = edge_phase_fwd(
-            xi, xj, e, we, b, p["key_update.2.weight"].t().contiguous(),
-            p["key_update.2.bias"], p["msg_update.2.weight"].t().contiguous(),
-            p["msg_update.2.bias"], batch.edge_dst, batch.edge_src,
-            batch.edge_mask)
-        alpha = q.index_select(0, batch.edge_dst) * key_j / math.sqrt(d)
-        scale, shift = masked_bn_scale_shift(
-            p["bn_att.weight"], p["bn_att.bias"], self.bn_att.running_mean,
-            self.bn_att.running_var, eps)
-        E = alpha.shape[0]
-        _, out = sigma_segsum(
+        args = (xi, xj, e, we, b, p["key_update.2.weight"].t().contiguous(),
+                p["key_update.2.bias"],
+                p["msg_update.2.weight"].t().contiguous(),
+                p["msg_update.2.bias"], batch.edge_dst, batch.edge_src,
+                batch.edge_mask)
+        E = e.shape[0]
+        if self.training:
+            key_j, msg, _, _, _ = EdgePhase.apply(
+                *args, batch.dst_rowptr, batch.edge_src_perm,
+                batch.src_rowptr, False)
+        else:
+            key_j, msg, _, _, _ = edge_phase_fwd(*args)
+        q_dst = gather_sorted(q, batch.edge_dst, batch.dst_rowptr,
+                              batch.edge_mask)
+        alpha = q_dst * key_j / math.sqrt(d)
+        if self.training:
+            (scale, shift), (mean, var, n) = masked_bn_scale_shift_train(
+                alpha, p["bn_att.weight"], p["bn_att.bias"], batch.edge_mask,
+                eps)
+            bn_state_update(self.bn_att, mean, var, n, mom)
+            sigma = SigmaSegsum.apply
+        else:
+            scale, shift = masked_bn_scale_shift(
+                p["bn_att.weight"], p["bn_att.bias"],
+                self.bn_att.running_mean, self.bn_att.running_var, eps)
+            sigma = sigma_segsum
+        # e_in = 0: the conv has no edge residual; e_out is unused
+        _, out = sigma(
             alpha, scale.float(), shift.float(),
             torch.ones((E, 1), dtype=alpha.dtype, device=alpha.device), msg,
             torch.zeros_like(msg), batch.edge_dst, batch.edge_mask,
             batch.dst_rowptr, batch.num_nodes)
-        out = masked_batch_norm(_lin(p, "lin_concate", out), p["bn.weight"],
-                                p["bn.bias"], self.bn.running_mean,
-                                self.bn.running_var, eps)
+        out = _lin(p, "lin_concate", out)
+        if self.training:
+            out, (mean, var, n) = masked_batch_norm_train(
+                out, p["bn.weight"], p["bn.bias"], batch.node_mask, eps)
+            bn_state_update(self.bn, mean, var, n, mom)
+        else:
+            out = masked_batch_norm(out, p["bn.weight"], p["bn.bias"],
+                                    self.bn.running_mean,
+                                    self.bn.running_var, eps)
         return F.softplus(x + out)
 
 
@@ -126,7 +157,8 @@ class EComformer(nn.Module):
 
     Built on the CPU from ``seed`` with a torch.Generator, then moved to
     ``device`` (the card unless the caller passes ``device="cpu"``), in
-    eval mode. ``forward`` -> (pred, pred_mask) as ``CartNet``'s.
+    eval mode. ``forward`` -> (pred, pred_mask) as ``CartNet``'s; after
+    ``model.train()`` the conv and block layers run their train forward.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
@@ -155,11 +187,6 @@ class EComformer(nn.Module):
         self.rbf_gamma = nn.Parameter(gamma)
         self.to(device)
         self.eval()
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(TRAINING_TODO)
-        return super().train(False)
 
     def cast(self, t: torch.Tensor) -> torch.Tensor:
         """Param dtype -> compute dtype (other dtypes pass through)."""

@@ -1,21 +1,25 @@
-"""The eComformer's equivariant tensor-product block, eval forward (port of
-cartnet_tpu/models/equivariant.py).
+"""The eComformer's equivariant tensor-product block, eval and train (port
+of cartnet_tpu/models/equivariant.py).
 
 Irreps 64x0e -> (64x0e + 8x1o + 8x2e) -> 64x0e with the spherical harmonics
 of cart_dir (1x0e + 1x1o + 1x2e). Per-edge TP weights come from an fc MLP
 over the edge features (Linear, softplus, Linear to 5120); its second layer
 and the contraction with the gathered irreps run in one kernel
-(ops/kernels/tp_kernels.py, K7). The TP path constants are e3nn's
-FullyConnectedTensorProduct values derived in the JAX module: 1/8 for the
-three layer-1 paths, 1/sqrt(80) x (1, 1/sqrt(3), 1/sqrt(5)) for layer 2.
+(ops/kernels/tp_kernels.py: K7 forward, K8 backward, through the
+``TPContractL1`` / ``TPContractL2`` Functions). The TP path constants are
+e3nn's FullyConnectedTensorProduct values derived in the JAX module: 1/8 for
+the three layer-1 paths, 1/sqrt(80) x (1, 1/sqrt(3), 1/sqrt(5)) for layer 2.
 
 The reference's (reversed) flow is kept: node scalars are gathered at
-edge_dst and scatter-MEANed onto edge_src, through the CSR segment-sum
+edge_dst (``gather_sorted``: its backward is K3 over ``dst_rowptr`` and the
+edge mask) and scatter-MEANed onto edge_src, through the CSR segment-sum
 kernel (K3) over collate's ``edge_src_perm`` / ``src_rowptr`` /
-``edge_mask_src_sorted``, divided by max(src_degree, 1) outside it. The
-layer-1 residual adds the node scalars only. The JAX package's 128-lane
-padded gathers and the [out_e | 0] concatenation are TPU layout: the port
-gathers [N, 64] directly and scatters out_e [E, 64] alone.
+``edge_mask_src_sorted``, divided by max(src_degree, 1) outside it (its
+backward is a gather). The node BN runs in train mode when
+``self.training``. The layer-1 residual adds the node scalars only. The
+JAX package's 128-lane padded gathers and the [out_e | 0] concatenation are
+TPU layout: the port gathers [N, 64] directly and scatters out_e [E, 64]
+alone.
 """
 
 from __future__ import annotations
@@ -29,9 +33,10 @@ import torch.nn.functional as F
 from cartnet_tpu_torch.config import ModelConfig
 from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.nn.core import Params, linear, torch_linear_init_
-from cartnet_tpu_torch.nn.norm import masked_batch_norm
+from cartnet_tpu_torch.nn.norm import (bn_state_update, masked_batch_norm,
+                                       masked_batch_norm_train)
 from cartnet_tpu_torch.ops.kernels import tp_kernels
-from cartnet_tpu_torch.ops.segment import segment_sum_presorted
+from cartnet_tpu_torch.ops.segment import gather_sorted, segment_sum_presorted
 from cartnet_tpu_torch.ops.sh import SQRT3, SQRT5, spherical_harmonics_l012
 
 NS, NV = 64, 8  # scalar and vector/tensor channels (reference defaults)
@@ -57,8 +62,9 @@ def tp_layer1_apply(p: Params, s_dst, y0, y1, y2, edge_attr):
     """64x0e (x) sh -> (s [E, 64], v [E, 8, 3], t [E, 8, 5]); ``p`` holds
     the fc's cast parameters."""
     h = _fc_hidden(p, edge_attr)
-    c0, c1, c2 = tp_kernels.tp_contract_l1(h, s_dst.contiguous(),
-                                           p["lin1.weight"], p["lin1.bias"])
+    c0, c1, c2 = tp_kernels.TPContractL1.apply(h, s_dst.contiguous(),
+                                               p["lin1.weight"],
+                                               p["lin1.bias"])
     inv = 1.0 / math.sqrt(NS)
     return (c0 * y0 * inv, c1[..., None] * y1[:, None, :] * inv,
             c2[..., None] * y2[:, None, :] * inv)
@@ -70,9 +76,9 @@ def tp_layer2_apply(p: Params, s, v, t, y0, y1, y2, edge_attr):
     a0 = s * y0
     d1 = torch.einsum("eum,em->eu", v, y1) / SQRT3
     d2 = torch.einsum("eum,em->eu", t, y2) / SQRT5
-    out = tp_kernels.tp_contract_l2(h, a0.contiguous(), d1.contiguous(),
-                                    d2.contiguous(), p["lin1.weight"],
-                                    p["lin1.bias"])
+    out = tp_kernels.TPContractL2.apply(h, a0.contiguous(), d1.contiguous(),
+                                        d2.contiguous(), p["lin1.weight"],
+                                        p["lin1.bias"])
     return out * (1.0 / math.sqrt(80.0))
 
 
@@ -103,12 +109,16 @@ class EquiBlock(nn.Module):
                                     min=1.0)[:, None]
 
         def smean(flat):
-            return segment_sum_presorted(flat, src_perm, batch.src_rowptr,
-                                         batch.edge_mask_src_sorted) * inv_cnt
+            return segment_sum_presorted(
+                flat, src_perm, batch.src_rowptr, batch.edge_mask_src_sorted,
+                batch.edge_src, batch.edge_mask) * inv_cnt
+
+        def g_dst(table):
+            return gather_sorted(table, dst, batch.dst_rowptr,
+                                 batch.edge_mask)
 
         # TP layer 1: gather at dst, scatter-mean onto src (reference flow)
-        s_e, v_e, t_e = tp_layer1_apply(p.sub("tp1"),
-                                        s_node.index_select(0, dst), y0, y1,
+        s_e, v_e, t_e = tp_layer1_apply(p.sub("tp1"), g_dst(s_node), y0, y1,
                                         y2, edge_attr)
         cat1 = smean(torch.cat([s_e, v_e.reshape(E, -1), t_e.reshape(E, -1)],
                                dim=1))
@@ -116,14 +126,21 @@ class EquiBlock(nn.Module):
         cat1 = torch.cat([cat1[:, :NS] + s_node, cat1[:, NS:]], dim=1)
 
         # TP layer 2 (no residual)
-        g = cat1.index_select(0, dst)
+        g = g_dst(cat1)
         out_e = tp_layer2_apply(p.sub("tp2"), g[:, :NS],
                                 g[:, NS:NS + 3 * NV].reshape(E, NV, 3),
                                 g[:, NS + 3 * NV:].reshape(E, NV, 5), y0, y1,
                                 y2, edge_attr)
-        out = masked_batch_norm(smean(out_e), p["bn.weight"], p["bn.bias"],
-                                self.bn.running_mean, self.bn.running_var,
-                                self.cfg.bn_eps)
+        out = smean(out_e)
+        if self.training:
+            out, (mean, var, n) = masked_batch_norm_train(
+                out, p["bn.weight"], p["bn.bias"], batch.node_mask,
+                self.cfg.bn_eps)
+            bn_state_update(self.bn, mean, var, n, self.cfg.bn_momentum)
+        else:
+            out = masked_batch_norm(out, p["bn.weight"], p["bn.bias"],
+                                    self.bn.running_mean,
+                                    self.bn.running_var, self.cfg.bn_eps)
         out = F.softplus(linear(F.softplus(out), p["node_linear_2.weight"],
                                 p["node_linear_2.bias"]))
         return out + linear(x, p["skip_linear.weight"], p["skip_linear.bias"])

@@ -14,8 +14,8 @@ from cartnet_tpu_torch.models.comformer import EComformer
 
 _REGISTRY = {"cartnet": CartNet, "ecomformer": EComformer}
 _NOT_PORTED = {"icomformer": "the iComformer is not ported yet: it needs "
-                             "conv_edge_apply and the Comformer training "
-                             "slice first (ROADMAP C1b)"}
+                             "conv_edge_apply and icomformer_apply "
+                             "(ROADMAP C2)"}
 
 
 def create_model(cfg: ModelConfig, device="cuda", seed: int = 0):

@@ -317,14 +317,16 @@ class EdgePhase(torch.autograd.Function):
     e_res is e passed through, so the layer's residual cotangent arrives
     here as ``deres`` and leaves folded into de (once). The backward forms
     mean_w = s1_w / max(n_w, 1) and runs K5; gradients come back in the
-    primal dtypes."""
+    primal dtypes. With ``moments=False`` (the Comformer conv, whose BN
+    normalizes another tensor) K1 skips the moments, s1_w/M2_w are None, and
+    K5 gets zero moment cotangents, so its correction term vanishes."""
 
     @staticmethod
     def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
-                dst_rowptr, src_perm, src_rowptr):
+                dst_rowptr, src_perm, src_rowptr, moments=True):
         gate, sender, saved, s1w, m2w = edge_phase_fwd(
             xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
-            saved=True, moments=True)
+            saved=True, moments=moments)
         ctx.save_for_backward(e, we, w1g, w1a, dst, src, emask, dst_rowptr,
                               src_perm, src_rowptr, saved, gate, s1w)
         ctx.dtypes = [t.dtype for t in (xi, xj, e, we, b, w1g, b1g, w1a,
@@ -335,10 +337,16 @@ class EdgePhase(torch.autograd.Function):
     def backward(ctx, dgate, dsender, deres, ds1w, dm2w):
         (e, we, w1g, w1a, dst, src, emask, dst_rowptr, src_perm, src_rowptr,
          saved, gate, s1w) = ctx.saved_tensors
-        nt = s1w.shape[0]
-        n_w = emask.reshape(nt, -1).sum(dim=1, dtype=torch.float32)[:, None]
-        meanw = s1w / torch.clamp(n_w, min=1.0)
         c = lambda t, dt: t.to(dt).contiguous()
+        if s1w is None:
+            meanw = torch.zeros((e.shape[0] // TILE_EDGES, e.shape[1]),
+                                dtype=torch.float32, device=e.device)
+            ds1w = dm2w = meanw
+        else:
+            nt = s1w.shape[0]
+            n_w = emask.reshape(nt, -1).sum(dim=1,
+                                            dtype=torch.float32)[:, None]
+            meanw = s1w / torch.clamp(n_w, min=1.0)
         grads = edge_phase_bwd(
             e, we, w1g, w1a, saved, gate, meanw, c(ds1w, torch.float32),
             c(dm2w, torch.float32), c(dgate, gate.dtype),
@@ -348,4 +356,4 @@ class EdgePhase(torch.autograd.Function):
         # in the primal order: xi, xj, e, we, b, w1g, b1g, w1a, b1a
         primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
         return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
-            + (None,) * 6
+            + (None,) * 7

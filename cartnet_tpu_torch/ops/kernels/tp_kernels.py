@@ -20,6 +20,22 @@ On a CUDA tensor the entries launch ``csrc/tp_contract_fwd.cu`` (one launch
 per call; nothing of size [E, 5120] reaches device memory; bf16 tiles sized
 to fill the card's SMs in one wave) or raise; on a CPU tensor they run
 ``tp_contract_plain``.
+
+The backward (port of ``_bwd_call`` -> ``_tp_bwd_kernel``, driven by
+``_l1_bwd`` / ``_l2_bwd``) is ``tp_contract_bwd``: from the cotangents dc of
+the outputs it recomputes w_all and returns
+
+    da_p[e, u]  = sum_v round(dc[e, v] * w_p[e, u, v])   # f32 sum, in h.dtype
+    dwall[e, off + u*V + v] = round(dc_p[e, v] * round(a_p[e, u]))
+    dh = round(dwall @ W^T),  dwt = dwall^T h  [5120, d] f32,  db = sum_e dwall
+
+(L1: the one a sums its three paths in f32 and rounds once; L2: one dc
+[E, 64] feeds all three paths). On a CUDA tensor it launches
+``csrc/tp_contract_bwd.cu`` (one call: an edge-tile pass for dh and da and an
+output-tiled pass for dwt and db; no float atomics, nothing of size
+[E, 5120] in device memory) or raises; on a CPU tensor it runs
+``tp_contract_bwd_plain``. ``TPContractL1`` / ``TPContractL2`` are the
+autograd Functions: K7 forward, K8 backward.
 """
 
 from __future__ import annotations
@@ -39,7 +55,8 @@ WARPS = (4, 12)  # the bf16 kernel's tile: 16 edges per warp, in this range
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0  # kernel launches (CUDA path only)
+launches = 0  # forward kernel launches (CUDA path only)
+bwd_launches = 0  # backward kernel launches (CUDA path only)
 
 
 def tp_contract_plain(paths, h, a_list, wt, b):
@@ -143,3 +160,146 @@ def tp_contract_l2(h, a0, a1, a2, wt, b):
     out = torch.empty((h.shape[0], 64), dtype=h.dtype, device=h.device)
     _launch(h, [a0, a1, a2], wt, b, [out], True)
     return out
+
+
+# ------------------------------------------------------------ backward (K8)
+
+BWD_TILE_EDGES = 64  # the backward kernel's edge tile: E must be a multiple
+
+
+def tp_contract_bwd_plain(paths, h, a_list, wt, b, dc_list):
+    """The backward kernel's function in plain PyTorch (same casts and
+    rounding) -> (dh in h.dtype, [da_i in h.dtype], dwt [5120, d] f32,
+    db [5120] f32)."""
+    cdt = h.dtype
+    E = h.shape[0]
+    w_all = (torch.matmul(h.float(), wt.float().t()) + b.float()).to(cdt)
+    dcs = [dc.to(cdt) for dc in dc_list]
+    das, parts = [None] * len(a_list), []
+    for i, (U, V, off) in enumerate(paths):
+        dc = dcs[0 if len(dcs) == 1 else i]
+        ai = i if len(a_list) > 1 else 0
+        wp = w_all[:, off:off + U * V].reshape(E, U, V)
+        da = (dc[:, None, :] * wp).float().sum(dim=2)
+        das[ai] = da if das[ai] is None else das[ai] + da
+        parts.append((a_list[ai].to(cdt)[:, :, None]
+                      * dc[:, None, :]).reshape(E, U * V))
+    dwall = torch.cat(parts, dim=1).float()
+    dh = torch.matmul(dwall, wt.float()).to(cdt)
+    return (dh, [da.to(cdt) for da in das], torch.matmul(dwall.t(), h.float()),
+            dwall.sum(dim=0))
+
+
+def _check_bwd(paths, h, a_list, wt, b, dc_list):
+    l2 = paths == PATHS_L2
+    if not l2 and paths != PATHS_L1:
+        raise ValueError("paths must be PATHS_L1 or PATHS_L2")
+    widths = (64, 8, 8) if l2 else (64,)
+    if len(a_list) != len(widths) or len(dc_list) != (1 if l2 else 3):
+        raise ValueError(f"{'L2' if l2 else 'L1'} takes {len(widths)} a and "
+                         f"{1 if l2 else 3} dc tensors")
+    _check(h, a_list, widths, wt, b)
+    E = h.shape[0]
+    for i, (dc, w) in enumerate(zip(dc_list, (64,) if l2 else (64, 8, 8))):
+        if tuple(dc.shape) != (E, w):
+            raise ValueError(f"dc{i}: shape {tuple(dc.shape)} != {(E, w)}")
+        if dc.device != h.device:
+            raise ValueError(f"dc{i} on {dc.device}, h on {h.device}")
+        if dc.dtype not in (torch.float32, h.dtype):
+            raise TypeError(f"dc{i} must be f32 or h's dtype {h.dtype}, got "
+                            f"{dc.dtype}")
+
+
+def _lib_bwd():
+    lib = _build.load("tp_contract_bwd")
+    fn = lib.tp_contract_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.tp_contract_bwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.tp_contract_bwd_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def tp_contract_bwd(paths, h, a_list, wt, b, dc_list):
+    """K7's VJP -> (dh, [da_i], dwt, db) as ``tp_contract_bwd_plain``; the a
+    and dc inputs come in f32 or h's dtype (the kernel rounds both to h's
+    dtype first, as the plain version does)."""
+    _check_bwd(paths, h, a_list, wt, b, dc_list)
+    if h.device.type == "cpu":
+        return tp_contract_bwd_plain(paths, h, a_list, wt, b, dc_list)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    cdt = h.dtype
+    a_list = [a.to(cdt) for a in a_list]
+    dc_list = [dc.to(cdt) for dc in dc_list]
+    args = (h, *a_list, wt, b, *dc_list)
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("tp_contract_bwd needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in args):
+        raise ValueError("tp_contract_bwd needs 16-byte aligned tensors")
+    E, d = h.shape
+    l2 = paths == PATHS_L2
+    lib = _lib_bwd()
+    is_bf16 = int(cdt == torch.bfloat16)
+    if E % BWD_TILE_EDGES or d not in (128, 256) or \
+            lib.tp_contract_bwd_smem(d, is_bf16, int(l2)) > _SMEM_LIMIT:
+        raise ValueError(f"tp_contract_bwd kernel needs E % "
+                         f"{BWD_TILE_EDGES} == 0 and d in (128, 256) "
+                         f"(E={E}, d={d})")
+    dev = h.device
+    dh = torch.empty_like(h)
+    das = [torch.empty_like(a) for a in a_list]
+    dwt = torch.empty((NUMEL, d), dtype=torch.float32, device=dev)
+    db = torch.empty(NUMEL, dtype=torch.float32, device=dev)
+    pad3 = lambda ts: [t.data_ptr() for t in ts] + [None] * (3 - len(ts))
+    err = lib.tp_contract_bwd(h.data_ptr(), *pad3(a_list), wt.data_ptr(),
+                              b.data_ptr(), *pad3(dc_list), dh.data_ptr(),
+                              *pad3(das), dwt.data_ptr(), db.data_ptr(), E, d,
+                              is_bf16, int(l2),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "tp_contract_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dh, das, dwt, db
+
+
+def _bwd_grads(ctx, dc_list):
+    """Shared backward of the two Functions: K8, gradients in the primal
+    dtypes (the f32 dwt/db cast to the cast parameters' dtype)."""
+    h, wt, b, *a_list = ctx.saved_tensors
+    dc_list = [dc.contiguous() for dc in dc_list]
+    dh, das, dwt, db = tp_contract_bwd(ctx.paths, h, a_list, wt, b, dc_list)
+    return (dh.to(h.dtype), *(da.to(a.dtype) for da, a in zip(das, a_list)),
+            dwt.to(wt.dtype), db.to(b.dtype))
+
+
+class TPContractL1(torch.autograd.Function):
+    """(h, a, wt, b) -> (c0, c1, c2) through ``tp_contract_l1`` (K7); the
+    backward is ``tp_contract_bwd`` (K8)."""
+
+    @staticmethod
+    def forward(ctx, h, a, wt, b):
+        ctx.save_for_backward(h, wt, b, a)
+        ctx.paths = PATHS_L1
+        return tp_contract_l1(h, a, wt, b)
+
+    @staticmethod
+    def backward(ctx, dc0, dc1, dc2):
+        return _bwd_grads(ctx, [dc0, dc1, dc2])
+
+
+class TPContractL2(torch.autograd.Function):
+    """(h, a0, a1, a2, wt, b) -> out through ``tp_contract_l2`` (K7); the
+    backward is ``tp_contract_bwd`` (K8)."""
+
+    @staticmethod
+    def forward(ctx, h, a0, a1, a2, wt, b):
+        ctx.save_for_backward(h, wt, b, a0, a1, a2)
+        ctx.paths = PATHS_L2
+        return tp_contract_l2(h, a0, a1, a2, wt, b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        return _bwd_grads(ctx, [dc])

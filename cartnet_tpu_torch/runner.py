@@ -1,6 +1,6 @@
 """Run orchestration: training and the ADP inference sweep (port of
-cartnet_tpu/runner.py::run, ::train and ::inference). The sweep serves any
-ported model (CartNet, eComformer); training is CartNet's only.
+cartnet_tpu/runner.py::run, ::train and ::inference). The sweep and the
+training serve any ported model (CartNet, eComformer).
 
 ``train`` runs the epochs: a train epoch, a val pass, best-epoch tracking by
 val MAE with the best weights kept in memory, then the final test pass with
@@ -28,7 +28,6 @@ from cartnet_tpu_torch.data.pipeline import (BatchPipeline,
                                              choose_pad_sizes_from_counts,
                                              edge_align_for, record_counts)
 from cartnet_tpu_torch.data.schema import CrystalBatch
-from cartnet_tpu_torch.models.comformer import TRAINING_TODO
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.train.loop import (build_lr_fn, build_optimizer,
                                           epoch_means, eval_epoch,
@@ -55,10 +54,7 @@ def pipelines(cfg: Config, splits):
 
 def run(cfg: Config, splits, device="cuda", state_dict=None):
     """Build pipelines, model (random from ``cfg.seed``, or ``state_dict``)
-    and optimizer, then ``train``. Only CartNet trains so far."""
-    if cfg.model.name.lower() != "cartnet":
-        raise NotImplementedError(f"training {cfg.model.name!r}: "
-                                  f"{TRAINING_TODO}")
+    and optimizer, then ``train``."""
     device = resolve_device(device)
     pipes = pipelines(cfg, splits)
     model = create_model(cfg.model, device, cfg.seed)

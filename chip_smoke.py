@@ -5,8 +5,8 @@
 
 Phases, one JSON line each (every line names the card and its power limit):
   1. device   the card (nvidia-smi name and power limit, also printed raw)
-  2. build    nvcc builds the six kernels from csrc/ (one process per source,
-              all started together)
+  2. build    nvcc builds the seven kernels from csrc/ (one process per
+              source, all started together)
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: K1/K2 in every dtype combination the
               CartNet inference forward feeds them, with K1's optional
@@ -15,7 +15,11 @@ Phases, one JSON line each (every line names the card and its power limit):
               are zero on pad rows; K3 (CSR segment sum) in f32 [E, 128] and
               bf16 [E, 64] / [E, 128] over the src sort, and K7 (TP
               contraction, l1 and l2) with bf16 h/W and f32 a, bf16 a, and
-              the f32 config; plus a bitwise repeat of every kernel run
+              the f32 config; K8 (TP backward, l1 and l2) in bf16 and f32
+              with random cotangents zero on pad rows, and K3's perm=None
+              form over dst_rowptr (the sorted gather's backward) at bf16
+              [E, 256] / [E, 64] / [E, 128] and f32 [E, 256]; plus a
+              bitwise repeat of every kernel run
   4. main     the CartNet ADP inference sweep (runner.inference) over 2
               batches of 4 synthetic ADP-scale crystals, flagship model (dim
               256, 64 RBF, 4 layers, Cholesky head, bf16 compute, random
@@ -38,15 +42,24 @@ Phases, one JSON line each (every line names the card and its power limit):
               per forward, finite predictions, the kernel forward against
               the plain forward; then a short sweep through the CLI
               (--model eComformer --inference)
-  7. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
+  7. ecomformer_train  the eComformer training path on the same batches
+              (bench.py's eComformer, bf16, batch_accumulation 16): 16
+              micro-steps = 1 optimizer update with launch counts per kernel
+              (K1 3, K2 3, K3 7, K4 3, K5 3, K7 2, K8 2 per micro-step),
+              finite losses, no skipped step, advanced BN stats; a short
+              training run through the CLI (--model eComformer); one
+              micro-step through the kernels and through the plain versions,
+              in bf16 and in f32
+  8. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
               work, K3's index_add_ time and the [E, d] x [d, 5120] GEMM
-              beside K7, the forward times per batch (CartNet, eComformer)
-              and the train micro-step time, and one profiled CartNet
-              forward, eComformer forward and micro-step (device time by
-              kernel, idle share of the device)
-  8. kernels  the summary line {"kernels": [...]}
+              beside K7, cuBLAS's three products beside K8, the forward
+              times per batch (CartNet, eComformer) and the train micro-step
+              times (CartNet, eComformer), and one profiled CartNet forward,
+              eComformer forward and micro-step of each model (device time
+              by kernel, idle share of the device)
+  9. kernels  the summary line {"kernels": [...]}
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
 script, it exits non-zero and prints no result.
@@ -78,11 +91,19 @@ PRED_TOL = 3e-2  # bf16 forward / train step, kernels vs plain, normalized
 # the port's f32 step against the JAX package in the CPU tests (1.4e-4)
 F32_STEP_TOL = 1e-3
 RUNS = 30
-# kernel = csrc source name: K1, K2, K4, K5 (CartNet), K3, K7 (eComformer)
+# kernel = csrc source name: K1, K2, K4, K5 (CartNet), K3, K7, K8
+# (eComformer)
 CARTNET_KERNELS = ("edge_phase_fwd", "sigma_segsum_fwd", "sigma_segsum_bwd",
                    "edge_phase_bwd")
-KERNELS = CARTNET_KERNELS + ("segment_sum_csr", "tp_contract_fwd")
+KERNELS = CARTNET_KERNELS + ("segment_sum_csr", "tp_contract_fwd",
+                             "tp_contract_bwd")
 TRAIN_MICRO_STEPS, TRAIN_ACCUM = 32, 16
+ECO_MICRO_STEPS = 16  # one optimizer update at TRAIN_ACCUM
+# eComformer launches per forward (serving) and per train micro-step
+ECO_FWD = dict(edge_phase_fwd=3, sigma_segsum_fwd=3, segment_sum_csr=2,
+               tp_contract_fwd=2)
+ECO_MICRO = dict(ECO_FWD, segment_sum_csr=7, sigma_segsum_bwd=3,
+                 edge_phase_bwd=3, tp_contract_bwd=2)
 
 
 def emit(**obj):
@@ -365,26 +386,64 @@ def tp_cost(args, outs):
                  "bf16" if h.dtype.itemsize == 2 else "f32")
 
 
+TP_BWD_OUT = {False: ("dh", "da", "dwt", "db"),
+              True: ("dh", "da0", "da1", "da2", "dwt", "db")}
+
+
+def tp_bwd_args(targs, l2: bool, mask, gen):
+    """K8 operands: K7's (h, a..., wt, b) and random cotangents of its
+    outputs ([E,64]/[E,8]/[E,8] for l1, [E,64] for l2) in h's dtype, zero
+    on pad-edge rows. -> (paths, h, a_list, wt, b, dc_list)."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
+    h = targs["h"]
+    E = h.shape[0]
+    dc = [(torch.randn(E, w, generator=gen).to(h.device) * mask[:, None])
+          .to(h.dtype) for w in ((64,) if l2 else (64, 8, 8))]
+    a = [targs["a0"], targs["a1"], targs["a2"]] if l2 else [targs["a0"]]
+    return (k7.PATHS_L2 if l2 else k7.PATHS_L1, h, a, targs["wt"],
+            targs["b"], dc)
+
+
+def tp_bwd_flat(out):
+    """(dh, [da...], dwt, db) -> a flat list."""
+    return [out[0], *out[1], out[2], out[3]]
+
+
+def tp_bwd_cost(args, outs):
+    """The three E x d x 5120 products (the w_all recompute, dh, dwt) and
+    a few operations per generated weight; bytes: every operand and output
+    once."""
+    h = args[1]
+    E, d = h.shape
+    n_ops = 3 * 2 * E * d * 5120 + 6 * E * 5120
+    n_bytes = nbytes(h, *args[2], args[3], args[4], *args[5],
+                     *tp_bwd_flat(outs))
+    return bound(n_bytes, n_ops, "bf16" if h.dtype.itemsize == 2 else "f32")
+
+
 @contextlib.contextmanager
 def plain_ecomformer_kernels():
-    """Route the eComformer forward's four kernel calls to the plain
-    versions."""
+    """Route the eComformer's kernel calls, forward and backward, to the
+    plain versions (the train path's K1/K2/K4/K5 through plain_kernels)."""
     from cartnet_tpu_torch.models import comformer as cm
     from cartnet_tpu_torch.ops import segment as seg
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     from cartnet_tpu_torch.ops.kernels import segsum_kernels as k3
     from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
     kept = (cm.edge_phase_fwd, cm.sigma_segsum, seg.segment_sum_csr,
-            k7.tp_contract_l1, k7.tp_contract_l2)
+            k7.tp_contract_l1, k7.tp_contract_l2, k7.tp_contract_bwd)
     cm.edge_phase_fwd, cm.sigma_segsum = (ek.edge_phase_fwd_plain,
                                           sigma_fwd_plain)
     seg.segment_sum_csr = k3.segment_sum_csr_plain
     k7.tp_contract_l1, k7.tp_contract_l2 = tp_plain(False), tp_plain(True)
+    k7.tp_contract_bwd = k7.tp_contract_bwd_plain
     try:
-        yield
+        with plain_kernels():
+            yield
     finally:
         (cm.edge_phase_fwd, cm.sigma_segsum, seg.segment_sum_csr,
-         k7.tp_contract_l1, k7.tp_contract_l2) = kept
+         k7.tp_contract_l1, k7.tp_contract_l2, k7.tp_contract_bwd) = kept
 
 
 @contextlib.contextmanager
@@ -413,14 +472,16 @@ def launch_counts(reset: bool = False) -> dict:
     from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
     if reset:
         ek.launches = sk.launches = ek.bwd_launches = sk.bwd_launches = 0
-        k3.launches = k7.launches = 0
+        k3.launches = k7.launches = k7.bwd_launches = 0
     return dict(zip(KERNELS, (ek.launches, sk.launches, sk.bwd_launches,
-                              ek.bwd_launches, k3.launches, k7.launches)))
+                              ek.bwd_launches, k3.launches, k7.launches,
+                              k7.bwd_launches)))
 
 
 def grad_errors(names, got, want) -> dict:
     """max |kernel - plain| of each gradient over the largest gradient entry
-    of its layer (encoder, layers.i, head). Per-parameter normalization is
+    of its layer (encoder, layers.i, head; conv0, equi, ... for the
+    eComformer). Per-parameter normalization is
     ill-posed here: under train BN some gradients (the gate MLP's biases)
     cancel to a small remainder of large per-edge terms, and in bf16 that
     remainder is mostly rounding noise."""
@@ -434,7 +495,7 @@ def grad_errors(names, got, want) -> dict:
             for n, g, w in zip(names, got, want)}
 
 
-def train_vs_plain(card, cfg, model, batch, tol) -> None:
+def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
     """One micro-step from the model's current state through the kernels
     and through the plain versions: loss and BN running stats normalized
     within ``tol``; gradients by grad_errors. In f32 each gradient is held
@@ -442,10 +503,12 @@ def train_vs_plain(card, cfg, model, batch, tol) -> None:
     rounding noise of order 10% that compounds over the layers in either
     path, so there each gradient's distance from the f32 gradient at the
     same weights (plain versions, f32 compute) may be at most twice the
-    plain bf16 path's own distance plus ``tol``."""
+    plain bf16 path's own distance plus ``tol``. ``plain``: the context
+    that routes the model's kernels to their plain versions (CartNet's
+    training kernels by default)."""
     import torch
-    from cartnet_tpu_torch.models.cartnet import CartNet
     from cartnet_tpu_torch.train import loop
+    plain = plain or plain_kernels
     sd0 = {k: v.clone() for k, v in model.state_dict().items()}
     pnames = [n for n, _ in model.named_parameters()]
     bnames = [n for n, _ in model.named_buffers()]
@@ -461,14 +524,15 @@ def train_vs_plain(card, cfg, model, batch, tol) -> None:
                 [b.clone() for b in loop.bn_buffers(m)])
 
     k_loss, k_grads, k_bn = one_micro(cfg, model)
-    with plain_kernels():
+    with plain():
         p_loss, p_grads, p_bn = one_micro(cfg, model)
     model.load_state_dict(sd0)
     errs = {"loss": normalized_err(k_loss, p_loss)[1]}
     errs.update({n: normalized_err(a, b)[1]
                  for n, a, b in zip(bnames, k_bn, p_bn)})
     g_err = grad_errors(pnames, k_grads, p_grads)
-    line = dict(compute_dtype=str(cfg.model.compute_dtype), tol=tol,
+    line = dict(model=cfg.model.name,
+                compute_dtype=str(cfg.model.compute_dtype), tol=tol,
                 loss=float(k_loss), loss_plain=float(p_loss),
                 loss_rel_err=errs["loss"],
                 bn_stats_max_rel_err=max(errs[n] for n in bnames),
@@ -480,8 +544,8 @@ def train_vs_plain(card, cfg, model, batch, tol) -> None:
     else:
         cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, compute_dtype=torch.float32))
-        with plain_kernels():
-            _, r_grads, _ = one_micro(cfg32, CartNet(
+        with plain():
+            _, r_grads, _ = one_micro(cfg32, type(model)(
                 cfg32.model, device=batch.z.device, seed=0))
         k_ref = grad_errors(pnames, k_grads, r_grads)
         p_ref = grad_errors(pnames, p_grads, r_grads)
@@ -494,8 +558,8 @@ def train_vs_plain(card, cfg, model, batch, tol) -> None:
         bad += [n for n in pnames if k_ref[n] > 2 * p_ref[n] + tol]
     emit(phase="train_vs_plain", card=card, **line, failed=bad)
     if bad:
-        fail(f"train step kernels vs plain ({cfg.model.compute_dtype}): "
-             f"{bad}")
+        fail(f"{cfg.model.name} train step kernels vs plain "
+             f"({cfg.model.compute_dtype}): {bad}")
 
 
 # ----------------------------------------------------------------- main
@@ -567,6 +631,14 @@ def main() -> int:
                  "bf16_128": (bf, 128, 0)}
     tp_cases = {"bf16_f32a": (bf, f32, 1), "bf16": (bf, bf, 0),
                 "f32_config": (f32, f32, 0)}
+    # eComformer training, calls per bf16 micro-step: K3's perm=None form as
+    # the sorted gather's backward (dtype, width: q, s_node, cat1), K8
+    # (dtype; one l1 and one l2 call each)
+    gather_cases = {"gather_bf16_256": (bf, 256, 3),
+                    "gather_bf16_64": (bf, 64, 1),
+                    "gather_bf16_128": (bf, 128, 1),
+                    "gather_f32_256": (f32, 256, 0)}
+    tp_bwd_cases = {"bf16": (bf, 1), "f32_config": (f32, 0)}
 
     # 3. kernel checks
     check_err = dict.fromkeys(KERNELS, 0.0)
@@ -660,6 +732,38 @@ def main() -> int:
                 check_err["tp_contract_fwd"] = max(
                     check_err["tp_contract_fwd"], err)
         timing_inputs[("tp", case)] = targs
+    # K3 over dst_rowptr and the edge mask (gather_sorted's backward), on
+    # cotangents that are zero on pad rows, as the model's are
+    for case, (dt, width, _) in gather_cases.items():
+        ct = (torch.randn(E, width, generator=gen).to(dev)
+              * b0.edge_mask[:, None]).to(dt)
+        gargs = (ct, b0.dst_rowptr, b0.edge_mask)
+        got, again = k3.segment_sum_csr(*gargs), k3.segment_sum_csr(*gargs)
+        want = k3.segment_sum_csr_plain(*gargs)
+        torch.cuda.synchronize()
+        check_outputs(card, "segment_sum_csr", case, ("out",), (got,),
+                      (again,), (want,),
+                      lambda _: CHECK_TOL["sum" if dt == f32 else "bf16"])
+        timing_inputs[("seg", case)] = gargs
+    # K8 on K7's operands (bf16 h, a and W; the f32 config) with random
+    # cotangents that are zero on pad rows
+    for case, (dt, _) in tp_bwd_cases.items():
+        targs = tp_args(b0, dt, dt, d, gen, dev)
+        for l2 in (False, True):
+            a = tp_bwd_args(targs, l2, b0.edge_mask, gen)
+            got, again = (tp_bwd_flat(k7.tp_contract_bwd(*a))
+                          for _ in range(2))
+            want = tp_bwd_flat(k7.tp_contract_bwd_plain(*a))
+            torch.cuda.synchronize()
+            tol_of = (lambda o: CHECK_TOL["bf16"]) if dt == bf else (
+                lambda o: CHECK_TOL["f32" if o.startswith("da") else "sum"])
+            err = check_outputs(card, "tp_contract_bwd",
+                                f"{'l2' if l2 else 'l1'}_{case}",
+                                TP_BWD_OUT[l2], got, again, want, tol_of)
+            if dt == bf:
+                check_err["tp_contract_bwd"] = max(
+                    check_err["tp_contract_bwd"], err)
+            timing_inputs[("tp_bwd", l2, case)] = a
 
     # 4. main path: the inference sweep through the kernels
     cfg = ModelConfig(dim_in=d, dim_rbf=64, num_layers=4, cholesky=True,
@@ -771,7 +875,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches_cli = launch_counts()
-    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2, 0, 0)))
+    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2, 0, 0, 0)))
     emit(phase="cli", card=card, launches=launches_cli,
          expected_launches=expect_cli, optimizer_steps=cstate.step,
          bad_steps=int(cstate.bad_steps), test=ctest,
@@ -794,8 +898,6 @@ def main() -> int:
     ecfg = ModelConfig(name="ecomformer", dim_in=d, cholesky=True,
                        compute_dtype=bf)
     emodel = create_model(ecfg, dev, 0)
-    per_fwd = dict(edge_phase_fwd=3, sigma_segsum_fwd=3, segment_sum_csr=2,
-                   tp_contract_fwd=2)
     launch_counts(reset=True)
     t0 = time.perf_counter()
     eout = runner.inference(
@@ -805,7 +907,7 @@ def main() -> int:
     esweep_s = time.perf_counter() - t0
     launches_eco = launch_counts()
     expect_eco = dict.fromkeys(KERNELS, 0)
-    expect_eco.update({k: v * len(batches) for k, v in per_fwd.items()})
+    expect_eco.update({k: v * len(batches) for k, v in ECO_FWD.items()})
     epreds = [torch.as_tensor(p) for p in eout["pred"]]
     efinite = all(bool(torch.isfinite(p).all()) for p in epreds)
     emit(phase="ecomformer", card=card, batches=len(batches),
@@ -850,7 +952,7 @@ def main() -> int:
     ecli_s = time.perf_counter() - t0
     launches_ecli = launch_counts()
     expect_ecli = dict.fromkeys(KERNELS, 0)
-    expect_ecli.update(per_fwd)
+    expect_ecli.update(ECO_FWD)
     cfinite = all(bool(torch.isfinite(torch.as_tensor(p)).all())
                   for p in cout["pred"])
     emit(phase="ecomformer_cli", card=card, launches=launches_ecli,
@@ -861,7 +963,78 @@ def main() -> int:
         fail(f"eComformer CLI sweep: launches {launches_ecli}, finite "
              f"{cfinite}")
 
-    # 7. times at the main paths' shapes
+    # 7. eComformer training: bench.py's eComformer through make_steps /
+    # train_epoch, 16 micro-steps = 1 optimizer update
+    etcfg = Config(model=ecfg, optim=OptimConfig(
+        max_epoch=1, batch_accumulation=TRAIN_ACCUM))
+    etmodel = create_model(etcfg.model, dev, 0)
+    eopt = loop.build_optimizer(etcfg, etmodel.parameters(), ECO_MICRO_STEPS)
+    estate = loop.init_train_state(etmodel, eopt)
+    emicro, eupdate, _ = loop.make_steps(etcfg)
+    eepoch = dev_batches * (ECO_MICRO_STEPS // len(dev_batches))
+    ebn0 = [t.clone() for t in loop.bn_buffers(etmodel)]
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    estate, erows = loop.train_epoch(estate, eepoch, emicro, eupdate,
+                                     TRAIN_ACCUM, dev)
+    torch.cuda.synchronize()
+    etrain_s = time.perf_counter() - t0
+    launches_etrain = launch_counts()
+    elosses = [float(r[0]["loss"]) for r in erows]
+    ebn_moved = all(not torch.equal(a, b)
+                    for a, b in zip(ebn0, loop.bn_buffers(etmodel)))
+    expect_etrain = dict.fromkeys(KERNELS, 0)
+    expect_etrain.update({k: v * len(eepoch) for k, v in ECO_MICRO.items()})
+    emit(phase="ecomformer_train", card=card, micro_steps=len(eepoch),
+         batch_accumulation=TRAIN_ACCUM, optimizer_steps=estate.step,
+         launches=launches_etrain, expected_launches=expect_etrain,
+         launches_per_micro_step={k: v / len(eepoch)
+                                  for k, v in launches_etrain.items()},
+         loss_first=elosses[0], loss_last=elosses[-1],
+         finite=all(math.isfinite(x) for x in elosses),
+         bad_steps=int(estate.bad_steps), bn_stats_updated=ebn_moved,
+         seconds=round(etrain_s, 3))
+    if launches_etrain != expect_etrain:
+        fail(f"eComformer train launch counts {launches_etrain}, expected "
+             f"{expect_etrain}")
+    if not all(math.isfinite(x) for x in elosses) or int(estate.bad_steps):
+        fail("non-finite eComformer train losses or skipped steps")
+    if estate.step != len(eepoch) // TRAIN_ACCUM or not ebn_moved:
+        fail(f"eComformer: {estate.step} optimizer steps, BN stats moved: "
+             f"{ebn_moved}")
+
+    # the user's entry point: a short eComformer training run through the
+    # CLI (2 train micro-steps, 1 val and 1 test forward)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    ecstate, ectest = cli.main(["--dataset", "synthetic", "--limit", "8",
+                                "--epochs", "1", "--batch_accumulation", "2",
+                                "--model", "eComformer", "--bf16"])
+    torch.cuda.synchronize()
+    ecli_train_s = time.perf_counter() - t0
+    launches_ecli_train = launch_counts()
+    expect_ecli_train = dict.fromkeys(KERNELS, 0)
+    for k in KERNELS:
+        expect_ecli_train[k] = 2 * ECO_MICRO.get(k, 0) + 2 * ECO_FWD.get(k, 0)
+    emit(phase="ecomformer_cli_train", card=card,
+         launches=launches_ecli_train, expected_launches=expect_ecli_train,
+         optimizer_steps=ecstate.step, bad_steps=int(ecstate.bad_steps),
+         test=ectest, seconds=round(ecli_train_s, 3))
+    if launches_ecli_train != expect_ecli_train or ecstate.step != 1 or \
+            not all(math.isfinite(v) for v in ectest.values()):
+        fail(f"eComformer CLI training run: launches {launches_ecli_train}, "
+             f"{ecstate.step} optimizer steps, test stats {ectest}")
+
+    # one micro-step from the same state, kernels vs plain versions: the
+    # trained bf16 model, and the f32 config at its initial state
+    train_vs_plain(card, etcfg, etmodel, dev_batches[0], PRED_TOL,
+                   plain_ecomformer_kernels)
+    ecfg32 = dataclasses.replace(
+        etcfg, model=dataclasses.replace(etcfg.model, compute_dtype=f32))
+    train_vs_plain(card, ecfg32, create_model(ecfg32.model, dev, 0),
+                   dev_batches[0], F32_STEP_TOL, plain_ecomformer_kernels)
+
+    # 8. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}
 
     def time_row(kname, case, fk, fp, t_bound, by, calls, **others):
@@ -954,6 +1127,37 @@ def main() -> int:
                      lambda a=a, fn=fn: fn(*a), lambda a=a, l2=l2:
                      tp_plain(l2)(*a), t_bound, by, calls,
                      gemm_ms=lambda h=targs["h"]: torch.matmul(h, wt_t))
+    # K3 as the gather backward beside one index_add_ of the same
+    # cotangents onto edge_dst (the JAX package's function: every edge,
+    # pads adding zeros)
+    for case, (dt, width, calls) in gather_cases.items():
+        gargs = timing_inputs[("seg", case)]
+        t_bound, by = seg_cost(gargs, k3.segment_sum_csr(*gargs), real0)
+        table = torch.zeros((N, width), dtype=dt, device=dev)
+        time_row("segment_sum_csr", case,
+                 lambda a=gargs: k3.segment_sum_csr(*a),
+                 lambda a=gargs: k3.segment_sum_csr_plain(*a), t_bound, by,
+                 calls, library_ms=lambda a=gargs, t=table: t.index_add_(
+                     0, b0.edge_dst, a[0]))
+    # K8 beside cuBLAS's three products alone on operands of the same
+    # shapes and dtype: dwall @ wt, dwall^T h and the recompute h @ W
+    for case, (dt, calls) in tp_bwd_cases.items():
+        for l2 in (False, True):
+            a = timing_inputs[("tp_bwd", l2, case)]
+            h, wt = a[1], a[3]
+            dwall = torch.randn(E, 5120, generator=gen).to(dt).to(dev)
+            t_bound, by = tp_bwd_cost(a, k7.tp_contract_bwd(*a))
+
+            def cublas(h=h, wt=wt, dwall=dwall):
+                torch.matmul(dwall, wt)
+                torch.matmul(dwall.t(), h)
+                torch.matmul(h, wt.t())
+
+            time_row("tp_contract_bwd", f"{'l2' if l2 else 'l1'}_{case}",
+                     lambda a=a: k7.tp_contract_bwd(*a),
+                     lambda a=a: k7.tp_contract_bwd_plain(*a), t_bound, by,
+                     calls, library_ms=cublas)
+            del dwall
     emit(phase="forward", card=card, batch_ms_kernels=fwd_ms,
          batch_ms_plain=fwd_plain_ms, runs=20)
     emit(phase="forward", card=card, model="ecomformer",
@@ -982,11 +1186,24 @@ def main() -> int:
          edges_per_s_plain=real_edges / (step_plain_ms / 1e3))
     emit(phase="profile", card=card, what="train_micro_step",
          **profile_call(step))
+    estep = lambda: emicro(estate, dev_batches[0])
+    estep_ms = cuda_median_ms(estep, 20)
+    with plain_ecomformer_kernels():
+        estep_plain_ms = cuda_median_ms(estep, 20)
+    emit(phase="train_step", card=card, model="ecomformer",
+         micro_step_ms=estep_ms, micro_step_ms_plain=estep_plain_ms, runs=20,
+         mean_real_edges=real_edges,
+         edges_per_s=real_edges / (estep_ms / 1e3),
+         edges_per_s_plain=real_edges / (estep_plain_ms / 1e3))
+    emit(phase="profile", card=card, what="ecomformer_train_micro_step",
+         **profile_call(estep))
 
-    # 8. summary: K1, K2, K4, K5 per launch on the CartNet training path
+    # 9. summary: K1, K2, K4, K5 per launch on the CartNet training path
     # (all four run in every micro-step, in the bf16 training case); K3 and
     # K7 per launch on the eComformer serving path, in its first call's
-    # case (K3 on the f32 [E, 128] irreps, K7 l1 with bf16 h/W and f32 a)
+    # case (K3 on the f32 [E, 128] irreps, K7 l1 with bf16 h/W and f32 a);
+    # K8 per launch on the eComformer training path (l1, bf16), with the
+    # launches of its 16 micro-steps
     kernels = []
     for kname, src, replaces in (
             ("edge_phase_fwd", "cartnet_tpu_torch/csrc/edge_phase_fwd.cu",
@@ -1011,11 +1228,16 @@ def main() -> int:
             ("segment_sum_csr", "cartnet_tpu_torch/csrc/segment_sum_csr.cu",
              "cartnet_tpu/ops/pallas/segment_kernels.py:38", "f32_128"),
             ("tp_contract_fwd", "cartnet_tpu_torch/csrc/tp_contract_fwd.cu",
-             "cartnet_tpu/ops/pallas/tp_kernels.py:88", "l1_bf16_f32a")):
+             "cartnet_tpu/ops/pallas/tp_kernels.py:88", "l1_bf16_f32a"),
+            ("tp_contract_bwd", "cartnet_tpu_torch/csrc/tp_contract_bwd.cu",
+             "cartnet_tpu/ops/pallas/tp_kernels.py:113", "l1_bf16")):
         r = rows_t[kname][case]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches_eco[kname],
+            "replaces": replaces,
+            "launches": (launches_etrain if kname == "tp_contract_bwd"
+                         else launches_eco)[kname],
+            "launches_ecomformer_train": launches_etrain[kname],
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

@@ -306,19 +306,19 @@ def test_cli_sweep_matches_jax_runner(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="C1b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
         create_model(ModelConfig(name="icomformer", dim_in=D), "cpu")
-    with pytest.raises(NotImplementedError, match="C1b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
         cli.main(["--device", "cpu", "--limit", "4", "--inference",
                   "--model", "iComformer", "--dim_in", str(D),
                   "--inference_output", str(tmp_path / "x.pkl")])
-    with pytest.raises(NotImplementedError, match="C1b"):  # training
+    with pytest.raises(NotImplementedError, match="ROADMAP C2"):  # training
         cli.main(["--device", "cpu", "--limit", "4", "--epochs", "1",
-                  "--model", "ECOMFORMER", "--dim_in", str(D)])
+                  "--model", "ICOMFORMER", "--dim_in", str(D)])
     model = create_model(ModelConfig(name="eComformer", dim_in=D), "cpu")
     assert isinstance(model, EComformer) and not model.training
-    with pytest.raises(NotImplementedError, match="C1b"):
-        model.train()
+    model.train()  # the eComformer trains (test_torch_port_comformer_train)
+    assert model.training and model.equi.training and model.conv2.training
     with pytest.raises(ValueError, match="not implemented"):
         create_model(ModelConfig(name="nosuchmodel"), "cpu")
 

@@ -95,7 +95,8 @@ def test_segment_sum_plain_matches_pallas_kernel_and_twin(seg_batch, dt):
                               torch.tensor(b.edge_src_perm))
     via_op = tseg.segment_sum_presorted(
         tv, torch.tensor(b.edge_src_perm), torch.tensor(b.src_rowptr),
-        torch.tensor(b.edge_mask_src_sorted))
+        torch.tensor(b.edge_mask_src_sorted), torch.tensor(b.edge_src),
+        torch.tensor(b.edge_mask))
     assert torch.equal(ours, via_op)
     for ref in (ref_k, ref_t):
         _same_dtype(ours, ref)
