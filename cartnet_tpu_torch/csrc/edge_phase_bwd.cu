@@ -43,6 +43,24 @@
 // accumulation); f32 products run on the CUDA cores (full f32, no TF32).
 // Elementwise steps use explicitly rounded operations so nvcc contracts
 // nothing into an FMA that the plain PyTorch version does not have.
+//
+// The second entry point, edge_phase_merged_bwd, is the merged sigma + edge
+// backward: it replaces cartnet_tpu/ops/pallas/edge_kernels.py:
+// _merged_bwd_call -> _bwd_merged_kernel (driven by _fes_bwd, the backward of
+// fused_edge_sigma under CARTNET_MERGED=1). The forward saved the rounded pre
+// alone [E, 2d], and the sigma chain sig = sigmoid(gate scale + shift) env
+// fed e_out = e + sig and aggr = segsum_dst(sig sender). The tile pass then
+// opens with the sigma backward in place of reading dgate/dsender:
+//   dvals  = daggr[dst] on masked-in edges, 0 on pads                (f32)
+//   sig0   = sigmoid(gate scale + shift)
+//   da     = (deout + dvals sender) env sig0 (1 - sig0)
+//   ds     = dvals sig0 env -> cdt          (written for the weight pass)
+//   dg     = (da scale + m (ds1_w + 2 dM2_w (gate - mean_w))) -> cdt
+// so dg is rounded once, after the BN fold (K4 + K5 round it twice); sig is
+// recomputed from pre in f32; deout takes deres's place. dscale/dshift, the
+// BN backward's global sums, come in folded into ds1_w/dM2_w (computed
+// outside, as the Pallas op does). The rest is the three passes above, with
+// the same bound, sharing their code through the MERGED template flag.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +89,10 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.f / (1.f + expf(-x));
 }
 
 __host__ __device__ constexpr size_t align128(size_t n) {
@@ -105,13 +127,20 @@ struct Args {
   const float* dm2w;
   const T* dgate;
   const T* dsender;
-  const T* deres;
+  const T* deres;   // merged: deout
+  const T* sender;  // merged only, as are env ... dst and ds_out
+  const T* env;     // [E]
+  const float* scale;
+  const float* shift;
+  const T* daggr;   // [N, d]
+  const int* dst;
   const uint8_t* emask;
   const int* dst_rowptr;
   const int* src_perm;
   const int* src_rowptr;
   T* de;
   T* dg_out;    // [E, d]   rounded dg
+  T* ds_out;    // [E, d]   merged: rounded ds
   T* dpre_out;  // [E, 2d]  dpre_c
   float* dxi;   // [N, 2d]
   float* dxj;   // [N, 2d]
@@ -254,7 +283,7 @@ __device__ __forceinline__ void column_sums(const T* s, int ld, int n,
 }
 
 // ------------------------------------------------------------ pass 1: tile
-template <typename T>
+template <typename T, bool MERGED>
 __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
   constexpr int TE1 = Cfg<T>::TE1, PAD = Cfg<T>::PAD;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -272,7 +301,8 @@ __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
 
   if (tid < TE1) m_s[tid] = p.emask[e0 + tid] ? 1.f : 0.f;
   __syncthreads();
-  // dg with the window-moment cotangents folded in, rounded to cdt
+  // dg with the window-moment cotangents folded in, rounded to cdt; merged,
+  // the gate's cotangent comes from the sigma backward, which also gives ds
   for (int i = tid; i < TE1 * d; i += NTHREADS) {
     const int r = i / d, c = i % d;
     const size_t o = (e0 + r) * d + c;
@@ -281,7 +311,23 @@ __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
     const float corr = __fadd_rn(
         p.ds1w[w], __fmul_rn(__fmul_rn(2.f, p.dm2w[w]),
                              __fadd_rn(g, -p.meanw[w])));
-    const T v = from_f<T>(__fadd_rn(to_f(p.dgate[o]), __fmul_rn(m_s[r], corr)));
+    float dgate;
+    if constexpr (MERGED) {
+      const float dvals =
+          m_s[r] != 0.f ? to_f(p.daggr[(size_t)p.dst[e0 + r] * d + c]) : 0.f;
+      const float sig0 =
+          sigmoid_f(__fadd_rn(__fmul_rn(g, p.scale[c]), p.shift[c]));
+      const float env = to_f(p.env[e0 + r]);
+      const float dsig =
+          __fadd_rn(to_f(p.deres[o]), __fmul_rn(dvals, to_f(p.sender[o])));
+      const float da = __fmul_rn(__fmul_rn(__fmul_rn(dsig, env), sig0),
+                                 __fadd_rn(1.f, -sig0));
+      p.ds_out[o] = from_f<T>(__fmul_rn(__fmul_rn(dvals, sig0), env));
+      dgate = __fmul_rn(da, p.scale[c]);
+    } else {
+      dgate = to_f(p.dgate[o]);
+    }
+    const T v = from_f<T>(__fadd_rn(dgate, __fmul_rn(m_s[r], corr)));
     a_s[r * lda + c] = v;
     p.dg_out[o] = v;
   }
@@ -289,11 +335,12 @@ __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
   column_sums<T, TE1>(a_s, lda, d, bpart + d2);  // db1g
 
   for (int half = 0; half < 2; ++half) {
-    if (half == 1) {  // ds = dsender replaces dg in the A tile
-      __syncthreads();
+    if (half == 1) {  // ds replaces dg in the A tile
+      __syncthreads();  // also makes this block's ds_out writes visible
+      const T* ds = MERGED ? p.ds_out : p.dsender;
       for (int i = tid; i < TE1 * d; i += NTHREADS) {
         const int r = i / d, c = i % d;
-        a_s[r * lda + c] = p.dsender[(e0 + r) * d + c];
+        a_s[r * lda + c] = ds[(e0 + r) * d + c];
       }
       __syncthreads();
       column_sums<T, TE1>(a_s, lda, d, bpart + d2 + d);  // db1a
@@ -303,8 +350,9 @@ __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
       gemm_nt(a_s, lda, w1, d, d, c0, w_s, c_s);  // dh chunk
       for (int i = tid; i < TE1 * CN; i += NTHREADS) {
         const int r = i / CN, cl = i % CN, pc = half * d + c0 + cl;
-        const T* srow = p.saved + (e0 + r) * d4;
-        const float pre = to_f(srow[pc]), sg = to_f(srow[d2 + pc]);
+        const T* srow = p.saved + (e0 + r) * (MERGED ? d2 : d4);
+        const float pre = to_f(srow[pc]);
+        const float sg = MERGED ? sigmoid_f(pre) : to_f(srow[d2 + pc]);
         const float h32 = __fmul_rn(pre, sg);
         const float dpre = __fmul_rn(
             c_s[r * LDC + cl],
@@ -337,8 +385,9 @@ __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
 // ---------------------------------------------------------- pass 2: weights
 // stage rows [c, c + KE) of the A source (64 columns from col) into
 // at_s[r][k]: e itself (hoff < 0) or h = pre * sig -> cdt recomputed from
-// the saved residual (hoff = 0 gate half, d aggregate half)
-template <typename T>
+// the saved residual (hoff = 0 gate half, d aggregate half); merged, sig is
+// recomputed from pre as well
+template <typename T, bool MERGED>
 __device__ __forceinline__ void stage_a(const Args<T>& p, int hoff, size_t c,
                                         int col, T* at_s, int ld) {
   constexpr int KE = Cfg<T>::KE, V = 16 / sizeof(T);  // 16-byte vectors
@@ -348,6 +397,16 @@ __device__ __forceinline__ void stage_a(const Args<T>& p, int hoff, size_t c,
     uint4 out;
     if (hoff < 0) {
       out = *reinterpret_cast<const uint4*>(&p.e[(c + r) * d + col + k]);
+    } else if (MERGED) {
+      const uint4 pr = *reinterpret_cast<const uint4*>(
+          p.saved + (c + r) * 2 * d + hoff + col + k);
+      const T* pv = reinterpret_cast<const T*>(&pr);
+      T* ov = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float x = to_f(pv[v]);
+        ov[v] = from_f<T>(__fmul_rn(x, sigmoid_f(x)));
+      }
     } else {
       const T* srow = p.saved + (c + r) * 4 * d + hoff + col + k;
       const uint4 pr = *reinterpret_cast<const uint4*>(srow);
@@ -396,6 +455,7 @@ __device__ __forceinline__ WTile weight_tile(int t, int d) {
 }
 
 // bf16: dW tile += At^T B over KE-edge chunks on the tensor cores
+template <bool MERGED>
 __device__ __forceinline__ void weight_tile_loop(const Args<bf16>& p,
                                                  const WTile& w, size_t ebeg,
                                                  size_t eend, float* out) {
@@ -408,13 +468,13 @@ __device__ __forceinline__ void weight_tile_loop(const Args<bf16>& p,
   const int row0 = 16 * (warp % 4), col0 = 64 * (warp / 4);
   const int hoff = w.mat == 0 ? -1 : (w.mat == 1 ? 0 : d);
   const bf16* bsrc = w.mat == 0 ? p.dpre_out
-                   : w.mat == 1 ? p.dg_out : p.dsender;
+                   : w.mat == 1 ? p.dg_out : MERGED ? p.ds_out : p.dsender;
   const int ldb_src = w.mat == 0 ? 2 * d : d;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
   for (size_t c = ebeg; c < eend; c += KE) {
-    stage_a(p, hoff, c, w.rt * WR, at_s, LDA);
+    stage_a<bf16, MERGED>(p, hoff, c, w.rt * WR, at_s, LDA);
     stage_b(bsrc, ldb_src, c, w.ct * WC, b_s, LDB);
     __syncthreads();
 #pragma unroll
@@ -437,6 +497,7 @@ __device__ __forceinline__ void weight_tile_loop(const Args<bf16>& p,
 }
 
 // f32: 16 x 16 threads, each 4 rows x 8 columns of the 64 x 128 tile
+template <bool MERGED>
 __device__ __forceinline__ void weight_tile_loop(const Args<float>& p,
                                                  const WTile& w, size_t ebeg,
                                                  size_t eend, float* out) {
@@ -447,11 +508,11 @@ __device__ __forceinline__ void weight_tile_loop(const Args<float>& p,
   const int d = p.d, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int hoff = w.mat == 0 ? -1 : (w.mat == 1 ? 0 : d);
   const float* bsrc = w.mat == 0 ? p.dpre_out
-                    : w.mat == 1 ? p.dg_out : p.dsender;
+                    : w.mat == 1 ? p.dg_out : MERGED ? p.ds_out : p.dsender;
   const int ldb_src = w.mat == 0 ? 2 * d : d;
   float acc[4][8] = {};
   for (size_t c = ebeg; c < eend; c += KE) {
-    stage_a(p, hoff, c, w.rt * WR, at_s, LDA);
+    stage_a<float, MERGED>(p, hoff, c, w.rt * WR, at_s, LDA);
     stage_b(bsrc, ldb_src, c, w.ct * WC, b_s, LDB);
     __syncthreads();
 #pragma unroll 4
@@ -477,7 +538,7 @@ __device__ __forceinline__ void weight_tile_loop(const Args<float>& p,
       out[(size_t)(ty * 4 + i) * w.ld_out + col_of(tx, j)] = acc[i][j];
 }
 
-template <typename T>
+template <typename T, bool MERGED>
 __global__ void __launch_bounds__(NTHREADS)
     edge_bwd_weights(Args<T> p, int per_split) {
   const int d = p.d;
@@ -487,7 +548,7 @@ __global__ void __launch_bounds__(NTHREADS)
                                                      : (size_t)p.E;
   float* out = p.w_part + (size_t)blockIdx.y * 4 * d * d + w.off +
                (size_t)w.rt * WR * w.ld_out + w.ct * WC;
-  weight_tile_loop(p, w, ebeg, ebeg < eend ? eend : ebeg, out);
+  weight_tile_loop<MERGED>(p, w, ebeg, ebeg < eend ? eend : ebeg, out);
 }
 
 // ---------------------------------------------------------- pass 3: reduce
@@ -562,42 +623,89 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T>
-cudaError_t launch(Args<T> p, cudaStream_t stream) {
-  const int d = p.d;
+// the operands of one call, untyped, as the C entry points receive them
+// (the pointers a pass does not read stay null)
+struct Ptrs {
+  const void *e, *we, *w1g, *w1a, *saved, *gate, *meanw, *ds1w, *dm2w,
+      *dgate, *dsender, *deres, *sender, *env, *scale, *shift, *daggr, *dst,
+      *emask, *dst_rowptr, *src_perm, *src_rowptr;
+  void *de, *dg_buf, *ds_buf, *dpre_buf, *dxi, *dxj, *dw, *dbias, *work;
+};
+
+template <typename T, bool MERGED>
+cudaError_t launch(const Ptrs& q, int E, int N, int d, cudaStream_t stream) {
+  Args<T> p{};
+  p.e = (const T*)q.e;
+  p.we = (const T*)q.we;
+  p.w1g = (const T*)q.w1g;
+  p.w1a = (const T*)q.w1a;
+  p.saved = (const T*)q.saved;
+  p.gate = (const T*)q.gate;
+  p.meanw = (const float*)q.meanw;
+  p.ds1w = (const float*)q.ds1w;
+  p.dm2w = (const float*)q.dm2w;
+  p.dgate = (const T*)q.dgate;
+  p.dsender = (const T*)q.dsender;
+  p.deres = (const T*)q.deres;
+  p.sender = (const T*)q.sender;
+  p.env = (const T*)q.env;
+  p.scale = (const float*)q.scale;
+  p.shift = (const float*)q.shift;
+  p.daggr = (const T*)q.daggr;
+  p.dst = (const int*)q.dst;
+  p.emask = (const uint8_t*)q.emask;
+  p.dst_rowptr = (const int*)q.dst_rowptr;
+  p.src_perm = (const int*)q.src_perm;
+  p.src_rowptr = (const int*)q.src_rowptr;
+  p.de = (T*)q.de;
+  p.dg_out = (T*)q.dg_buf;
+  p.ds_out = (T*)q.ds_buf;
+  p.dpre_out = (T*)q.dpre_buf;
+  p.dxi = (float*)q.dxi;
+  p.dxj = (float*)q.dxj;
+  p.dw = (float*)q.dw;
+  p.dbias = (float*)q.dbias;
+  p.bias_part = (float*)q.work;
+  p.w_part = p.bias_part + (size_t)(E / Cfg<T>::TE1) * 4 * d;
+  p.E = E;
+  p.N = N;
+  p.d = d;
+
   const size_t smem = Layout1<T>(d).total;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_bwd_tile<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_bwd_tile<T, MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = p.E / Cfg<T>::TE1;
-  edge_bwd_tile<T><<<n_tiles, NTHREADS, smem, stream>>>(p);
+  const int n_tiles = E / Cfg<T>::TE1;
+  edge_bwd_tile<T, MERGED><<<n_tiles, NTHREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr int KE = Cfg<T>::KE;
-  const int per_split = (p.E / KE + KSPLIT - 1) / KSPLIT * KE;
+  const int per_split = (E / KE + KSPLIT - 1) / KSPLIT * KE;
   const int n_wtiles = (d / WR) * (4 * d / WC);
-  edge_bwd_weights<T><<<dim3(n_wtiles, KSPLIT), NTHREADS, 0, stream>>>(
-      p, per_split);
+  edge_bwd_weights<T, MERGED>
+      <<<dim3(n_wtiles, KSPLIT), NTHREADS, 0, stream>>>(p, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int nw = (4 * d * d + NTHREADS - 1) / NTHREADS;
   const int nb = (4 * d + NTHREADS - 1) / NTHREADS;
-  edge_bwd_reduce<T><<<nw + nb + 2 * p.N, NTHREADS, 0, stream>>>(p, nw, nb,
-                                                                 n_tiles);
+  edge_bwd_reduce<T><<<nw + nb + 2 * N, NTHREADS, 0, stream>>>(p, nw, nb,
+                                                               n_tiles);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). d % 128 == 0, d <= 256, E % 64 == 0,
+// C entry points (bound with ctypes). d % 128 == 0, d <= 256, E % 64 == 0,
 // E > 0; every T tensor is bf16 (bf16 = 1) or f32 (0); the
 // moments/meanw are f32 [E / 64, d]; index tensors int32; emask bool.
 // dg_buf [E, d] and dpre_buf [E, 2d] (T) and work (edge_phase_bwd_workspace
 // floats) are scratch. dw receives dWe | dW1g | dW1a, dbias db | db1g | db1a.
-// Three launches; returns cudaGetLastError() after them.
+// Three launches each; they return cudaGetLastError() after them.
+
+// K5: saved is [pre | sig] [E, 4d]
 extern "C" int edge_phase_bwd(
     const void* e, const void* we, const void* w1g, const void* w1a,
     const void* saved, const void* gate, const void* meanw, const void* ds1w,
@@ -606,33 +714,44 @@ extern "C" int edge_phase_bwd(
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
     void* dpre_buf, void* dxi, void* dxj, void* dw, void* dbias, void* work,
     int E, int N, int d, int is_bf16, void* stream) {
+  Ptrs q{};
+  q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = saved;
+  q.gate = gate; q.meanw = meanw; q.ds1w = ds1w; q.dm2w = dm2w;
+  q.dgate = dgate; q.dsender = dsender; q.deres = deres; q.emask = emask;
+  q.dst_rowptr = dst_rowptr; q.src_perm = src_perm;
+  q.src_rowptr = src_rowptr; q.de = de; q.dg_buf = dg_buf;
+  q.dpre_buf = dpre_buf; q.dxi = dxi; q.dxj = dxj; q.dw = dw;
+  q.dbias = dbias; q.work = work;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    float* bias_part = (float*)work;
-    float* w_part = bias_part + (size_t)(E / Cfg<bf16>::TE1) * 4 * d;
-    const Args<bf16> p{
-        (const bf16*)e, (const bf16*)we, (const bf16*)w1g, (const bf16*)w1a,
-        (const bf16*)saved, (const bf16*)gate, (const float*)meanw,
-        (const float*)ds1w, (const float*)dm2w, (const bf16*)dgate,
-        (const bf16*)dsender, (const bf16*)deres, (const uint8_t*)emask,
-        (const int*)dst_rowptr, (const int*)src_perm,
-        (const int*)src_rowptr, (bf16*)de, (bf16*)dg_buf, (bf16*)dpre_buf,
-        (float*)dxi, (float*)dxj, (float*)dw, (float*)dbias, bias_part,
-        w_part, E, N, d};
-    return launch(p, s);
-  }
-  float* bias_part = (float*)work;
-  float* w_part = bias_part + (size_t)(E / Cfg<float>::TE1) * 4 * d;
-  const Args<float> p{
-      (const float*)e, (const float*)we, (const float*)w1g,
-      (const float*)w1a, (const float*)saved, (const float*)gate,
-      (const float*)meanw, (const float*)ds1w, (const float*)dm2w,
-      (const float*)dgate, (const float*)dsender, (const float*)deres,
-      (const uint8_t*)emask, (const int*)dst_rowptr, (const int*)src_perm,
-      (const int*)src_rowptr, (float*)de, (float*)dg_buf, (float*)dpre_buf,
-      (float*)dxi, (float*)dxj, (float*)dw, (float*)dbias, bias_part, w_part,
-      E, N, d};
-  return launch(p, s);
+  return is_bf16 ? launch<bf16, false>(q, E, N, d, s)
+                 : launch<float, false>(q, E, N, d, s);
+}
+
+// K6: pre is the rounded pre alone [E, 2d]; sender, deout [E, d] and env
+// [E] in T; scale/shift f32 [d]; daggr [N, d] in T; dst int32 [E];
+// ds_buf [E, d] (T) is scratch too
+extern "C" int edge_phase_merged_bwd(
+    const void* e, const void* we, const void* w1g, const void* w1a,
+    const void* pre, const void* gate, const void* sender, const void* env,
+    const void* scale, const void* shift, const void* meanw,
+    const void* ds1w, const void* dm2w, const void* deout, const void* daggr,
+    const void* dst, const void* emask, const void* dst_rowptr,
+    const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
+    void* ds_buf, void* dpre_buf, void* dxi, void* dxj, void* dw,
+    void* dbias, void* work, int E, int N, int d, int is_bf16,
+    void* stream) {
+  Ptrs q{};
+  q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = pre;
+  q.gate = gate; q.sender = sender; q.env = env; q.scale = scale;
+  q.shift = shift; q.meanw = meanw; q.ds1w = ds1w; q.dm2w = dm2w;
+  q.deres = deout; q.daggr = daggr; q.dst = dst; q.emask = emask;
+  q.dst_rowptr = dst_rowptr; q.src_perm = src_perm;
+  q.src_rowptr = src_rowptr; q.de = de; q.dg_buf = dg_buf;
+  q.ds_buf = ds_buf; q.dpre_buf = dpre_buf; q.dxi = dxi; q.dxj = dxj;
+  q.dw = dw; q.dbias = dbias; q.work = work;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? launch<bf16, true>(q, E, N, d, s)
+                 : launch<float, true>(q, E, N, d, s);
 }
 
 // floats of scratch that edge_phase_bwd needs in ``work``

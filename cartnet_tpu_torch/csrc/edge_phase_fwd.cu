@@ -5,7 +5,8 @@
 //   pre    = xi[dst] + xj[src] + e @ We + b          [2d]
 //   h      = silu(pre), rounded to the edge dtype
 //   gate   = h[:d] @ W1g + b1g,  sender = h[d:] @ W1a + b1a   (table dtype)
-// plus two optional outputs: the saved residual [pre | sigmoid(pre)] and the
+// plus two optional outputs: the saved residual, [pre | sigmoid(pre)] [E, 4d]
+// or pre alone [E, 2d] (the merged backward recomputes the sigmoid), and the
 // per-tile masked Welford partials s1_w / M2_w of the rounded gate.
 //
 // What bounds it: 4*E*d*2d multiply-adds (11 GFLOP at E=20992, d=256)
@@ -77,10 +78,12 @@ struct Args {
   float* s1w;
   float* m2w;
   int d;
+  int save_sig;  // saved row: [pre | sig] (1) or pre alone (0)
 };
 
 // phase-1 epilogue of one element: pre = xi[dst] + xj[src] + acc + b,
-// h = silu(pre) rounded to ET (returned), optional residual [pre | sig]
+// h = silu(pre) rounded to ET (returned), optional residual [pre | sig] or
+// pre alone
 template <typename TT, typename ET>
 __device__ __forceinline__ float phase1_element(const Args<TT, ET>& p,
                                                 size_t e0, int r, int c,
@@ -94,9 +97,9 @@ __device__ __forceinline__ float phase1_element(const Args<TT, ET>& p,
       to_f(p.b[c]));
   const float sg = 1.f / (1.f + expf(-pre));
   if (p.saved != nullptr) {
-    TT* row = p.saved + (e0 + r) * (size_t)(2 * d2);
+    TT* row = p.saved + (e0 + r) * (size_t)(p.save_sig ? 2 * d2 : d2);
     row[c] = from_f<TT>(pre);
-    row[d2 + c] = from_f<TT>(sg);
+    if (p.save_sig) row[d2 + c] = from_f<TT>(sg);
   }
   return round_to<ET>(__fmul_rn(pre, sg));
 }
@@ -402,13 +405,13 @@ cudaError_t run(const void* xi, const void* xj, const void* e, const void* we,
                 const void* w1a, const void* b1a, const void* dst,
                 const void* src, const void* emask, void* gate, void* sender,
                 void* saved, void* s1w, void* m2w, int E, int d,
-                cudaStream_t stream) {
+                int save_sig, cudaStream_t stream) {
   const Args<TT, ET> p{(const TT*)xi,  (const TT*)xj,  (const ET*)e,
                        (const ET*)we,  (const ET*)b,   (const ET*)w1g,
                        (const ET*)b1g, (const ET*)w1a, (const ET*)b1a,
                        (const int*)dst, (const int*)src,
                        (const uint8_t*)emask, (TT*)gate, (TT*)sender,
-                       (TT*)saved, (float*)s1w, (float*)m2w, d};
+                       (TT*)saved, (float*)s1w, (float*)m2w, d, save_sig};
   return launch(p, E, stream);
 }
 
@@ -416,7 +419,9 @@ cudaError_t run(const void* xi, const void* xj, const void* e, const void* we,
 
 // C entry point (bound with ctypes). E % 64 == 0, d % 128 == 0, d <= 256.
 // table_bf16 / edge_bf16 select bf16 (1) or f32 (0) node tables / edge
-// activations and weights. Returns cudaGetLastError() after the launch.
+// activations and weights; save_sig selects the saved residual's layout
+// ([pre | sig] [E, 4d] or pre [E, 2d]). Returns cudaGetLastError() after the
+// launch.
 extern "C" int edge_phase_fwd(const void* xi, const void* xj, const void* e,
                               const void* we, const void* b, const void* w1g,
                               const void* b1g, const void* w1a,
@@ -424,17 +429,21 @@ extern "C" int edge_phase_fwd(const void* xi, const void* xj, const void* e,
                               const void* src, const void* emask, void* gate,
                               void* sender, void* saved, void* s1w, void* m2w,
                               int E, int d, int table_bf16, int edge_bf16,
-                              void* stream) {
+                              int save_sig, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (table_bf16 && edge_bf16)
     return run<bf16, bf16>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                           emask, gate, sender, saved, s1w, m2w, E, d, s);
+                           emask, gate, sender, saved, s1w, m2w, E, d,
+                           save_sig, s);
   if (edge_bf16)
     return run<float, bf16>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                            emask, gate, sender, saved, s1w, m2w, E, d, s);
+                            emask, gate, sender, saved, s1w, m2w, E, d,
+                            save_sig, s);
   if (table_bf16)
     return run<bf16, float>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                            emask, gate, sender, saved, s1w, m2w, E, d, s);
+                            emask, gate, sender, saved, s1w, m2w, E, d,
+                            save_sig, s);
   return run<float, float>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                           emask, gate, sender, saved, s1w, m2w, E, d, s);
+                           emask, gate, sender, saved, s1w, m2w, E, d,
+                           save_sig, s);
 }

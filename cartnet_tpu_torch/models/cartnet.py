@@ -24,10 +24,18 @@ scale/shift -> the sigma chain as an autograd Function (K2 forward, K4
 backward) -> train-mode BN2 -> silu(aggr) + x. Train BN2 keeps x's dtype,
 so with bf16 compute the node tables stay bf16 in every layer. Each train
 forward advances the BN running stats in place.
+
+With ``CARTNET_MERGED=1`` in the environment (the JAX package's switch, read
+at each train forward as ``fused_edge_sigma`` reads it) the edge phase, the
+BN merge and the sigma chain are one autograd Function (``FusedEdgeSigma``:
+K1 with the pre-only residual, K2 forward; the merged backward K6 in place
+of K4 + K5), and the layer advances norm's running stats once from the
+moments it returns.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
@@ -44,6 +52,7 @@ from cartnet_tpu_torch.nn.norm import (bn_scale_shift_from_window_moments,
                                        masked_bn_scale_shift)
 from cartnet_tpu_torch.ops import rbf as rbf_ops
 from cartnet_tpu_torch.ops.kernels.edge_kernels import (TILE_EDGES, EdgePhase,
+                                                        FusedEdgeSigma,
                                                         edge_phase_fwd)
 from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
                                                            sigma_segsum)
@@ -195,23 +204,32 @@ class CartNetLayer(nn.Module):
 
     def _train_forward(self, x, e, batch: CrystalBatch,
                        env: Optional[torch.Tensor], cast: Cast):
-        """The train-mode layer (the JAX package's ``_fes_plain``
-        composition); advances norm/norm2's running stats."""
+        """The train-mode layer (the JAX package's ``fused_edge_sigma``:
+        the ``_fes_plain`` composition, or ``_fes_op`` under
+        ``CARTNET_MERGED=1``); advances norm/norm2's running stats."""
         eps, mom = self.cfg.bn_eps, self.cfg.bn_momentum
         wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
-        gate, sender, e_res, s1w, m2w = EdgePhase.apply(
-            torch.matmul(x, wi), torch.matmul(x, wj), e, we, b, w1g, b1g,
-            w1a, b1a, batch.edge_dst, batch.edge_src, batch.edge_mask,
-            batch.dst_rowptr, batch.edge_src_perm, batch.src_rowptr)
-        scale, shift = bn_scale_shift_from_window_moments(
-            self.norm, cast(self.norm.weight), cast(self.norm.bias), s1w,
-            m2w, batch.edge_mask, TILE_EDGES, mom, eps)
+        xi, xj = torch.matmul(x, wi), torch.matmul(x, wj)
+        idx = (batch.edge_dst, batch.edge_src, batch.edge_mask,
+               batch.dst_rowptr, batch.edge_src_perm, batch.src_rowptr)
         env_col = (env[:, None] if env is not None else
                    torch.ones((batch.num_edges, 1), device=e.device))
-        e_out, aggr = SigmaSegsum.apply(
-            gate, scale, shift, env_col.to(gate.dtype).contiguous(), sender,
-            e_res, batch.edge_dst, batch.edge_mask, batch.dst_rowptr,
-            batch.num_nodes)
+        env_col = env_col.to(x.dtype).contiguous()
+        gamma, beta = cast(self.norm.weight), cast(self.norm.bias)
+        if os.environ.get("CARTNET_MERGED", "0") == "1":
+            e_out, aggr, mean, var, n = FusedEdgeSigma.apply(
+                xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env_col,
+                *idx, eps)
+            bn_state_update(self.norm, mean, var, n, mom)
+        else:
+            gate, sender, e_res, s1w, m2w = EdgePhase.apply(
+                xi, xj, e, we, b, w1g, b1g, w1a, b1a, *idx)
+            scale, shift = bn_scale_shift_from_window_moments(
+                self.norm, gamma, beta, s1w, m2w, batch.edge_mask,
+                TILE_EDGES, mom, eps)
+            e_out, aggr = SigmaSegsum.apply(
+                gate, scale, shift, env_col, sender, e_res, batch.edge_dst,
+                batch.edge_mask, batch.dst_rowptr, batch.num_nodes)
         aggr, (mean, var, n) = masked_batch_norm_train(
             aggr, cast(self.norm2.weight), cast(self.norm2.bias),
             batch.node_mask, eps)

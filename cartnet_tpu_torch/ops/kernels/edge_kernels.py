@@ -9,9 +9,11 @@ Port of the Pallas forward kernel cartnet_tpu/ops/pallas/edge_kernels.py
     sender = h[:, d:] @ W1a + b1a                      # [E, d], xi.dtype
 
 Optional outputs (off on the inference path): the backward's saved residual
-``[pre ‖ sigmoid(pre)]`` [E, 4d] in xi.dtype, and per-tile masked Welford
-partials ``s1_w``/``M2_w`` [E/tile, d] (f32) of the rounded gate over
-``tile``-edge windows; any tile size merges exactly in the training slice.
+in xi.dtype, ``[pre ‖ sigmoid(pre)]`` [E, 4d] or, with ``pre_only``, the
+rounded ``pre`` alone [E, 2d] (the JAX package's ``saved=False``, which the
+merged backward takes), and per-tile masked Welford partials
+``s1_w``/``M2_w`` [E/tile, d] (f32) of the rounded gate over ``tile``-edge
+windows; any tile size merges exactly in the training slice.
 
 Node tables (xi, xj) come in bf16 or f32; e and the weights share the compute
 dtype. Every edge is computed, pads included (pads point at real rows).
@@ -25,6 +27,16 @@ weight-gradient pass, a fixed-order reduce pass; no atomics) or raises; on a
 CPU tensor it runs ``edge_phase_bwd_plain``. It needs node tables and edges
 in one dtype, as training has them. ``EdgePhase`` is the autograd Function:
 forward K1 with the saved residual and the moments, backward K5.
+
+The merged sigma + edge backward (port of ``_merged_bwd_call`` ->
+``_bwd_merged_kernel``, driven by ``_fes_bwd``) is ``merged_bwd``: on a CUDA
+tensor it launches the second entry point of ``csrc/edge_phase_bwd.cu``
+(K5's three passes with the sigma backward as the tile pass's prologue) or
+raises; on a CPU tensor it runs ``merged_bwd_plain``. ``FusedEdgeSigma`` is
+the JAX package's ``fused_edge_sigma`` under ``CARTNET_MERGED=1`` as one
+autograd Function: forward K1 (pre-only residual, moments) -> the window-
+moment BN merge -> K2; backward the BN's global sums in plain PyTorch, the
+merge's VJP, then K6.
 """
 
 from __future__ import annotations
@@ -33,7 +45,9 @@ import ctypes
 
 import torch
 
+from cartnet_tpu_torch.nn.norm import combine_window_moments
 from cartnet_tpu_torch.ops.kernels import _build
+from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
 
 # the CUDA kernel's edge tile: E must be a multiple of it, and it is the
 # window of the optional s1_w/M2_w partials
@@ -43,6 +57,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0  # forward kernel launches (CUDA path only)
 bwd_launches = 0  # backward kernel launches (CUDA path only)
+merged_launches = 0  # merged backward (K6) launches (CUDA path only)
 
 
 def window_moments(gate, emask, tile: int):
@@ -59,8 +74,8 @@ def window_moments(gate, emask, tile: int):
 
 
 def edge_phase_fwd_plain(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                         emask, *, saved: bool = False, moments: bool = False,
-                         tile: int = TILE_EDGES):
+                         emask, *, saved: bool = False, pre_only: bool = False,
+                         moments: bool = False, tile: int = TILE_EDGES):
     """The kernel's function in plain PyTorch (same casts and rounding).
     Returns (gate, sender, saved | None, s1_w | None, M2_w | None)."""
     cdt = xi.dtype
@@ -74,7 +89,10 @@ def edge_phase_fwd_plain(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
     gate = torch.matmul(h[:, :d].float(), w1g.float()) + b1g.float()
     sender = torch.matmul(h[:, d:].float(), w1a.float()) + b1a.float()
     gate = gate.to(cdt)
-    res = torch.cat([pre.to(cdt), sig.to(cdt)], dim=1) if saved else None
+    res = None
+    if saved:
+        res = pre.to(cdt) if pre_only else torch.cat([pre.to(cdt),
+                                                      sig.to(cdt)], dim=1)
     s1w = m2w = None
     if moments:
         s1w, m2w = window_moments(gate, emask, tile)
@@ -124,21 +142,22 @@ def _lib():
     lib = _build.load("edge_phase_fwd")
     fn = lib.edge_phase_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
-                   saved: bool = False, moments: bool = False):
+                   saved: bool = False, pre_only: bool = False,
+                   moments: bool = False):
     """Fused gather + edge MLPs -> (gate, sender, saved | None,
     s1_w | None, M2_w | None); see the module docstring."""
     _check(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
     if e.device.type == "cpu":
         return edge_phase_fwd_plain(xi, xj, e, we, b, w1g, b1g, w1a, b1a,
                                     dst, src, emask, saved=saved,
-                                    moments=moments)
+                                    pre_only=pre_only, moments=moments)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
     args = (xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
@@ -154,7 +173,8 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
     dev, cdt = e.device, xi.dtype
     gate = torch.empty((E, d), dtype=cdt, device=dev)
     sender = torch.empty((E, d), dtype=cdt, device=dev)
-    res = torch.empty((E, 4 * d), dtype=cdt, device=dev) if saved else None
+    res = (torch.empty((E, (2 if pre_only else 4) * d), dtype=cdt,
+                       device=dev) if saved else None)
     nt = E // TILE_EDGES
     s1w = torch.empty((nt, d), dtype=torch.float32, device=dev) \
         if moments else None
@@ -162,7 +182,7 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib()(*(ptr(t) for t in args), ptr(gate), ptr(sender), ptr(res),
                  ptr(s1w), ptr(m2w), E, d, int(cdt == torch.bfloat16),
-                 int(edge_bf16),
+                 int(edge_bf16), int(not pre_only),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "edge_phase_fwd")
     global launches
@@ -172,25 +192,16 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
 
 # ------------------------------------------------------------ backward (K5)
 
-def edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
-                         dgate, dsender, deres, dst, src, emask,
-                         num_nodes: int, *, tile: int = TILE_EDGES):
-    """The backward kernel's function in plain PyTorch (same casts and
-    rounding) -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a); dxi/dxj
-    [num_nodes, 2d] and the weight/bias gradients are f32, de in e.dtype.
-    ``meanw``/``ds1w``/``dm2w`` are per-``tile``-edge window rows."""
+def _bwd_tail(e, we, w1g, w1a, pre, sig, dg, ds, deres, dst, src, emask,
+              num_nodes: int):
+    """K5's body from the rounded dg/ds on (shared with K6's plain
+    version): f32 pre and sig of the residual -> (de, dxi, dxj, dwe, db,
+    dw1g, db1g, dw1a, db1a)."""
     cdt = e.dtype
-    E, d = gate.shape
+    d = w1g.shape[0]
     f = lambda t: t.float()
-    pre, sig = f(saved[:, :2 * d]), f(saved[:, 2 * d:])
     h32 = pre * sig
     h = h32.to(cdt)
-    nt = E // tile
-    mf = emask.reshape(nt, tile, 1).float()
-    corr = (f(ds1w)[:, None, :] + 2.0 * f(dm2w)[:, None, :]
-            * (f(gate).reshape(nt, tile, d) - f(meanw)[:, None, :]))
-    dg = (f(dgate).reshape(nt, tile, d) + mf * corr).reshape(E, d).to(cdt)
-    ds = dsender.to(cdt)
     dh = torch.cat([torch.matmul(f(dg), f(w1g).t()),
                     torch.matmul(f(ds), f(w1a).t())], dim=1)
     dpre = dh * (sig + h32 * (1.0 - sig))
@@ -205,22 +216,43 @@ def edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
             torch.matmul(f(h[:, d:]).t(), f(ds)), f(ds).sum(dim=0))
 
 
-def _check_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
-               dsender, deres, dst, src, emask, dst_rowptr, src_perm,
-               src_rowptr):
-    E, d = e.shape
-    N = dst_rowptr.shape[0] - 1
-    nt = E // TILE_EDGES
-    shapes = {"we": (we, (d, 2 * d)), "w1g": (w1g, (d, d)),
-              "w1a": (w1a, (d, d)), "saved": (saved, (E, 4 * d)),
-              "gate": (gate, (E, d)), "meanw": (meanw, (nt, d)),
-              "ds1w": (ds1w, (nt, d)), "dm2w": (dm2w, (nt, d)),
-              "dgate": (dgate, (E, d)), "dsender": (dsender, (E, d)),
-              "deres": (deres, (E, d)), "dst": (dst, (E,)),
-              "src": (src, (E,)), "emask": (emask, (E,)),
-              "src_perm": (src_perm, (E,)),
-              "src_rowptr": (src_rowptr, (N + 1,))}
-    for name, (t, shape) in shapes.items():
+def _moment_fold(gate, meanw, ds1w, dm2w, emask, tile: int):
+    """m * (ds1_w + 2 dM2_w (gate - mean_w)) [E, d] f32: the BN-moment
+    cotangents of each ``tile``-edge window, folded into dgate."""
+    E, d = gate.shape
+    nt = E // tile
+    f = lambda t: t.float()
+    mf = emask.reshape(nt, tile, 1).float()
+    corr = (f(ds1w)[:, None, :] + 2.0 * f(dm2w)[:, None, :]
+            * (f(gate).reshape(nt, tile, d) - f(meanw)[:, None, :]))
+    return (mf * corr).reshape(E, d)
+
+
+def edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
+                         dgate, dsender, deres, dst, src, emask,
+                         num_nodes: int, *, tile: int = TILE_EDGES):
+    """The backward kernel's function in plain PyTorch (same casts and
+    rounding) -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a); dxi/dxj
+    [num_nodes, 2d] and the weight/bias gradients are f32, de in e.dtype.
+    ``meanw``/``ds1w``/``dm2w`` are per-``tile``-edge window rows."""
+    cdt = e.dtype
+    d = gate.shape[1]
+    pre, sig = saved[:, :2 * d].float(), saved[:, 2 * d:].float()
+    dg = (dgate.float() + _moment_fold(gate, meanw, ds1w, dm2w, emask,
+                                       tile)).to(cdt)
+    return _bwd_tail(e, we, w1g, w1a, pre, sig, dg, dsender.to(cdt), deres,
+                     dst, src, emask, num_nodes)
+
+
+_INDEX_NAMES = ("dst", "src", "dst_rowptr", "src_perm", "src_rowptr")
+
+
+def _check_bwd(e, tensors, f32_names=("meanw", "ds1w", "dm2w")):
+    """Shapes, devices and dtypes of a backward's operands: ``tensors`` maps
+    name -> (tensor, shape); the index tensors are int32, emask bool, the
+    ``f32_names`` f32 and every other tensor in e's dtype."""
+    E = e.shape[0]
+    for name, (t, shape) in tensors.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         if t.device != e.device:
@@ -229,22 +261,29 @@ def _check_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
         raise ValueError(f"E={E} must be a multiple of {TILE_EDGES}")
     if e.dtype not in _DTYPES:
         raise TypeError(f"e must be f32/bf16, got {e.dtype}")
-    for name, t in (("we", we), ("w1g", w1g), ("w1a", w1a),
-                    ("saved", saved), ("gate", gate), ("dgate", dgate),
-                    ("dsender", dsender), ("deres", deres)):
-        if t.dtype != e.dtype:
-            raise TypeError(f"{name} is {t.dtype}; the backward takes node "
-                            f"tables, edges and weights in one dtype "
-                            f"({e.dtype})")
-    for name, t in (("meanw", meanw), ("ds1w", ds1w), ("dm2w", dm2w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be f32")
-    for name, t in (("dst", dst), ("src", src), ("dst_rowptr", dst_rowptr),
-                    ("src_perm", src_perm), ("src_rowptr", src_rowptr)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32")
-    if emask.dtype != torch.bool:
-        raise TypeError("emask must be bool")
+    for name, (t, _) in tensors.items():
+        want = (torch.int32 if name in _INDEX_NAMES else torch.bool
+                if name == "emask" else torch.float32 if name in f32_names
+                else e.dtype)
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}, must be {want} (the "
+                            f"backward takes node tables, edges and weights "
+                            f"in one dtype)")
+
+
+def _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst, src, emask,
+                   dst_rowptr, src_perm, src_rowptr):
+    """The operands K5 and K6 share, name -> (tensor, shape)."""
+    E, d = e.shape
+    N = dst_rowptr.shape[0] - 1
+    nt = E // TILE_EDGES
+    return {"we": (we, (d, 2 * d)), "w1g": (w1g, (d, d)),
+            "w1a": (w1a, (d, d)), "gate": (gate, (E, d)),
+            "meanw": (meanw, (nt, d)), "ds1w": (ds1w, (nt, d)),
+            "dm2w": (dm2w, (nt, d)), "dst": (dst, (E,)), "src": (src, (E,)),
+            "emask": (emask, (E,)), "dst_rowptr": (dst_rowptr, (N + 1,)),
+            "src_perm": (src_perm, (E,)),
+            "src_rowptr": (src_rowptr, (N + 1,))}
 
 
 def _lib_bwd():
@@ -254,6 +293,9 @@ def _lib_bwd():
         fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.edge_phase_merged_bwd.argtypes = [ctypes.c_void_p] * 29 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.edge_phase_merged_bwd.restype = ctypes.c_int
         lib.edge_phase_bwd_workspace.argtypes = [ctypes.c_int] * 3
         lib.edge_phase_bwd_smem.argtypes = [ctypes.c_int] * 2
         for name in ("edge_phase_bwd_workspace", "edge_phase_bwd_smem"):
@@ -261,15 +303,55 @@ def _lib_bwd():
     return lib
 
 
+def _launch_bwd(entry: str, args, e, N: int):
+    """Launch ``entry`` of csrc/edge_phase_bwd.cu on ``args`` (contiguous,
+    the first six 16-byte aligned) with fresh outputs and scratch -> (de,
+    dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a)."""
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError(f"{entry} needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in args[:6]):
+        raise ValueError(f"{entry} needs 16-byte aligned e, weights, the "
+                         f"saved residual and gate")
+    lib = _lib_bwd()
+    E, d = e.shape
+    is_bf16 = int(e.dtype == torch.bfloat16)
+    if d % 128 or E == 0 or lib.edge_phase_bwd_smem(d, is_bf16) > _SMEM_LIMIT:
+        raise ValueError(f"{entry} kernel needs d % 128 == 0, d <= 256 and "
+                         f"E > 0 (E={E}, d={d})")
+    dev, f32 = e.device, torch.float32
+    de = torch.empty_like(e)
+    scratch = [torch.empty((E, d), dtype=e.dtype, device=dev)]  # dg
+    if entry == "edge_phase_merged_bwd":
+        scratch.append(torch.empty((E, d), dtype=e.dtype, device=dev))  # ds
+    scratch.append(torch.empty((E, 2 * d), dtype=e.dtype, device=dev))
+    dxi = torch.empty((N, 2 * d), dtype=f32, device=dev)
+    dxj = torch.empty((N, 2 * d), dtype=f32, device=dev)
+    dw = torch.empty(4 * d * d, dtype=f32, device=dev)
+    dbias = torch.empty(4 * d, dtype=f32, device=dev)
+    work = torch.empty(lib.edge_phase_bwd_workspace(E, d, is_bf16),
+                       dtype=f32, device=dev)
+    outs = (de, *scratch, dxi, dxj, dw, dbias, work)
+    err = getattr(lib, entry)(*(t.data_ptr() for t in tuple(args) + outs),
+                              E, N, d, is_bf16,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    d2 = 2 * d * d
+    return (de, dxi, dxj, dw[:d2].view(d, 2 * d),
+            dbias[:2 * d], dw[d2:d2 + d * d].view(d, d), dbias[2 * d:3 * d],
+            dw[d2 + d * d:].view(d, d), dbias[3 * d:])
+
+
 def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
                    dsender, deres, dst, src, emask, dst_rowptr, src_perm,
                    src_rowptr):
     """The edge-phase backward -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a,
     db1a), as ``edge_phase_bwd_plain``; see the module docstring."""
-    _check_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
-               dsender, deres, dst, src, emask, dst_rowptr, src_perm,
-               src_rowptr)
     E, d = e.shape
+    tensors = _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst,
+                             src, emask, dst_rowptr, src_perm, src_rowptr)
+    tensors.update(saved=(saved, (E, 4 * d)), dgate=(dgate, (E, d)),
+                   dsender=(dsender, (E, d)), deres=(deres, (E, d)))
+    _check_bwd(e, tensors)
     N = dst_rowptr.shape[0] - 1
     if e.device.type == "cpu":
         return edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw,
@@ -277,38 +359,71 @@ def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
                                     src, emask, N)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
-    args = (e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate, dsender,
-            deres, emask, dst_rowptr, src_perm, src_rowptr)
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("edge_phase_bwd needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in args[:6]):
-        raise ValueError("edge_phase_bwd needs 16-byte aligned e, weights, "
-                         "saved and gate")
-    lib = _lib_bwd()
-    is_bf16 = int(e.dtype == torch.bfloat16)
-    if d % 128 or E == 0 or lib.edge_phase_bwd_smem(d, is_bf16) > _SMEM_LIMIT:
-        raise ValueError(f"edge_phase_bwd kernel needs d % 128 == 0, "
-                         f"d <= 256 and E > 0 (E={E}, d={d})")
-    dev, f32 = e.device, torch.float32
-    de = torch.empty_like(e)
-    dg_buf = torch.empty((E, d), dtype=e.dtype, device=dev)
-    dpre_buf = torch.empty((E, 2 * d), dtype=e.dtype, device=dev)
-    dxi = torch.empty((N, 2 * d), dtype=f32, device=dev)
-    dxj = torch.empty((N, 2 * d), dtype=f32, device=dev)
-    dw = torch.empty(4 * d * d, dtype=f32, device=dev)
-    dbias = torch.empty(4 * d, dtype=f32, device=dev)
-    work = torch.empty(lib.edge_phase_bwd_workspace(E, d, is_bf16),
-                       dtype=f32, device=dev)
-    outs = (de, dg_buf, dpre_buf, dxi, dxj, dw, dbias, work)
-    err = lib.edge_phase_bwd(*(t.data_ptr() for t in args + outs), E, N, d,
-                             is_bf16, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "edge_phase_bwd")
+    grads = _launch_bwd("edge_phase_bwd",
+                        (e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
+                         dgate, dsender, deres, emask, dst_rowptr, src_perm,
+                         src_rowptr), e, N)
     global bwd_launches
     bwd_launches += 1
-    d2 = 2 * d * d
-    return (de, dxi, dxj, dw[:d2].view(d, 2 * d),
-            dbias[:2 * d], dw[d2:d2 + d * d].view(d, d), dbias[2 * d:3 * d],
-            dw[d2 + d * d:].view(d, d), dbias[3 * d:])
+    return grads
+
+
+# ------------------------------------------------- merged backward (K6)
+
+def merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env, scale, shift,
+                     meanw, ds1w, dm2w, deout, daggr, dst, src, emask, *,
+                     tile: int = TILE_EDGES):
+    """The merged backward kernel's function in plain PyTorch, in the order
+    of ``_bwd_merged_kernel`` (same casts and rounding): the sigma backward
+    (dvals = daggr[dst] on masked-in edges), ds = dvals sig0 env and
+    dg = da scale + the moment fold, each rounded once, sig = sigmoid(pre)
+    in f32, then K5's body with deout as the residual's cotangent. -> (de,
+    dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a), as K5's."""
+    cdt = e.dtype
+    f = lambda t: t.float()
+    dvals = daggr.index_select(0, dst).float()
+    dvals = torch.where(emask[:, None], dvals, torch.zeros_like(dvals))
+    sig0 = torch.sigmoid(f(gate) * f(scale) + f(shift))
+    env32 = f(env)
+    dsig = f(deout) + dvals * f(sender)
+    da = dsig * env32 * sig0 * (1.0 - sig0)
+    ds = (dvals * sig0 * env32).to(cdt)
+    dg = (da * f(scale) + _moment_fold(gate, meanw, ds1w, dm2w, emask,
+                                       tile)).to(cdt)
+    pre32 = f(pre)
+    return _bwd_tail(e, we, w1g, w1a, pre32, torch.sigmoid(pre32), dg, ds,
+                     deout, dst, src, emask, daggr.shape[0])
+
+
+def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
+               ds1w, dm2w, deout, daggr, dst, src, emask, dst_rowptr,
+               src_perm, src_rowptr):
+    """The merged sigma + edge backward -> (de, dxi, dxj, dwe, db, dw1g,
+    db1g, dw1a, db1a), as ``merged_bwd_plain``; see the module docstring.
+    pre [E, 2d], gate, sender, deout [E, d], env [E, 1] and daggr [N, d]
+    share e's dtype; scale/shift [d] and the window rows are f32."""
+    E, d = e.shape
+    N = dst_rowptr.shape[0] - 1
+    tensors = _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst,
+                             src, emask, dst_rowptr, src_perm, src_rowptr)
+    tensors.update(pre=(pre, (E, 2 * d)), sender=(sender, (E, d)),
+                   env=(env, (E, 1)), scale=(scale, (d,)),
+                   shift=(shift, (d,)), deout=(deout, (E, d)),
+                   daggr=(daggr, (N, d)))
+    _check_bwd(e, tensors, ("meanw", "ds1w", "dm2w", "scale", "shift"))
+    if e.device.type == "cpu":
+        return merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env,
+                                scale, shift, meanw, ds1w, dm2w, deout,
+                                daggr, dst, src, emask)
+    if e.device.type != "cuda":
+        raise ValueError(f"unsupported device {e.device}")
+    grads = _launch_bwd("edge_phase_merged_bwd",
+                        (e, we, w1g, w1a, pre, gate, sender, env, scale,
+                         shift, meanw, ds1w, dm2w, deout, daggr, dst, emask,
+                         dst_rowptr, src_perm, src_rowptr), e, N)
+    global merged_launches
+    merged_launches += 1
+    return grads
 
 
 class EdgePhase(torch.autograd.Function):
@@ -357,3 +472,78 @@ class EdgePhase(torch.autograd.Function):
         primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
         return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
             + (None,) * 7
+
+
+class FusedEdgeSigma(torch.autograd.Function):
+    """The JAX package's ``fused_edge_sigma`` under ``CARTNET_MERGED=1``
+    (``_fes_op``): (xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env)
+    -> (e_out, aggr, mean, var, n). Forward: K1 with the pre-only residual
+    and the per-tile moments -> ``combine_window_moments`` (train BN
+    scale/shift) -> K2, e_out = e + sigma. mean/var/n feed the running-stat
+    update outside and carry no gradient. Backward (``_fes_bwd``): phase A'
+    (the BN backward's global sums dscale/dshift and the env cotangent, over
+    every edge, pads included, in plain PyTorch), the VJP of the
+    window-moment merge through autograd on the same
+    ``combine_window_moments`` the forward ran, then K6; gradients come back
+    in the primal dtypes, denv only when autograd asks for it (the model's
+    env has no gradient). env [E, 1] is in gate's dtype."""
+
+    @staticmethod
+    def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env,
+                dst, src, emask, dst_rowptr, src_perm, src_rowptr,
+                eps: float):
+        gate, sender, pre, s1w, m2w = edge_phase_fwd(
+            xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
+            saved=True, pre_only=True, moments=True)
+        nt = s1w.shape[0]
+        n_w = emask.reshape(nt, -1).sum(dim=1, dtype=torch.float32)[:, None]
+        (scale, shift), (mean, var, n) = combine_window_moments(
+            gamma, beta, s1w, m2w, n_w, eps)
+        scale, shift = scale.float().contiguous(), shift.float().contiguous()
+        e_out, aggr = sk.sigma_segsum(gate, scale, shift, env, sender, e, dst,
+                                      emask, dst_rowptr,
+                                      dst_rowptr.shape[0] - 1)
+        ctx.save_for_backward(e, we, w1g, w1a, gamma, beta, env, dst, src,
+                              emask, dst_rowptr, src_perm, src_rowptr, pre,
+                              gate, sender, s1w, m2w, scale, shift)
+        ctx.eps = eps
+        ctx.dtypes = [t.dtype for t in (xi, xj, e, we, b, w1g, b1g, w1a,
+                                        b1a)]
+        ctx.mark_non_differentiable(mean, var, n)
+        return e_out, aggr, mean, var, n
+
+    @staticmethod
+    def backward(ctx, deout, daggr, _dmean, _dvar, _dn):
+        (e, we, w1g, w1a, gamma, beta, env, dst, src, emask, dst_rowptr,
+         src_perm, src_rowptr, pre, gate, sender, s1w, m2w, scale,
+         shift) = ctx.saved_tensors
+        deout = deout.to(e.dtype).contiguous()
+        daggr = daggr.to(gate.dtype).contiguous()
+        # phase A'
+        g32 = gate.float()
+        sig0 = torch.sigmoid(g32 * scale + shift)
+        dvals = daggr.index_select(0, dst).float()
+        dvals = torch.where(emask[:, None], dvals, torch.zeros_like(dvals))
+        dsig = deout.float() + dvals * sender.float()
+        denv = ((dsig * sig0).sum(dim=1, keepdim=True).to(env.dtype)
+                if ctx.needs_input_grad[11] else None)
+        da = dsig * env.float() * sig0 * (1.0 - sig0)
+        dscale, dshift = (da * g32).sum(dim=0), da.sum(dim=0)
+        # the merge's VJP -> dgamma, dbeta and the window cotangents
+        nt = s1w.shape[0]
+        n_w = emask.reshape(nt, -1).sum(dim=1, dtype=torch.float32)[:, None]
+        with torch.enable_grad():
+            prim = [t.detach().requires_grad_()
+                    for t in (gamma, beta, s1w, m2w)]
+            (sc, sh), _ = combine_window_moments(*prim, n_w, ctx.eps)
+            dgamma, dbeta, ds1w, dm2w = torch.autograd.grad(
+                (sc, sh), prim, (dscale.to(sc.dtype), dshift.to(sh.dtype)))
+        meanw = s1w / torch.clamp(n_w, min=1.0)
+        de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a = merged_bwd(
+            e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
+            ds1w.float().contiguous(), dm2w.float().contiguous(), deout,
+            daggr, dst, src, emask, dst_rowptr, src_perm, src_rowptr)
+        # in the primal order: xi, xj, e, we, b, w1g, b1g, w1a, b1a
+        primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
+        return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
+            + (dgamma, dbeta, denv) + (None,) * 7

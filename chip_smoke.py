@@ -5,20 +5,23 @@
 
 Phases, one JSON line each (every line names the card and its power limit):
   1. device   the card (nvidia-smi name and power limit, also printed raw)
-  2. build    nvcc builds the seven kernels from csrc/ (one process per
-              source, all started together)
+  2. build    nvcc builds the eight kernels from csrc/ (seven sources, one
+              process per source, all started together; K6 is the second
+              entry point of edge_phase_bwd.cu)
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: K1/K2 in every dtype combination the
               CartNet inference forward feeds them, with K1's optional
-              outputs off and on; K4/K5 (the backward kernels) in the bf16
-              training case and the f32 case, with random cotangents that
-              are zero on pad rows; K3 (CSR segment sum) in f32 [E, 128] and
-              bf16 [E, 64] / [E, 128] over the src sort, and K7 (TP
-              contraction, l1 and l2) with bf16 h/W and f32 a, bf16 a, and
-              the f32 config; K8 (TP backward, l1 and l2) in bf16 and f32
-              with random cotangents zero on pad rows, and K3's perm=None
-              form over dst_rowptr (the sorted gather's backward) at bf16
-              [E, 256] / [E, 64] / [E, 128] and f32 [E, 256]; plus a
+              outputs off and on; K4/K5 (the backward kernels) and K6 (the
+              merged backward) in the bf16 training case and the f32 case,
+              with random cotangents that are zero on pad rows, after K1's
+              pre-only residual (also held to the [pre | sig] layout's
+              gate, sender and moments, bitwise); K3 (CSR segment sum) in
+              f32 [E, 128] and bf16 [E, 64] / [E, 128] over the src sort,
+              and K7 (TP contraction, l1 and l2) with bf16 h/W and f32 a,
+              bf16 a, and the f32 config; K8 (TP backward, l1 and l2) in
+              bf16 and f32 with random cotangents zero on pad rows, and K3's
+              perm=None form over dst_rowptr (the sorted gather's backward)
+              at bf16 [E, 256] / [E, 64] / [E, 128] and f32 [E, 256]; plus a
               bitwise repeat of every kernel run
   4. main     the CartNet ADP inference sweep (runner.inference) over 2
               batches of 4 synthetic ADP-scale crystals, flagship model (dim
@@ -36,13 +39,21 @@ Phases, one JSON line each (every line names the card and its power limit):
               launch counts; then one micro-step from the same state through
               the kernels and through the plain versions (loss, every
               gradient, BN stats), in bf16 and in f32
-  6. ecomformer  the eComformer inference sweep on the same 2 batches (dim
+  6. merged_train  the same with CARTNET_MERGED=1 (the merged backward): 16
+              micro-steps = 1 optimizer update from seed 0 (K1 4, K2 4, K6 4,
+              no K4 or K5 per micro-step), the CLI run, one merged micro-step
+              through the kernels and through the plain versions in bf16 and
+              f32, and merged vs default from the same state (forward
+              bitwise equal, f32 gradients within F32_STEP_TOL, each bf16
+              gradient's distance from the f32 gradient through K6 and
+              through K4 + K5)
+  7. ecomformer  the eComformer inference sweep on the same 2 batches (dim
               256, 3 convs + the equivariant block, Cholesky head, bf16,
               random weights from seed 0): K1 3, K2 3, K3 2, K7 2 launches
               per forward, finite predictions, the kernel forward against
               the plain forward; then a short sweep through the CLI
               (--model eComformer --inference)
-  7. ecomformer_train  the eComformer training path on the same batches
+  8. ecomformer_train  the eComformer training path on the same batches
               (bench.py's eComformer, bf16, batch_accumulation 16): 16
               micro-steps = 1 optimizer update with launch counts per kernel
               (K1 3, K2 3, K3 7, K4 3, K5 3, K7 2, K8 2 per micro-step),
@@ -50,16 +61,18 @@ Phases, one JSON line each (every line names the card and its power limit):
               training run through the CLI (--model eComformer); one
               micro-step through the kernels and through the plain versions,
               in bf16 and in f32
-  8. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
+  9. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
               work, K3's index_add_ time and the [E, d] x [d, 5120] GEMM
-              beside K7, cuBLAS's three products beside K8, the forward
-              times per batch (CartNet, eComformer) and the train micro-step
-              times (CartNet, eComformer), and one profiled CartNet forward,
-              eComformer forward and micro-step of each model (device time
-              by kernel, idle share of the device)
-  9. kernels  the summary line {"kernels": [...]}
+              beside K7, cuBLAS's three products beside K8, one CartNet
+              layer's whole backward through the default path and through
+              the merged one, the forward times per batch (CartNet,
+              eComformer) and the train micro-step times (CartNet default and
+              merged in turns, eComformer), and one profiled CartNet forward,
+              eComformer forward and micro-step of each model and path
+              (device time by kernel, idle share of the device)
+  10. kernels the summary line {"kernels": [...]}
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
 script, it exits non-zero and prints no result.
@@ -91,12 +104,17 @@ PRED_TOL = 3e-2  # bf16 forward / train step, kernels vs plain, normalized
 # the port's f32 step against the JAX package in the CPU tests (1.4e-4)
 F32_STEP_TOL = 1e-3
 RUNS = 30
-# kernel = csrc source name: K1, K2, K4, K5 (CartNet), K3, K7, K8
-# (eComformer)
+# csrc sources: K1, K2, K4, K5 (CartNet), K3, K7, K8 (eComformer); K6 is
+# the second entry point of edge_phase_bwd.cu
 CARTNET_KERNELS = ("edge_phase_fwd", "sigma_segsum_fwd", "sigma_segsum_bwd",
                    "edge_phase_bwd")
-KERNELS = CARTNET_KERNELS + ("segment_sum_csr", "tp_contract_fwd",
+SOURCES = CARTNET_KERNELS + ("segment_sum_csr", "tp_contract_fwd",
                              "tp_contract_bwd")
+# kernel names: the sources' and K6, the merged CartNet backward
+KERNELS = SOURCES + ("edge_phase_merged_bwd",)
+# CartNet launches per train micro-step under CARTNET_MERGED=1
+MERGED_MICRO = dict(edge_phase_fwd=4, sigma_segsum_fwd=4,
+                    edge_phase_merged_bwd=4)
 TRAIN_MICRO_STEPS, TRAIN_ACCUM = 32, 16
 ECO_MICRO_STEPS = 16  # one optimizer update at TRAIN_ACCUM
 # eComformer launches per forward (serving) and per train micro-step
@@ -321,6 +339,39 @@ def edge_bwd_plain(*a):
     return ek.edge_phase_bwd_plain(*a[:15], a[15].shape[0] - 1)
 
 
+def merged_bwd_plain(*a):
+    """K6's plain version with the wrapper's arguments."""
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    return ek.merged_bwd_plain(*a[:18])
+
+
+def merged_inputs(batch, dt, d, gen, dev):
+    """K6 operands at the batch's shapes in the training dtype ``dt``, in
+    the wrapper's argument order: the pre-only residual, gate, sender and
+    window moments from a K1 run; random env, scale/shift, window
+    cotangents, daggr, and deout zero on pad-edge rows, as the model's is.
+    -> (K6 args, K1 args)."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    E, N = batch.num_edges, batch.num_nodes
+    rn = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    args = edge_inputs(batch, dt, dt, d, gen, dev)
+    idx = (batch.edge_dst, batch.edge_src, batch.edge_mask)
+    gate, sender, pre, s1w, _ = ek.edge_phase_fwd(
+        *args, *idx, saved=True, pre_only=True, moments=True)
+    nt = s1w.shape[0]
+    n_w = batch.edge_mask.reshape(nt, -1).sum(dim=1,
+                                              dtype=torch.float32)[:, None]
+    sig = sigma_inputs(batch, dt, dt, d, gen, dev)
+    merged = (args[2], args[3], args[5], args[7], pre, gate, sender, sig[3],
+              sig[1], sig[2], s1w / torch.clamp(n_w, min=1.0),
+              0.01 * rn(nt, d), 0.01 * rn(nt, d),
+              (rn(E, d) * batch.edge_mask[:, None]).to(dt),
+              rn(N, d).to(dt), *idx, batch.dst_rowptr, batch.edge_src_perm,
+              batch.src_rowptr)
+    return merged, args
+
+
 def sigma_fwd_plain(*a):
     """K2's plain version with the wrapper's arguments."""
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
@@ -448,20 +499,36 @@ def plain_ecomformer_kernels():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the training path's four kernel calls to the plain versions."""
+    """Route the training path's kernel calls (K1, K2, K4, K5 and the
+    merged path's K6) to the plain versions."""
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
-    kept = (ek.edge_phase_fwd, ek.edge_phase_bwd, sk.sigma_segsum,
-            sk.sigma_segsum_bwd)
-    ek.edge_phase_fwd, ek.edge_phase_bwd = (ek.edge_phase_fwd_plain,
-                                            edge_bwd_plain)
+    kept = (ek.edge_phase_fwd, ek.edge_phase_bwd, ek.merged_bwd,
+            sk.sigma_segsum, sk.sigma_segsum_bwd)
+    ek.edge_phase_fwd, ek.edge_phase_bwd, ek.merged_bwd = (
+        ek.edge_phase_fwd_plain, edge_bwd_plain, merged_bwd_plain)
     sk.sigma_segsum, sk.sigma_segsum_bwd = (sigma_fwd_plain,
                                             sk.sigma_segsum_bwd_plain)
     try:
         yield
     finally:
-        (ek.edge_phase_fwd, ek.edge_phase_bwd, sk.sigma_segsum,
-         sk.sigma_segsum_bwd) = kept
+        (ek.edge_phase_fwd, ek.edge_phase_bwd, ek.merged_bwd,
+         sk.sigma_segsum, sk.sigma_segsum_bwd) = kept
+
+
+@contextlib.contextmanager
+def merged_path(on: bool = True):
+    """Set CARTNET_MERGED (the CartNet train layer reads it at each
+    forward) for the enclosed phase and restore it after."""
+    kept = os.environ.get("CARTNET_MERGED")
+    os.environ["CARTNET_MERGED"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if kept is None:
+            os.environ.pop("CARTNET_MERGED", None)
+        else:
+            os.environ["CARTNET_MERGED"] = kept
 
 
 def launch_counts(reset: bool = False) -> dict:
@@ -473,9 +540,10 @@ def launch_counts(reset: bool = False) -> dict:
     if reset:
         ek.launches = sk.launches = ek.bwd_launches = sk.bwd_launches = 0
         k3.launches = k7.launches = k7.bwd_launches = 0
+        ek.merged_launches = 0
     return dict(zip(KERNELS, (ek.launches, sk.launches, sk.bwd_launches,
                               ek.bwd_launches, k3.launches, k7.launches,
-                              k7.bwd_launches)))
+                              k7.bwd_launches, ek.merged_launches)))
 
 
 def grad_errors(names, got, want) -> dict:
@@ -495,6 +563,26 @@ def grad_errors(names, got, want) -> dict:
             for n, g, w in zip(names, got, want)}
 
 
+def one_micro(cfg, model, sd, batch):
+    """One micro-step of ``cfg`` from the state dict ``sd`` loaded into
+    ``model`` -> (loss [1], gradients, BN buffers), all cloned."""
+    import torch
+    from cartnet_tpu_torch.train import loop
+    model.load_state_dict(sd)
+    opt = loop.build_optimizer(cfg, model.parameters(), 1)
+    st, stats = loop.make_steps(cfg)[0](loop.init_train_state(model, opt),
+                                        batch)
+    torch.cuda.synchronize()
+    return (stats["loss"].reshape(1).clone(),
+            [g.clone() for g in st.grad_accum],
+            [b.clone() for b in loop.bn_buffers(model)])
+
+
+def with_dtype(cfg, dt):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=dt))
+
+
 def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
     """One micro-step from the model's current state through the kernels
     and through the plain versions: loss and BN running stats normalized
@@ -507,31 +595,20 @@ def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
     that routes the model's kernels to their plain versions (CartNet's
     training kernels by default)."""
     import torch
-    from cartnet_tpu_torch.train import loop
     plain = plain or plain_kernels
     sd0 = {k: v.clone() for k, v in model.state_dict().items()}
     pnames = [n for n, _ in model.named_parameters()]
     bnames = [n for n, _ in model.named_buffers()]
-
-    def one_micro(c, m):
-        m.load_state_dict(sd0)
-        opt = loop.build_optimizer(c, m.parameters(), 1)
-        st, stats = loop.make_steps(c)[0](loop.init_train_state(m, opt),
-                                          batch)
-        torch.cuda.synchronize()
-        return (stats["loss"].reshape(1).clone(),
-                [g.clone() for g in st.grad_accum],
-                [b.clone() for b in loop.bn_buffers(m)])
-
-    k_loss, k_grads, k_bn = one_micro(cfg, model)
+    k_loss, k_grads, k_bn = one_micro(cfg, model, sd0, batch)
     with plain():
-        p_loss, p_grads, p_bn = one_micro(cfg, model)
+        p_loss, p_grads, p_bn = one_micro(cfg, model, sd0, batch)
     model.load_state_dict(sd0)
     errs = {"loss": normalized_err(k_loss, p_loss)[1]}
     errs.update({n: normalized_err(a, b)[1]
                  for n, a, b in zip(bnames, k_bn, p_bn)})
     g_err = grad_errors(pnames, k_grads, p_grads)
-    line = dict(model=cfg.model.name,
+    line = dict(model=cfg.model.name, merged=os.environ.get(
+                    "CARTNET_MERGED") == "1",
                 compute_dtype=str(cfg.model.compute_dtype), tol=tol,
                 loss=float(k_loss), loss_plain=float(p_loss),
                 loss_rel_err=errs["loss"],
@@ -542,11 +619,10 @@ def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
     if cfg.model.compute_dtype == torch.float32:
         bad += [n for n, e in g_err.items() if e > tol]
     else:
-        cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, compute_dtype=torch.float32))
+        cfg32 = with_dtype(cfg, torch.float32)
         with plain():
             _, r_grads, _ = one_micro(cfg32, type(model)(
-                cfg32.model, device=batch.z.device, seed=0))
+                cfg32.model, device=batch.z.device, seed=0), sd0, batch)
         k_ref = grad_errors(pnames, k_grads, r_grads)
         p_ref = grad_errors(pnames, p_grads, r_grads)
         ratio = {n: (k_ref[n] - tol) / max(p_ref[n], 1e-30) for n in pnames}
@@ -560,6 +636,61 @@ def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
     if bad:
         fail(f"{cfg.model.name} train step kernels vs plain "
              f"({cfg.model.compute_dtype}): {bad}")
+
+
+def merged_vs_default(card, cfg, model, batch) -> dict:
+    """From the model's state, one CartNet micro-step through the default
+    path (K4 + K5) and one through the merged path (K6), in bf16 and f32:
+    the forward must be bitwise the same (loss, every BN buffer); the f32
+    gradients within F32_STEP_TOL per layer. In bf16, each gradient's
+    distance from the f32 gradient at the same weights (default path), per
+    layer, through K6 and through K4 + K5: the bf16 rounding of dgate
+    before the BN fold (K4 + K5) against a dgate kept in f32 until the
+    fold (K6)."""
+    import torch
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    pnames = [n for n, _ in model.named_parameters()]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        c = with_dtype(cfg, dt)
+        m = type(model)(c.model, device=batch.z.device, seed=0)
+        for merged in (False, True):
+            with merged_path(merged):
+                out[(dt, merged)] = one_micro(c, m, sd0, batch)
+    model.load_state_dict(sd0)
+    line, bad = {}, []
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        (l0, _, b0), (l1, _, b1) = out[(dt, False)], out[(dt, True)]
+        same = bool(torch.equal(l0, l1)) and all(
+            torch.equal(a, b) for a, b in zip(b0, b1))
+        line[f"forward_bitwise_{name}"] = same
+        line[f"loss_{name}"] = float(l0)
+        if not same:
+            bad.append(f"forward_{name}")
+    ref = out[(torch.float32, False)][1]
+    f32_err = grad_errors(pnames, out[(torch.float32, True)][1], ref)
+    line.update(f32_grads_max_rel_err_per_layer=max(f32_err.values()),
+                f32_grads_worst=max(f32_err, key=f32_err.get))
+    bad += [n for n, e in f32_err.items() if e > F32_STEP_TOL]
+    via_k6 = grad_errors(pnames, out[(torch.bfloat16, True)][1], ref)
+    via_k45 = grad_errors(pnames, out[(torch.bfloat16, False)][1], ref)
+    k6_k45 = grad_errors(pnames, out[(torch.bfloat16, True)][1],
+                         out[(torch.bfloat16, False)][1])
+    line.update(
+        bf16_k6_vs_k4k5_max=max(k6_k45.values()),
+        bf16_k6_vs_k4k5_worst=max(k6_k45, key=k6_k45.get),
+        bf16_vs_f32_max_k6=max(via_k6.values()),
+        bf16_vs_f32_max_k4k5=max(via_k45.values()),
+        bf16_vs_f32_worst_k6=max(via_k6, key=via_k6.get),
+        bf16_vs_f32_worst_k4k5=max(via_k45, key=via_k45.get),
+        bf16_vs_f32_median_k6=statistics.median(via_k6.values()),
+        bf16_vs_f32_median_k4k5=statistics.median(via_k45.values()),
+        bf16_vs_f32_k6=via_k6, bf16_vs_f32_k4k5=via_k45)
+    emit(phase="merged_vs_default", card=card, tol=F32_STEP_TOL, **line,
+         failed=bad)
+    if bad:
+        fail(f"merged vs default micro-step: {bad}")
+    return line
 
 
 # ----------------------------------------------------------------- main
@@ -583,11 +714,16 @@ def main() -> int:
     from cartnet_tpu_torch.data.synthetic import synthetic_dataset
     from cartnet_tpu_torch.models import cartnet as model_mod
     from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.nn.norm import combine_window_moments
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
     from cartnet_tpu_torch.ops.kernels import segsum_kernels as k3
     from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
     from cartnet_tpu_torch.train import loop
+
+    # the default phases run the default CartNet train path; the merged
+    # phases set CARTNET_MERGED=1 themselves (merged_path)
+    os.environ["CARTNET_MERGED"] = "0"
 
     # 1. device
     dev = resolve_device("cuda")
@@ -601,10 +737,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
+    _build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
     ptxas = {}
-    for src in KERNELS:
+    for src in SOURCES:
         log = (_build.BUILD_DIR / f"{src}.log")
         ptxas[src] = [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln] \
@@ -701,6 +837,34 @@ def main() -> int:
                 check_err[kname] = max(check_err[kname], err)
         timing_inputs[("edge_bwd", case)] = eargs
         timing_inputs[("sigma_bwd", case)] = sargs
+        # K1's pre-only residual (the merged path's forward): gate, sender
+        # and moments bitwise those of the [pre | sig] layout, pre its first
+        # half; then K6 on it
+        margs, kargs = merged_inputs(b0, dt, d, gen, dev)
+        kw = dict(saved=True, pre_only=True, moments=True)
+        got, again = (ek.edge_phase_fwd(*kargs, *idx, **kw) for _ in range(2))
+        want = ek.edge_phase_fwd_plain(*kargs, *idx, **kw)
+        full = ek.edge_phase_fwd(*kargs, *idx, saved=True, moments=True)
+        torch.cuda.synchronize()
+        layout_same = all(torch.equal(got[i], full[i]) for i in (0, 1, 3, 4)) \
+            and torch.equal(got[2], full[2][:, :2 * d])
+        check_outputs(card, "edge_phase_fwd", f"{case}_pre_only",
+                      ("gate", "sender", "pre", "s1_w", "M2_w"), got, again,
+                      want, lambda _, t=CHECK_TOL["bf16" if dt == bf
+                                                  else "f32"]: t,
+                      same_as_pre_sig_layout=layout_same)
+        if not layout_same:
+            fail(f"edge_phase_fwd {case}: the pre-only layout changed gate, "
+                 f"sender or the moments")
+        got, again, want = (ek.merged_bwd(*margs), ek.merged_bwd(*margs),
+                            merged_bwd_plain(*margs))
+        torch.cuda.synchronize()
+        err = check_outputs(card, "edge_phase_merged_bwd", case,
+                            EDGE_BWD_OUT, got, again, want, tol_of)
+        if dt == bf:
+            check_err["edge_phase_merged_bwd"] = err
+        timing_inputs[("merged_bwd", case)] = margs
+        timing_inputs[("merged_fwd", case)] = kargs
 
     # K3 and K7 in the dtype cases of the eComformer forward (calls per
     # bf16 forward); K3's bf16 [E, 128] case is the JAX package's padded
@@ -875,7 +1039,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches_cli = launch_counts()
-    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2, 0, 0, 0)))
+    expect_cli = dict(zip(KERNELS, (4 * 4, 4 * 4, 4 * 2, 4 * 2, 0, 0, 0, 0)))
     emit(phase="cli", card=card, launches=launches_cli,
          expected_launches=expect_cli, optimizer_steps=cstate.step,
          bad_steps=int(cstate.bad_steps), test=ctest,
@@ -894,7 +1058,81 @@ def main() -> int:
                                                   seed=0),
                    dev_batches[0], F32_STEP_TOL)
 
-    # 6. eComformer serving: the inference sweep through K1, K2, K3, K7
+    # 6. the merged CartNet training path (CARTNET_MERGED=1, the JAX
+    # package's fused_edge_sigma with its merged backward): the flagship
+    # training config from seed 0, 16 micro-steps = 1 optimizer update
+    # through K1 (pre-only residual), K2 and K6, no K4 or K5
+    mmodel = model_mod.CartNet(tcfg.model, device=dev, seed=0)
+    mopt = loop.build_optimizer(tcfg, mmodel.parameters(), TRAIN_ACCUM)
+    mstate = loop.init_train_state(mmodel, mopt)
+    mepoch = dev_batches * (TRAIN_ACCUM // len(dev_batches))
+    mbn0 = [t.clone() for t in loop.bn_buffers(mmodel)]
+    with merged_path():
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        mstate, mrows = loop.train_epoch(mstate, mepoch, micro, update,
+                                         TRAIN_ACCUM, dev)
+        torch.cuda.synchronize()
+        mtrain_s = time.perf_counter() - t0
+        launches_mtrain = launch_counts()
+    mlosses = [float(r[0]["loss"]) for r in mrows]
+    mbn_moved = all(not torch.equal(a, b)
+                    for a, b in zip(mbn0, loop.bn_buffers(mmodel)))
+    expect_mtrain = dict.fromkeys(KERNELS, 0)
+    expect_mtrain.update({k: v * len(mepoch) for k, v in MERGED_MICRO.items()})
+    emit(phase="merged_train", card=card, micro_steps=len(mepoch),
+         batch_accumulation=TRAIN_ACCUM, optimizer_steps=mstate.step,
+         launches=launches_mtrain, expected_launches=expect_mtrain,
+         launches_per_micro_step={k: v / len(mepoch)
+                                  for k, v in launches_mtrain.items()},
+         loss_first=mlosses[0], loss_last=mlosses[-1],
+         finite=all(math.isfinite(x) for x in mlosses),
+         bad_steps=int(mstate.bad_steps), bn_stats_updated=mbn_moved,
+         seconds=round(mtrain_s, 3))
+    if launches_mtrain != expect_mtrain:
+        fail(f"merged train launch counts {launches_mtrain}, expected "
+             f"{expect_mtrain}")
+    if not all(math.isfinite(x) for x in mlosses) or int(mstate.bad_steps):
+        fail("non-finite merged train losses or skipped steps")
+    if mstate.step != len(mepoch) // TRAIN_ACCUM or not mbn_moved:
+        fail(f"merged: {mstate.step} optimizer steps, BN stats moved: "
+             f"{mbn_moved}")
+
+    # the user's entry point with the JAX package's switch set: a short
+    # training run through the CLI (2 train micro-steps, 1 val and 1 test
+    # forward)
+    with merged_path():
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        mcstate, mctest = cli.main(["--dataset", "synthetic", "--limit", "8",
+                                    "--epochs", "1", "--batch_accumulation",
+                                    "2", "--bf16"])
+        torch.cuda.synchronize()
+        mcli_s = time.perf_counter() - t0
+        launches_mcli = launch_counts()
+    expect_mcli = dict.fromkeys(KERNELS, 0)
+    expect_mcli.update(edge_phase_fwd=4 * 4, sigma_segsum_fwd=4 * 4,
+                       edge_phase_merged_bwd=4 * 2)
+    emit(phase="merged_cli", card=card, launches=launches_mcli,
+         expected_launches=expect_mcli, optimizer_steps=mcstate.step,
+         bad_steps=int(mcstate.bad_steps), test=mctest,
+         seconds=round(mcli_s, 3))
+    if launches_mcli != expect_mcli or mcstate.step != 1 or not all(
+            math.isfinite(v) for v in mctest.values()):
+        fail(f"merged CLI training run: launches {launches_mcli}, "
+             f"{mcstate.step} optimizer steps, test stats {mctest}")
+
+    # one merged micro-step through the kernels and through the plain
+    # versions (the trained bf16 model; the f32 config at its initial
+    # state), then merged vs default from the default phase's trained state
+    with merged_path():
+        train_vs_plain(card, tcfg, mmodel, dev_batches[0], PRED_TOL)
+        train_vs_plain(card, cfg32, model_mod.CartNet(cfg32.model,
+                                                      device=dev, seed=0),
+                       dev_batches[0], F32_STEP_TOL)
+    merged_vs_default(card, tcfg, tmodel, dev_batches[0])
+
+    # 7. eComformer serving: the inference sweep through K1, K2, K3, K7
     ecfg = ModelConfig(name="ecomformer", dim_in=d, cholesky=True,
                        compute_dtype=bf)
     emodel = create_model(ecfg, dev, 0)
@@ -963,7 +1201,7 @@ def main() -> int:
         fail(f"eComformer CLI sweep: launches {launches_ecli}, finite "
              f"{cfinite}")
 
-    # 7. eComformer training: bench.py's eComformer through make_steps /
+    # 8. eComformer training: bench.py's eComformer through make_steps /
     # train_epoch, 16 micro-steps = 1 optimizer update
     etcfg = Config(model=ecfg, optim=OptimConfig(
         max_epoch=1, batch_accumulation=TRAIN_ACCUM))
@@ -1034,7 +1272,7 @@ def main() -> int:
     train_vs_plain(card, ecfg32, create_model(ecfg32.model, dev, 0),
                    dev_batches[0], F32_STEP_TOL, plain_ecomformer_kernels)
 
-    # 8. times at the main paths' shapes
+    # 9. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}
 
     def time_row(kname, case, fk, fp, t_bound, by, calls, **others):
@@ -1100,6 +1338,54 @@ def main() -> int:
                  lambda a=sargs: sk.sigma_segsum_bwd(*a),
                  lambda a=sargs: sk.sigma_segsum_bwd_plain(*a), t_bound, by,
                  calls)
+        # K6: K5's products (8 E d^2 multiply-adds) over its own operands
+        margs = timing_inputs[("merged_bwd", case)]
+        t_bound, by = edge_bwd_cost(margs, ek.merged_bwd(*margs), d, E,
+                                    "bf16" if dt == bf else "f32")
+        time_row("edge_phase_merged_bwd", case,
+                 lambda a=margs: ek.merged_bwd(*a),
+                 lambda a=margs: merged_bwd_plain(*a), t_bound, by, calls)
+    # one CartNet layer's whole backward (autograd through the layer's
+    # Functions, bf16, random cotangents zero on pad rows): default (K4, the
+    # window-moment merge's backward, K5) beside merged (phase A', the
+    # merge's VJP, K6), in turns default, merged, merged, default
+    layer_ms = {False: [], True: []}
+    layer_dev = {False: [], True: []}
+    lgen = torch.Generator().manual_seed(1)
+    deout_l = (torch.randn(E, d, generator=lgen).to(dev)
+               * b0.edge_mask[:, None]).to(bf)
+    daggr_l = torch.randn(N, d, generator=lgen).to(dev).to(bf)
+    env_l = torch.rand(E, 1, generator=lgen).to(dev).to(bf)
+    norm_p = [(1.0 + 0.1 * torch.randn(d, generator=lgen)).to(dev).to(bf),
+              (0.1 * torch.randn(d, generator=lgen)).to(dev).to(bf)]
+    idx6 = (*idx, b0.dst_rowptr, b0.edge_src_perm, b0.src_rowptr)
+    n_w = b0.edge_mask.reshape(-1, ek.TILE_EDGES).sum(
+        dim=1, dtype=torch.float32)[:, None]
+
+    def layer_backward(merged):
+        ins = [t.detach().clone().requires_grad_()
+               for t in timing_inputs[("merged_fwd", "train_bf16")]]
+        ins += [t.clone().requires_grad_() for t in norm_p]
+        if merged:
+            outs = ek.FusedEdgeSigma.apply(*ins, env_l, *idx6, 1e-5)[:2]
+        else:
+            gate, sender, e_res, s1w, m2w = ek.EdgePhase.apply(*ins[:9],
+                                                               *idx6)
+            (scale, shift), _ = combine_window_moments(*ins[9:], s1w, m2w,
+                                                       n_w)
+            outs = sk.SigmaSegsum.apply(gate, scale, shift, env_l, sender,
+                                        e_res, b0.edge_dst, b0.edge_mask,
+                                        b0.dst_rowptr, N)
+        return lambda: torch.autograd.grad(outs, ins, (deout_l, daggr_l),
+                                           retain_graph=True)
+
+    for merged in (False, True, True, False):
+        fn = layer_backward(merged)
+        layer_ms[merged].append(cuda_median_ms(fn))
+        layer_dev[merged].append(device_ms(fn))
+    emit(phase="layer_backward", card=card, runs=RUNS,
+         default_ms=layer_ms[False], merged_ms=layer_ms[True],
+         default_device_ms=layer_dev[False], merged_device_ms=layer_dev[True])
     # K3 beside one index_add_ of the same values into an [N + 1, D] table
     # of their dtype (pads to row N; preallocated, zeroing not timed)
     real0 = int(b0.edge_mask.sum())
@@ -1186,6 +1472,22 @@ def main() -> int:
          edges_per_s_plain=real_edges / (step_plain_ms / 1e3))
     emit(phase="profile", card=card, what="train_micro_step",
          **profile_call(step))
+    # the CartNet micro-step through the merged path beside the default
+    # one, from the same state, in turns default, merged, merged, default
+    paired = {False: [], True: []}
+    for merged in (False, True, True, False):
+        with merged_path(merged):
+            paired[merged].append(cuda_median_ms(step, 20))
+    emit(phase="train_step_merged", card=card, runs=20,
+         micro_step_ms_default=paired[False],
+         micro_step_ms_merged=paired[True], mean_real_edges=real_edges,
+         edges_per_s_default=real_edges / (statistics.fmean(paired[False])
+                                           / 1e3),
+         edges_per_s_merged=real_edges / (statistics.fmean(paired[True])
+                                          / 1e3))
+    with merged_path():
+        emit(phase="profile", card=card, what="merged_train_micro_step",
+             **profile_call(step))
     estep = lambda: emicro(estate, dev_batches[0])
     estep_ms = cuda_median_ms(estep, 20)
     with plain_ecomformer_kernels():
@@ -1198,26 +1500,33 @@ def main() -> int:
     emit(phase="profile", card=card, what="ecomformer_train_micro_step",
          **profile_call(estep))
 
-    # 9. summary: K1, K2, K4, K5 per launch on the CartNet training path
-    # (all four run in every micro-step, in the bf16 training case); K3 and
+    # 10. summary: K1, K2, K4, K5 per launch on the CartNet training path
+    # (all four run in every micro-step, in the bf16 training case), K6 on
+    # the merged CartNet training path (its 16 micro-steps); K3 and
     # K7 per launch on the eComformer serving path, in its first call's
     # case (K3 on the f32 [E, 128] irreps, K7 l1 with bf16 h/W and f32 a);
     # K8 per launch on the eComformer training path (l1, bf16), with the
     # launches of its 16 micro-steps
     kernels = []
-    for kname, src, replaces in (
+    for kname, src, replaces, run in (
             ("edge_phase_fwd", "cartnet_tpu_torch/csrc/edge_phase_fwd.cu",
-             "cartnet_tpu/ops/pallas/edge_kernels.py:162"),
+             "cartnet_tpu/ops/pallas/edge_kernels.py:162", launches_train),
             ("sigma_segsum_fwd", "cartnet_tpu_torch/csrc/sigma_segsum_fwd.cu",
-             "cartnet_tpu/ops/pallas/segment_kernels.py:191"),
+             "cartnet_tpu/ops/pallas/segment_kernels.py:191",
+             launches_train),
             ("sigma_segsum_bwd", "cartnet_tpu_torch/csrc/sigma_segsum_bwd.cu",
-             "cartnet_tpu/ops/pallas/segment_kernels.py:223"),
+             "cartnet_tpu/ops/pallas/segment_kernels.py:223",
+             launches_train),
             ("edge_phase_bwd", "cartnet_tpu_torch/csrc/edge_phase_bwd.cu",
-             "cartnet_tpu/ops/pallas/edge_kernels.py:269")):
+             "cartnet_tpu/ops/pallas/edge_kernels.py:269", launches_train),
+            ("edge_phase_merged_bwd",
+             "cartnet_tpu_torch/csrc/edge_phase_bwd.cu",
+             "cartnet_tpu/ops/pallas/edge_kernels.py:961", launches_mtrain)):
         r = rows_t[kname]["train_bf16"]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches_train[kname],
+            "replaces": replaces, "launches": run[kname],
+            "launches_merged_train": launches_mtrain[kname],
             "launches_inference": launches_inf[kname],
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
