@@ -2,16 +2,24 @@
 
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit N \
         --epochs E --batch_accumulation A [--model CartNet|eComformer] \
-        [--bf16] [--device cuda|cpu]
-    python -m cartnet_tpu_torch.cli --dataset synthetic --limit 8 --inference \
-        [--model CartNet|eComformer] [--checkpoint_path best.ckpt] [--bf16] \
-        [--device cuda|cpu]
+        [--cholesky] [--invariant] [--disable_temp] [--disable_envelope] \
+        [--disable_atom_types] [--bf16] [--device cuda|cpu]
+    python -m cartnet_tpu_torch.cli --dataset synthetic --cholesky --limit 8 \
+        --inference [--model CartNet|eComformer] \
+        [--checkpoint_path best.ckpt] [--bf16] [--device cuda|cpu]
 
 Flags and the synthetic splits mirror cartnet_tpu/cli.py; the ``synthetic``
-source is the one ported. ``--model`` is case-insensitive; CartNet and the
-eComformer both serve (``--inference``) and train. Without a checkpoint the
-weights are random, drawn from ``--seed``; with one (a reference CartNet
-``best.ckpt`` or a state_dict the port saved), training starts from it.
+source is the one ported. As there, the head follows the dataset: the ADP
+sources (``ADP``, ``adpfix``, not ported yet) and ``--cholesky`` give the
+Cholesky head on ADP targets; otherwise ``--dataset synthetic`` trains the
+scalar head on scalar targets. The temperature input is on only for the ADP
+sources (and then off with ``--disable_temp``); ``--invariant``,
+``--disable_envelope`` and ``--disable_atom_types`` are the reference's
+ablation switches. ``--model`` is case-insensitive; CartNet and the
+eComformer both serve (``--inference``, which needs the Cholesky head) and
+train. Without a checkpoint the weights are random, drawn from ``--seed``;
+with one (a reference CartNet ``best.ckpt`` or a state_dict the port
+saved), training starts from it.
 """
 
 from __future__ import annotations
@@ -56,6 +64,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--dim_in", type=int, default=256)
     p.add_argument("--dim_rbf", type=int, default=64)
+    p.add_argument("--invariant", action="store_true",
+                   help="drop the edge direction from the edge features")
+    p.add_argument("--disable_temp", action="store_false", dest="use_temp",
+                   help="no temperature input (ADP sources only)")
+    p.add_argument("--no_standarize_temp", action="store_false",
+                   dest="standarize_temp",
+                   help="raw temperatures for the adpfix source; no effect "
+                        "until that source is ported (ROADMAP P2a)")
+    p.add_argument("--disable_envelope", action="store_false",
+                   dest="envelope", help="no cosine cutoff envelope")
+    p.add_argument("--disable_atom_types", action="store_false",
+                   dest="use_atom_types", help="no atom-type embedding")
+    p.add_argument("--cholesky", action="store_true",
+                   help="force the Cholesky ADP head (e.g. synthetic ADP "
+                        "runs; implied by the ADP sources)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
@@ -63,15 +86,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def args_to_config(args) -> Config:
-    # the synthetic source carries no measured temperature input (as in the
-    # reference CLI); the ported source has ADP targets (Cholesky head)
+    # the reference CLI's rule (cartnet_tpu/cli.py): the ADP sources carry
+    # a temperature input and ADP targets; other sources (synthetic) train
+    # the scalar head unless --cholesky asks for ADP targets
+    adp_like = args.dataset in ("ADP", "adpfix")
     model = ModelConfig(
         name=args.model.lower(), dim_in=args.dim_in, dim_rbf=args.dim_rbf,
         num_layers=args.num_layers, radius=args.radius,
-        use_temperature=False, cholesky=True,
+        invariant=args.invariant,
+        use_temperature=args.use_temp if adp_like else False,
+        use_envelope=args.envelope, use_atom_types=args.use_atom_types,
+        cholesky=adp_like or args.cholesky,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     data = DataConfig(name=args.dataset, radius=args.radius,
-                      batch_size=args.batch)
+                      batch_size=args.batch,
+                      standarize_temp=args.standarize_temp)
     optim = OptimConfig(lr=args.lr, max_epoch=args.epochs,
                         warmup=args.warmup,
                         batch_accumulation=args.batch_accumulation,
@@ -79,16 +108,17 @@ def args_to_config(args) -> Config:
     return Config(model=model, data=data, optim=optim, seed=args.seed)
 
 
-def load_datasets(data: DataConfig, limit=None):
+def load_datasets(data: DataConfig, limit=None, adp: bool = True):
     """The synthetic source's (train, val, test) splits: the reference CLI's
     records (seed 123, ~32 atoms per crystal), sizes n / k / k with
-    n = limit (default 128) and k = max(n // 4, 2)."""
+    n = limit (default 128) and k = max(n // 4, 2); ADP targets with
+    ``adp`` (the Cholesky head), else one scalar per crystal."""
     if data.name != "synthetic":
         raise ValueError(f"dataset {data.name!r} is not ported yet")
     n = limit or 128
     k = max(n // 4, 2)
     recs = synthetic_dataset(n + 2 * k, mean_atoms=32, radius=data.radius,
-                             adp=True, seed=123)
+                             adp=adp, seed=123)
     return recs[:n], recs[n:n + k], recs[n + k:n + 2 * k]
 
 
@@ -105,7 +135,7 @@ def main(argv=None):
     if args.checkpoint_path:
         state_dict = load_reference_checkpoint(args.checkpoint_path)
         logging.info("loaded checkpoint %s", args.checkpoint_path)
-    splits = load_datasets(cfg.data, args.limit)
+    splits = load_datasets(cfg.data, args.limit, adp=cfg.model.cholesky)
     if not args.inference:
         return run(cfg, splits, device, state_dict)
     model = create_model(cfg.model, device, args.seed)

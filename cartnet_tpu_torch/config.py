@@ -42,6 +42,9 @@ class DataConfig:
     name: str = "synthetic"
     radius: float = 5.0
     batch_size: int = 4
+    # standardize the adpfix source's temperatures (--no_standarize_temp
+    # turns it off); read once that source is ported (ROADMAP P2a)
+    standarize_temp: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,29 +21,6 @@
 // in the model); pads are left out of the node sums, as the Pallas kernel
 // leaves out-of-band pads out.
 //
-// What bounds it: 8 E d^2 multiply-adds (22 GFLOP at E = 20992, d = 256)
-// against ~107 MB of unavoidable bf16 traffic, so at the tensor-core rate
-// memory bounds it (~32 us); with f32 operands (no TF32) the f32 FMA rate
-// bounds it (~0.33 ms).
-//
-// Design: three launches, no atomics, every sum in a fixed order, so the
-// results are bitwise repeatable.
-//   1. tile pass, one block per TE1 edges: forms dg (and its bias column
-//      sums), runs dh = [dg|ds] @ W1^T on the tile held in shared memory,
-//      the silu' chain, then de = deres + dpre_c @ We^T; writes de, dg_c and
-//      dpre_c and per-tile column sums of dpre, dg and ds.
-//   2. weight pass, output-tiled (64 x 128 tiles of dWe, dW1g, dW1a) and
-//      split over KSPLIT edge ranges: each block walks its edges in order,
-//      recomputing h from the saved residual; partials per split.
-//   3. reduce pass: the split partials in split order, the per-tile bias
-//      partials in tile order, and the dxi / dxj CSR row reduces (dst rows
-//      over dst_rowptr; src rows over src_rowptr through src_perm, the
-//      masked-in edges of each chunk compacted in order by warp ballots).
-// bf16 products run on the tensor cores through WMMA (mma.sync, f32
-// accumulation); f32 products run on the CUDA cores (full f32, no TF32).
-// Elementwise steps use explicitly rounded operations so nvcc contracts
-// nothing into an FMA that the plain PyTorch version does not have.
-//
 // The second entry point, edge_phase_merged_bwd, is the merged sigma + edge
 // backward: it replaces cartnet_tpu/ops/pallas/edge_kernels.py:
 // _merged_bwd_call -> _bwd_merged_kernel (driven by _fes_bwd, the backward of
@@ -59,12 +36,68 @@
 // so dg is rounded once, after the BN fold (K4 + K5 round it twice); sig is
 // recomputed from pre in f32; deout takes deres's place. dscale/dshift, the
 // BN backward's global sums, come in folded into ds1_w/dM2_w (computed
-// outside, as the Pallas op does). The rest is the three passes above, with
-// the same bound, sharing their code through the MERGED template flag.
+// outside, as the Pallas op does). Both entry points share every pass
+// through the MERGED template flag.
+//
+// What bounds it: 8 E d^2 multiply-adds (22 GFLOP at E = 20992, d = 256)
+// against ~82-114 MB of unavoidable bf16 traffic, so at the tensor-core rate
+// memory bounds it (25-34 us on an H100); with f32 operands (no TF32) the
+// f32 FMA rate bounds it (~0.33 ms). The bf16 design below takes the
+// products off the critical path; what holds its tile pass back is the
+// latency of the elementwise loads and stores around them (the dg
+// prologue, the epilogues) and the scratch it writes for the weight pass
+// (dg, dpre_c, h_c: ~54 MB at those shapes).
+//
+// Three launches per call, no atomics, every sum in a fixed order, so the
+// results are bitwise repeatable; d % 128 == 0 and d <= 512.
+//
+// bf16 (training) design, wgmma + TMA:
+//   1. tile pass, a persistent grid (one block per SM) walking the 64-edge
+//      tiles in a static order (tile = blockIdx.x + k gridDim.x). Block =
+//      two consumer warpgroups + one producer warp. The producer keeps TMA
+//      loads (cp.async.bulk.tensor, 128-byte swizzle, mbarrier completion)
+//      of 64 x 64 weight slabs of W1g, W1a and We in flight in a ring of
+//      3-16 stages; the weights are the same for every tile and stay hot in
+//      L2. The consumers form dg (the prologue: 16-byte vector loads, dg
+//      and its column sums), keep it in shared memory in the swizzled
+//      K-major layout wgmma reads (fence.proxy.async before the first
+//      product), and run dh = dg @ W1g^T with wgmma.mma_async m64n64k16
+//      (bf16 operands, f32 accumulation), each warpgroup owning every other
+//      64-column chunk. The silu' chain runs on the accumulator registers;
+//      dpre_c goes to device memory, to a swizzled [64, 2d] tile in shared
+//      memory (the A operand of de) and h_c = round(pre sig) [E, 2d] goes
+//      to device memory for the weight pass; db's column sums are a
+//      fixed-order warp-shuffle tree over the accumulator rows. Then ds
+//      replaces dg (dh's aggregate half), then de = deres + dpre_c @ We^T
+//      from the dpre_c tile. No f32 tile makes a round trip through shared
+//      memory.
+//   2. weight pass, output tiles of 128 x 128 (two warpgroups of
+//      m64n128k16) of dWe | dW1g | dW1a, split over KSPLIT edge ranges so
+//      that tiles x KSPLIT fills the SMs. A (e or h_c, edge-major) is the
+//      transposed (MN-major) shared-memory operand, B (dpre_c, dg, ds) the
+//      MN-major B operand, both loaded by TMA into a 4-stage ring. The f32
+//      partials cost 2 x KSPLIT x 4d^2 x 4 bytes (written, then read once).
+//   3. reduce pass: the split partials in split order, the per-tile bias
+//      partials in tile order, and the dxi / dxj CSR row reduces (dst rows
+//      over dst_rowptr; src rows over src_rowptr through src_perm, the
+//      masked-in edges of each chunk compacted in order by warp ballots).
+// Shared memory of the tile pass (TileLayout): the ring S x 8 KB, dg/ds
+// [64, d] bf16 (d x 128 bytes), dpre_c [64, 2d] (2d x 128 bytes), 4 KB of
+// the epilogues' column-sum scratch and the barriers, from a 1024-byte
+// aligned base; the column partials of dg and ds use the dpre_c tile's
+// halves before the epilogues fill them. At d = 512 that is 64 + 128 KB +
+// 3 stages (24 KB): the stage count is what gives way (15 stages at
+// d = 256, 9 at d = 384).
+//
+// f32 keeps the FMA design (no TF32, so no tensor cores): a tile pass of
+// 32-edge blocks that stage weight chunks through shared memory, an
+// output-tiled (64 x 128) weight pass over 4 edge ranges, the same reduce.
+// Elementwise steps use explicitly rounded operations so nvcc contracts
+// nothing into an FMA that the plain PyTorch version does not have.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -72,24 +105,15 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
 
-constexpr int NTHREADS = 256;  // 8 warps
-constexpr int CN = 128;        // output columns per chunk (pass 1)
-constexpr int LDC = CN + 4;    // f32 chunk stride
-constexpr int MOM = 64;        // edges per moment window (the forward's)
-constexpr int KSPLIT = 4;      // edge ranges of the weight pass
-constexpr int WR = 64, WC = 128;  // weight-pass output tile
-constexpr int MAXF = 4;        // pass 3: 2d <= MAXF * NTHREADS
+constexpr int NTHREADS = 256;     // f32 passes and the reduce pass: 8 warps
+constexpr int MOM = 64;           // edges per moment window (the forward's)
+constexpr int MAXF = 4;           // pass 3: 2d <= MAXF * NTHREADS
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
@@ -98,21 +122,6 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
-
-// per-dtype tiling: bf16 -> WMMA, f32 -> register-tiled FMA
-template <typename T> struct Cfg;
-template <> struct Cfg<bf16> {
-  static constexpr int TE1 = 64;  // edges per pass-1 block
-  static constexpr int PAD = 8;   // row padding (16 bytes)
-  static constexpr int KW = 64;   // weight rows staged per step (pass 1)
-  static constexpr int KE = 64;   // edges staged per step (pass 2)
-};
-template <> struct Cfg<float> {
-  static constexpr int TE1 = 32;
-  static constexpr int PAD = 4;
-  static constexpr int KW = 16;
-  static constexpr int KE = 32;
-};
 
 template <typename T>
 struct Args {
@@ -142,77 +151,39 @@ struct Args {
   T* dg_out;    // [E, d]   rounded dg
   T* ds_out;    // [E, d]   merged: rounded ds
   T* dpre_out;  // [E, 2d]  dpre_c
+  T* h_out;     // [E, 2d]  bf16: h_c = round(pre sig), for the weight pass
   float* dxi;   // [N, 2d]
   float* dxj;   // [N, 2d]
   float* dw;    // [4 d^2]  dWe [d, 2d] | dW1g [d, d] | dW1a [d, d]
   float* dbias; // [4 d]    db [2d] | db1g [d] | db1a [d]
-  float* bias_part;  // [E / TE1, 4d]
-  float* w_part;     // [KSPLIT, 4 d^2]
-  int E, N, d;
+  float* bias_part;  // [n_tiles, 4d]
+  float* w_part;     // [ksplit, 4 d^2]
+  int E, N, d, ksplit;
 };
 
-// shared-memory layout of the tile pass (bytes)
-template <typename T>
+// ===================================================== f32: CUDA cores (FMA)
+
+constexpr int TE1 = 32;        // edges per tile-pass block
+constexpr int PAD = 4;         // row padding (16 bytes)
+constexpr int KW = 16;         // weight rows staged per step (pass 1)
+constexpr int KE = 32;         // edges staged per step (pass 2)
+constexpr int CN = 128;        // output columns per chunk (pass 1)
+constexpr int LDC = CN + 4;    // f32 chunk stride
+constexpr int KSPLIT_F32 = 4;  // edge ranges of the weight pass
+constexpr int WR = 64, WC = 128;  // weight-pass output tile
+
+// shared-memory layout of the f32 tile pass (bytes)
 struct Layout1 {
   size_t a, p, w, c, m, total;
   __host__ __device__ explicit Layout1(int d) {
-    constexpr int TE1 = Cfg<T>::TE1, PAD = Cfg<T>::PAD;
     a = 0;
-    p = a + align128(sizeof(T) * TE1 * (d + PAD));
-    w = p + align128(sizeof(T) * TE1 * (2 * d + PAD));
-    const size_t wbytes = sizeof(T) == 2
-        ? sizeof(T) * CN * (Cfg<T>::KW + PAD)    // [CN][KW + PAD]
-        : sizeof(T) * Cfg<T>::KW * (CN + PAD);   // [KW][CN + PAD]
-    c = w + align128(wbytes);
+    p = a + align128(sizeof(float) * TE1 * (d + PAD));
+    w = p + align128(sizeof(float) * TE1 * (2 * d + PAD));
+    c = w + align128(sizeof(float) * KW * (CN + PAD));  // [KW][CN + PAD]
     m = c + align128(sizeof(float) * TE1 * LDC);
     total = m + sizeof(float) * TE1;
   }
 };
-
-// ------------------------------------------------ pass-1 products C = A W^T
-// c_s[r][j] = sum_k A[r][k] * W[c0 + j][k], r < TE1, j < CN. A: rows in
-// shared memory (stride lda); W: row-major [*, ldw] in device memory.
-
-// bf16: warp w owns rows 16 (w % 4) and the four 16-column tiles from
-// 64 (w / 4); W chunks are staged as [j][k] and read as col-major B.
-__device__ __forceinline__ void gemm_nt(const bf16* A, int lda,
-                                        const bf16* __restrict__ W, int ldw,
-                                        int K, int c0, bf16* w_s,
-                                        float* c_s) {
-  using namespace nvcuda;
-  constexpr int KW = Cfg<bf16>::KW, LDW = KW + Cfg<bf16>::PAD;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int row0 = 16 * (warp % 4), col0 = 64 * (warp / 4);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int k0 = 0; k0 < K; k0 += KW) {
-    for (int i = tid; i < CN * KW / 8; i += NTHREADS) {
-      const int j = i / (KW / 8), kk = 8 * (i % (KW / 8));
-      *reinterpret_cast<uint4*>(&w_s[j * LDW + kk]) =
-          *reinterpret_cast<const uint4*>(&W[(size_t)(c0 + j) * ldw + k0 +
-                                             kk]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KW; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + row0 * lda + k0 + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-        wmma::load_matrix_sync(bm, w_s + (col0 + 16 * j) * LDW + kk, LDW);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(c_s + row0 * LDC + col0 + 16 * j, acc[j], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-}
 
 // column of a thread's j-th output inside a 128-wide tile: two groups of
 // four adjacent columns, 64 apart, so the float4 reads of a warp are dense
@@ -220,24 +191,25 @@ __device__ __forceinline__ int col_of(int tx, int j) {
   return (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
 }
 
-// f32: 16 x 16 threads, each 2 rows x 8 columns of the 32 x 128 chunk;
-// W chunks are staged transposed as [k][j]
+// c_s[r][j] = sum_k A[r][k] * W[c0 + j][k], r < TE1, j < CN. A: rows in
+// shared memory (stride lda); W: row-major [*, ldw] in device memory.
+// 16 x 16 threads, each 2 rows x 8 columns of the 32 x 128 chunk; W chunks
+// are staged transposed as [k][j].
 __device__ __forceinline__ void gemm_nt(const float* A, int lda,
                                         const float* __restrict__ W, int ldw,
                                         int K, int c0, float* w_s,
                                         float* c_s) {
-  constexpr int KC = Cfg<float>::KW, LDW = CN + Cfg<float>::PAD;
-  constexpr int TM = Cfg<float>::TE1 / 16;
+  constexpr int LDW = CN + PAD, TM = TE1 / 16;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[TM][8] = {};
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    for (int i = tid; i < KC * CN; i += NTHREADS) {
-      const int kk = i % KC, j = i / KC;
+  for (int k0 = 0; k0 < K; k0 += KW) {
+    for (int i = tid; i < KW * CN; i += NTHREADS) {
+      const int kk = i % KW, j = i / KW;
       w_s[kk * LDW + j] = W[(size_t)(c0 + j) * ldw + k0 + kk];
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 4) {
+    for (int kk = 0; kk < KW; kk += 4) {
       float4 a4[TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -271,99 +243,96 @@ __device__ __forceinline__ void gemm_nt(const float* A, int lda,
   __syncthreads();
 }
 
-// column sums over the tile's rows of a [TE1][ld] T tile -> out[0:n)
-template <typename T, int TE1>
-__device__ __forceinline__ void column_sums(const T* s, int ld, int n,
+// column sums over the tile's rows of a [TE1][ld] tile -> out[0:n)
+__device__ __forceinline__ void column_sums(const float* s, int ld, int n,
                                             float* out) {
   for (int c = threadIdx.x; c < n; c += NTHREADS) {
     float acc = 0.f;
-    for (int r = 0; r < TE1; ++r) acc = __fadd_rn(acc, to_f(s[r * ld + c]));
+    for (int r = 0; r < TE1; ++r) acc = __fadd_rn(acc, s[r * ld + c]);
     out[c] = acc;
   }
 }
 
-// ------------------------------------------------------------ pass 1: tile
-template <typename T, bool MERGED>
-__global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
-  constexpr int TE1 = Cfg<T>::TE1, PAD = Cfg<T>::PAD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// ------------------------------------------------------- f32 pass 1: tile
+template <bool MERGED>
+__global__ void __launch_bounds__(NTHREADS)
+    edge_bwd_tile_fma(Args<float> p) {
+  extern __shared__ __align__(128) unsigned char smem_f32[];
   const int d = p.d, d2 = 2 * d, d4 = 4 * d;
   const int lda = d + PAD, ldp = d2 + PAD;
-  const Layout1<T> L(d);
-  T* a_s = reinterpret_cast<T*>(smem_raw + L.a);         // dg, then ds
-  T* p_s = reinterpret_cast<T*>(smem_raw + L.p);         // dpre_c
-  T* w_s = reinterpret_cast<T*>(smem_raw + L.w);
-  float* c_s = reinterpret_cast<float*>(smem_raw + L.c);  // [TE1][LDC]
-  float* m_s = reinterpret_cast<float*>(smem_raw + L.m);
+  const Layout1 L(d);
+  float* a_s = reinterpret_cast<float*>(smem_f32 + L.a);  // dg, then ds
+  float* p_s = reinterpret_cast<float*>(smem_f32 + L.p);  // dpre_c
+  float* w_s = reinterpret_cast<float*>(smem_f32 + L.w);
+  float* c_s = reinterpret_cast<float*>(smem_f32 + L.c);  // [TE1][LDC]
+  float* m_s = reinterpret_cast<float*>(smem_f32 + L.m);
   const int tid = threadIdx.x;
   const size_t e0 = (size_t)blockIdx.x * TE1;
   float* bpart = p.bias_part + (size_t)blockIdx.x * d4;
 
   if (tid < TE1) m_s[tid] = p.emask[e0 + tid] ? 1.f : 0.f;
   __syncthreads();
-  // dg with the window-moment cotangents folded in, rounded to cdt; merged,
-  // the gate's cotangent comes from the sigma backward, which also gives ds
+  // dg with the window-moment cotangents folded in; merged, the gate's
+  // cotangent comes from the sigma backward, which also gives ds
   for (int i = tid; i < TE1 * d; i += NTHREADS) {
     const int r = i / d, c = i % d;
     const size_t o = (e0 + r) * d + c;
     const size_t w = ((e0 + r) / MOM) * d + c;
-    const float g = to_f(p.gate[o]);
+    const float g = p.gate[o];
     const float corr = __fadd_rn(
         p.ds1w[w], __fmul_rn(__fmul_rn(2.f, p.dm2w[w]),
                              __fadd_rn(g, -p.meanw[w])));
     float dgate;
     if constexpr (MERGED) {
       const float dvals =
-          m_s[r] != 0.f ? to_f(p.daggr[(size_t)p.dst[e0 + r] * d + c]) : 0.f;
+          m_s[r] != 0.f ? p.daggr[(size_t)p.dst[e0 + r] * d + c] : 0.f;
       const float sig0 =
           sigmoid_f(__fadd_rn(__fmul_rn(g, p.scale[c]), p.shift[c]));
-      const float env = to_f(p.env[e0 + r]);
-      const float dsig =
-          __fadd_rn(to_f(p.deres[o]), __fmul_rn(dvals, to_f(p.sender[o])));
+      const float env = p.env[e0 + r];
+      const float dsig = __fadd_rn(p.deres[o], __fmul_rn(dvals, p.sender[o]));
       const float da = __fmul_rn(__fmul_rn(__fmul_rn(dsig, env), sig0),
                                  __fadd_rn(1.f, -sig0));
-      p.ds_out[o] = from_f<T>(__fmul_rn(__fmul_rn(dvals, sig0), env));
+      p.ds_out[o] = __fmul_rn(__fmul_rn(dvals, sig0), env);
       dgate = __fmul_rn(da, p.scale[c]);
     } else {
-      dgate = to_f(p.dgate[o]);
+      dgate = p.dgate[o];
     }
-    const T v = from_f<T>(__fadd_rn(dgate, __fmul_rn(m_s[r], corr)));
+    const float v = __fadd_rn(dgate, __fmul_rn(m_s[r], corr));
     a_s[r * lda + c] = v;
     p.dg_out[o] = v;
   }
   __syncthreads();
-  column_sums<T, TE1>(a_s, lda, d, bpart + d2);  // db1g
+  column_sums(a_s, lda, d, bpart + d2);  // db1g
 
   for (int half = 0; half < 2; ++half) {
     if (half == 1) {  // ds replaces dg in the A tile
       __syncthreads();  // also makes this block's ds_out writes visible
-      const T* ds = MERGED ? p.ds_out : p.dsender;
+      const float* ds = MERGED ? p.ds_out : p.dsender;
       for (int i = tid; i < TE1 * d; i += NTHREADS) {
         const int r = i / d, c = i % d;
         a_s[r * lda + c] = ds[(e0 + r) * d + c];
       }
       __syncthreads();
-      column_sums<T, TE1>(a_s, lda, d, bpart + d2 + d);  // db1a
+      column_sums(a_s, lda, d, bpart + d2 + d);  // db1a
     }
-    const T* w1 = half ? p.w1a : p.w1g;
+    const float* w1 = half ? p.w1a : p.w1g;
     for (int c0 = 0; c0 < d; c0 += CN) {
       gemm_nt(a_s, lda, w1, d, d, c0, w_s, c_s);  // dh chunk
       for (int i = tid; i < TE1 * CN; i += NTHREADS) {
         const int r = i / CN, cl = i % CN, pc = half * d + c0 + cl;
-        const T* srow = p.saved + (e0 + r) * (MERGED ? d2 : d4);
-        const float pre = to_f(srow[pc]);
-        const float sg = MERGED ? sigmoid_f(pre) : to_f(srow[d2 + pc]);
+        const float* srow = p.saved + (e0 + r) * (MERGED ? d2 : d4);
+        const float pre = srow[pc];
+        const float sg = MERGED ? sigmoid_f(pre) : srow[d2 + pc];
         const float h32 = __fmul_rn(pre, sg);
         const float dpre = __fmul_rn(
             c_s[r * LDC + cl],
             __fadd_rn(sg, __fmul_rn(h32, __fadd_rn(1.f, -sg))));
         c_s[r * LDC + cl] = dpre;
-        const T v = from_f<T>(dpre);
-        p_s[r * ldp + pc] = v;
-        p.dpre_out[(e0 + r) * d2 + pc] = v;
+        p_s[r * ldp + pc] = dpre;
+        p.dpre_out[(e0 + r) * d2 + pc] = dpre;
       }
       __syncthreads();
-      if (tid < CN) {  // db: column sums of the unrounded dpre
+      if (tid < CN) {  // db: column sums of dpre
         float s = 0.f;
         for (int r = 0; r < TE1; ++r) s = __fadd_rn(s, c_s[r * LDC + tid]);
         bpart[half * d + c0 + tid] = s;
@@ -377,70 +346,64 @@ __global__ void __launch_bounds__(NTHREADS) edge_bwd_tile(Args<T> p) {
     for (int i = tid; i < TE1 * CN; i += NTHREADS) {
       const int r = i / CN, cl = i % CN;
       const size_t o = (e0 + r) * d + c0 + cl;
-      p.de[o] = from_f<T>(__fadd_rn(to_f(p.deres[o]), c_s[r * LDC + cl]));
+      p.de[o] = __fadd_rn(p.deres[o], c_s[r * LDC + cl]);
     }
   }
 }
 
-// ---------------------------------------------------------- pass 2: weights
+// ---------------------------------------------------- f32 pass 2: weights
 // stage rows [c, c + KE) of the A source (64 columns from col) into
-// at_s[r][k]: e itself (hoff < 0) or h = pre * sig -> cdt recomputed from
-// the saved residual (hoff = 0 gate half, d aggregate half); merged, sig is
+// at_s[r][k]: e itself (hoff < 0) or h = pre * sig recomputed from the
+// saved residual (hoff = 0 gate half, d aggregate half); merged, sig is
 // recomputed from pre as well
-template <typename T, bool MERGED>
-__device__ __forceinline__ void stage_a(const Args<T>& p, int hoff, size_t c,
-                                        int col, T* at_s, int ld) {
-  constexpr int KE = Cfg<T>::KE, V = 16 / sizeof(T);  // 16-byte vectors
+template <bool MERGED>
+__device__ __forceinline__ void stage_a(const Args<float>& p, int hoff,
+                                        size_t c, int col, float* at_s,
+                                        int ld) {
+  constexpr int V = 4;  // 16-byte vectors
   const int d = p.d;
   for (int i = threadIdx.x; i < KE * WR / V; i += NTHREADS) {
     const int r = i / (WR / V), k = V * (i % (WR / V));
-    uint4 out;
+    float4 out;
     if (hoff < 0) {
-      out = *reinterpret_cast<const uint4*>(&p.e[(c + r) * d + col + k]);
+      out = *reinterpret_cast<const float4*>(&p.e[(c + r) * d + col + k]);
     } else if (MERGED) {
-      const uint4 pr = *reinterpret_cast<const uint4*>(
+      const float4 pr = *reinterpret_cast<const float4*>(
           p.saved + (c + r) * 2 * d + hoff + col + k);
-      const T* pv = reinterpret_cast<const T*>(&pr);
-      T* ov = reinterpret_cast<T*>(&out);
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float x = to_f(pv[v]);
-        ov[v] = from_f<T>(__fmul_rn(x, sigmoid_f(x)));
-      }
+      out = make_float4(__fmul_rn(pr.x, sigmoid_f(pr.x)),
+                        __fmul_rn(pr.y, sigmoid_f(pr.y)),
+                        __fmul_rn(pr.z, sigmoid_f(pr.z)),
+                        __fmul_rn(pr.w, sigmoid_f(pr.w)));
     } else {
-      const T* srow = p.saved + (c + r) * 4 * d + hoff + col + k;
-      const uint4 pr = *reinterpret_cast<const uint4*>(srow);
-      const uint4 sr = *reinterpret_cast<const uint4*>(srow + 2 * d);
-      const T* pv = reinterpret_cast<const T*>(&pr);
-      const T* sv = reinterpret_cast<const T*>(&sr);
-      T* ov = reinterpret_cast<T*>(&out);
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        ov[v] = from_f<T>(__fmul_rn(to_f(pv[v]), to_f(sv[v])));
+      const float* srow = p.saved + (c + r) * 4 * d + hoff + col + k;
+      const float4 pr = *reinterpret_cast<const float4*>(srow);
+      const float4 sr = *reinterpret_cast<const float4*>(srow + 2 * d);
+      out = make_float4(__fmul_rn(pr.x, sr.x), __fmul_rn(pr.y, sr.y),
+                        __fmul_rn(pr.z, sr.z), __fmul_rn(pr.w, sr.w));
     }
-    *reinterpret_cast<uint4*>(&at_s[r * ld + k]) = out;
+    *reinterpret_cast<float4*>(&at_s[r * ld + k]) = out;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void stage_b(const T* src, int lds, size_t c,
-                                        int col, T* b_s, int ld) {
-  constexpr int KE = Cfg<T>::KE, V = 16 / sizeof(T);
+__device__ __forceinline__ void stage_b(const float* src, int lds, size_t c,
+                                        int col, float* b_s, int ld) {
+  constexpr int V = 4;
   for (int i = threadIdx.x; i < KE * WC / V; i += NTHREADS) {
     const int r = i / (WC / V), k = V * (i % (WC / V));
-    *reinterpret_cast<uint4*>(&b_s[r * ld + k]) =
-        *reinterpret_cast<const uint4*>(&src[(c + r) * lds + col + k]);
+    *reinterpret_cast<float4*>(&b_s[r * ld + k]) =
+        *reinterpret_cast<const float4*>(&src[(c + r) * lds + col + k]);
   }
 }
 
-// which weight-gradient tile this block owns
+// which weight-gradient tile (rows x cols) this block owns
 struct WTile {
   int mat, rt, ct, ld_out;
   size_t off;  // offset of the matrix inside the 4 d^2 block
 };
 
-__device__ __forceinline__ WTile weight_tile(int t, int d) {
-  const int nr = d / WR, nc0 = 2 * d / WC, nc1 = d / WC;
+__device__ __forceinline__ WTile weight_tile(int t, int d, int rows,
+                                             int cols) {
+  const int nr = d / rows, nc0 = 2 * d / cols, nc1 = d / cols;
   WTile w;
   if (t < nr * nc0) {
     w.mat = 0; w.rt = t / nc0; w.ct = t % nc0; w.ld_out = 2 * d; w.off = 0;
@@ -454,65 +417,27 @@ __device__ __forceinline__ WTile weight_tile(int t, int d) {
   return w;
 }
 
-// bf16: dW tile += At^T B over KE-edge chunks on the tensor cores
+// 16 x 16 threads, each 4 rows x 8 columns of the 64 x 128 tile
 template <bool MERGED>
-__device__ __forceinline__ void weight_tile_loop(const Args<bf16>& p,
-                                                 const WTile& w, size_t ebeg,
-                                                 size_t eend, float* out) {
-  using namespace nvcuda;
-  constexpr int KE = Cfg<bf16>::KE, PAD = Cfg<bf16>::PAD;
-  constexpr int LDA = WR + PAD, LDB = WC + PAD;
-  __shared__ __align__(128) bf16 at_s[KE * LDA];
-  __shared__ __align__(128) bf16 b_s[KE * LDB];
-  const int d = p.d, warp = threadIdx.x / 32;
-  const int row0 = 16 * (warp % 4), col0 = 64 * (warp / 4);
-  const int hoff = w.mat == 0 ? -1 : (w.mat == 1 ? 0 : d);
-  const bf16* bsrc = w.mat == 0 ? p.dpre_out
-                   : w.mat == 1 ? p.dg_out : MERGED ? p.ds_out : p.dsender;
-  const int ldb_src = w.mat == 0 ? 2 * d : d;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (size_t c = ebeg; c < eend; c += KE) {
-    stage_a<bf16, MERGED>(p, hoff, c, w.rt * WR, at_s, LDA);
-    stage_b(bsrc, ldb_src, c, w.ct * WC, b_s, LDB);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KE; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, at_s + kk * LDA + row0, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, b_s + kk * LDB + col0 + 16 * j, LDB);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(out + (size_t)row0 * w.ld_out + col0 + 16 * j,
-                            acc[j], w.ld_out, wmma::mem_row_major);
-}
-
-// f32: 16 x 16 threads, each 4 rows x 8 columns of the 64 x 128 tile
-template <bool MERGED>
-__device__ __forceinline__ void weight_tile_loop(const Args<float>& p,
-                                                 const WTile& w, size_t ebeg,
-                                                 size_t eend, float* out) {
-  constexpr int KE = Cfg<float>::KE, PAD = Cfg<float>::PAD;
+__global__ void __launch_bounds__(NTHREADS)
+    edge_bwd_weights_fma(Args<float> p, int per_split) {
   constexpr int LDA = WR + PAD, LDB = WC + PAD;
   __shared__ __align__(128) float at_s[KE * LDA];
   __shared__ __align__(128) float b_s[KE * LDB];
   const int d = p.d, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const WTile w = weight_tile(blockIdx.x, d, WR, WC);
+  const size_t ebeg = (size_t)blockIdx.y * per_split;
+  const size_t eend = ebeg + per_split < (size_t)p.E ? ebeg + per_split
+                                                     : (size_t)p.E;
+  float* out = p.w_part + (size_t)blockIdx.y * 4 * d * d + w.off +
+               (size_t)w.rt * WR * w.ld_out + w.ct * WC;
   const int hoff = w.mat == 0 ? -1 : (w.mat == 1 ? 0 : d);
   const float* bsrc = w.mat == 0 ? p.dpre_out
                     : w.mat == 1 ? p.dg_out : MERGED ? p.ds_out : p.dsender;
   const int ldb_src = w.mat == 0 ? 2 * d : d;
   float acc[4][8] = {};
   for (size_t c = ebeg; c < eend; c += KE) {
-    stage_a<float, MERGED>(p, hoff, c, w.rt * WR, at_s, LDA);
+    stage_a<MERGED>(p, hoff, c, w.rt * WR, at_s, LDA);
     stage_b(bsrc, ldb_src, c, w.ct * WC, b_s, LDB);
     __syncthreads();
 #pragma unroll 4
@@ -538,17 +463,712 @@ __device__ __forceinline__ void weight_tile_loop(const Args<float>& p,
       out[(size_t)(ty * 4 + i) * w.ld_out + col_of(tx, j)] = acc[i][j];
 }
 
-template <typename T, bool MERGED>
-__global__ void __launch_bounds__(NTHREADS)
-    edge_bwd_weights(Args<T> p, int per_split) {
+// ========================================== bf16: wgmma + TMA (tensor cores)
+
+constexpr int TC_THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int TE = 64;           // edges per tile (one wgmma M; = MOM)
+constexpr int SLAB = 8192;       // a 64 x 64 bf16 tile, 128-byte swizzled
+constexpr int TC_MAX_STAGES = 16;
+constexpr int RED_BYTES = 4096;  // epilogue sums: [2 wg][2 buffers][4][64]
+constexpr int WT_STAGES = 4;     // weight-pass ring, 4 slabs per stage
+constexpr int WT = 128;          // weight-pass output tile (WT x WT)
+
+// shared-memory plan of the bf16 tile pass (bytes from the 1024-aligned
+// base; total includes the 1024 bytes of alignment slack)
+struct TileLayout {
+  int stages;
+  size_t ring, a, p, red, bars, total;
+  __host__ __device__ explicit TileLayout(int d) {
+    const long long fixed = 1024 + 384LL * d + RED_BYTES + 16 * TC_MAX_STAGES;
+    const long long s = (SMEM_LIMIT - fixed) / SLAB;
+    stages = (int)(s < TC_MAX_STAGES ? (s < 0 ? 0 : s) : TC_MAX_STAGES);
+    ring = 0;
+    a = ring + (size_t)stages * SLAB;  // dg, then ds: d/64 slabs
+    p = a + (size_t)d * 128;            // dpre_c: 2d/64 slabs
+    red = p + (size_t)d * 256;
+    bars = red + RED_BYTES;             // full[stages], empty[stages]
+    total = 1024 + bars + 16 * (size_t)stages;
+  }
+};
+
+constexpr size_t WEIGHT_SMEM = 1024 + (size_t)WT_STAGES * 4 * SLAB +
+                               16 * WT_STAGES;
+
+__device__ __forceinline__ uint32_t saddr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// 2-D TMA load of one box at (x = column, y = row) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
+}
+// wgmma shared-memory descriptor, 128-byte swizzle (atoms 1024-aligned)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// generic-proxy shared stores -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// D[64 x 64] += A (K-major) B (K-major or, with TB, MN-major): 32 f32 a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D[64 x 128] += A B: 64 f32 a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// a ring of TMA stages: full[s] completes when stage s has landed, empty[s]
+// when its consumers have read it. Position n uses stage n % stages for
+// the (n / stages)-th time.
+struct Ring {
+  uint32_t base, full, empty;
+  int stages;
+  __device__ __forceinline__ int stage(uint32_t n) const {
+    return (int)(n % (uint32_t)stages);
+  }
+  __device__ __forceinline__ uint32_t use(uint32_t n) const {
+    return n / (uint32_t)stages;
+  }
+  // producer: wait for the stage to be free, then announce `bytes`
+  __device__ __forceinline__ uint32_t acquire(uint32_t n, uint32_t bytes,
+                                              uint32_t stage_bytes) const {
+    const int s = stage(n);
+    const uint32_t k = use(n);
+    if (k > 0) mbar_wait(empty + 8 * s, (k - 1) & 1);
+    mbar_expect_tx(full + 8 * s, bytes);
+    return base + (uint32_t)s * stage_bytes;
+  }
+  __device__ __forceinline__ uint32_t wait_full(uint32_t n,
+                                                uint32_t stage_bytes) const {
+    const int s = stage(n);
+    mbar_wait(full + 8 * s, use(n) & 1);
+    return base + (uint32_t)s * stage_bytes;
+  }
+  __device__ __forceinline__ void release(uint32_t n) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * stage(n));
+  }
+};
+
+// acc = A[64, 64 kslabs] (K-major slabs at a_s) x B^T, B's 64 x 64 K-major
+// slabs arriving through the ring at positions 2 pos + wg. One warpgroup;
+// keeps one group of products in flight and frees each stage once read.
+__device__ __forceinline__ void tc_chunk(float (&acc)[32], uint32_t a_s,
+                                         int kslabs, const Ring& ring,
+                                         uint32_t& pos, int wg) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t prev = 0;
+  for (int ks = 0; ks < kslabs; ++ks) {
+    const uint32_t n = 2 * pos + wg;
+    const uint32_t b_s = ring.wait_full(n, SLAB);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64<0, 0>(acc,
+                         sw128_desc(a_s + ks * SLAB + kk * 32, 16, 1024),
+                         sw128_desc(b_s + kk * 32, 16, 1024));
+    wg_commit();
+    fence_acc(acc);
+    if (ks > 0) {
+      wg_wait<1>();
+      fence_acc(acc);
+      ring.release(prev);
+    }
+    prev = n;
+    ++pos;
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  ring.release(prev);
+}
+
+// byte offset of (row r, column c) inside a run of 64-column swizzled slabs
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return (uint32_t)((c >> 6) * SLAB + r * 128 +
+                    ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
+}
+
+__device__ __forceinline__ void load8(const bf16* src, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const bf162* h = reinterpret_cast<const bf162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 u;
+  bf162* h = reinterpret_cast<bf162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return u;
+}
+
+// column sums of a [64, d] tile, step 1, per 64-column slab sb: the 8
+// partials of each thread (its two rows rr, rr + 32 at columns 8 vc ..)
+// summed by a shuffle tree over the 4 row quads of each warp into
+// red[warp][d] (no barrier: every slab has its own columns)
+__device__ __forceinline__ void slab_partials(float (&cs)[8], float* red,
+                                              int sb, int d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    cs[i] = __fadd_rn(cs[i], __shfl_xor_sync(0xffffffffu, cs[i], 8));
+    cs[i] = __fadd_rn(cs[i], __shfl_xor_sync(0xffffffffu, cs[i], 16));
+  }
+  if (lane < 8)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[warp * d + sb * 64 + lane * 8 + i] = cs[i];
+}
+
+// step 2, once per tile: the 8 warps' partials in order -> out[0:d). All
+// 256 consumer threads; red is not written again before the next
+// consumer-wide barrier.
+__device__ __forceinline__ void column_sums_8(const float* red, int d,
+                                              float* out) {
+  bar_sync(1, 256);
+  for (int c = threadIdx.x; c < d; c += 256) {
+    float s = red[c];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) s = __fadd_rn(s, red[w * d + c]);
+    out[c] = s;
+  }
+}
+
+// prologue: dg (the window-moment fold; merged, after the sigma backward,
+// which also writes ds) -> the swizzled A tile, dg_out and db1g's sums
+// (partials through red, [8][d] f32 of free shared memory). Thread ct owns
+// rows ct / 8 and ct / 8 + 32, 16-byte column vector ct % 8 of every
+// 64-column slab.
+template <bool MERGED>
+__device__ __forceinline__ void tc_prologue(const Args<bf16>& p, size_t e0,
+                                            unsigned char* a_g, float* red,
+                                            float* out) {
+  const int ct = threadIdx.x, vc = ct & 7, rr = ct >> 3, d = p.d;
+  const size_t wrow = (e0 / MOM) * d;  // the tile is one moment window
+  float m[2], env[2];
+  int dst[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const size_t e = e0 + rr + 32 * q;
+    m[q] = p.emask[e] ? 1.f : 0.f;
+    if constexpr (MERGED) {
+      dst[q] = p.dst[e];
+      env[q] = to_f(p.env[e]);
+    }
+  }
+  for (int sb = 0; sb < d / 64; ++sb) {
+    const int c0 = sb * 64 + vc * 8;
+    float mw[8], s1[8], m2[8], sc[8], sh[8], cs[8];
+    load8(p.meanw + wrow + c0, mw);
+    load8(p.ds1w + wrow + c0, s1);
+    load8(p.dm2w + wrow + c0, m2);
+    if constexpr (MERGED) {
+      load8(p.scale + c0, sc);
+      load8(p.shift + c0, sh);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = rr + 32 * q;
+      const size_t o = (e0 + r) * d + c0;
+      float g[8], dgate[8], v[8];
+      load8(p.gate + o, g);
+      if constexpr (MERGED) {
+        float dv[8], snd[8], dout[8], ds[8];
+        if (m[q] != 0.f) {
+          load8(p.daggr + (size_t)dst[q] * d + c0, dv);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) dv[i] = 0.f;
+        }
+        load8(p.sender + o, snd);
+        load8(p.deres + o, dout);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float sig0 =
+              sigmoid_f(__fadd_rn(__fmul_rn(g[i], sc[i]), sh[i]));
+          const float dsig = __fadd_rn(dout[i], __fmul_rn(dv[i], snd[i]));
+          const float da = __fmul_rn(
+              __fmul_rn(__fmul_rn(dsig, env[q]), sig0), __fadd_rn(1.f, -sig0));
+          ds[i] = __fmul_rn(__fmul_rn(dv[i], sig0), env[q]);
+          dgate[i] = __fmul_rn(da, sc[i]);
+        }
+        *reinterpret_cast<uint4*>(p.ds_out + o) = pack8(ds);
+      } else {
+        load8(p.dgate + o, dgate);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float corr = __fadd_rn(
+            s1[i], __fmul_rn(__fmul_rn(2.f, m2[i]), __fadd_rn(g[i], -mw[i])));
+        v[i] = __fadd_rn(dgate[i], __fmul_rn(m[q], corr));
+      }
+      const uint4 u = pack8(v);
+      *reinterpret_cast<uint4*>(a_g + sw_off(r, c0)) = u;
+      *reinterpret_cast<uint4*>(p.dg_out + o) = u;
+      const bf162* h = reinterpret_cast<const bf162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // sums of the rounded dg
+        const float2 f = __bfloat1622float2(h[i]);
+        cs[2 * i] = q ? __fadd_rn(cs[2 * i], f.x) : f.x;
+        cs[2 * i + 1] = q ? __fadd_rn(cs[2 * i + 1], f.y) : f.y;
+      }
+    }
+    slab_partials(cs, red, sb, d);
+  }
+  column_sums_8(red, d, out);
+}
+
+// ds (dsender; merged, the ds_out this thread wrote in the prologue) -> the
+// swizzled A tile and db1a's sums, in the prologue's thread layout
+template <bool MERGED>
+__device__ __forceinline__ void tc_load_ds(const Args<bf16>& p, size_t e0,
+                                           unsigned char* a_g, float* red,
+                                           float* out) {
+  const int ct = threadIdx.x, vc = ct & 7, rr = ct >> 3, d = p.d;
+  const bf16* ds = MERGED ? p.ds_out : p.dsender;
+  for (int sb = 0; sb < d / 64; ++sb) {
+    const int c0 = sb * 64 + vc * 8;
+    float cs[8];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = rr + 32 * q;
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(ds + (e0 + r) * d + c0);
+      *reinterpret_cast<uint4*>(a_g + sw_off(r, c0)) = u;
+      const bf162* h = reinterpret_cast<const bf162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        cs[2 * i] = q ? __fadd_rn(cs[2 * i], f.x) : f.x;
+        cs[2 * i + 1] = q ? __fadd_rn(cs[2 * i + 1], f.y) : f.y;
+      }
+    }
+    slab_partials(cs, red, sb, d);
+  }
+  column_sums_8(red, d, out);
+}
+
+// the residual at a thread's accumulator elements of a dh chunk (64
+// columns from pc0): [2 i + hr] holds rows wi 16 + lane / 4 + 8 hr, columns
+// pc0 + 8 i + 2 (lane % 4) + {0, 1}; loaded before the chunk's products so
+// that the loads overlap them (sig only for K5's [pre | sig] layout)
+struct DhResidual {
+  bf162 pre[16], sig[16];
+};
+
+template <bool MERGED>
+__device__ __forceinline__ void tc_dh_residual(const Args<bf16>& p,
+                                               size_t e0, int pc0,
+                                               DhResidual& res) {
+  const int wt = threadIdx.x & 127, wi = wt >> 5, lane = wt & 31;
+  const int d2 = 2 * p.d;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pc = pc0 + 8 * i + 2 * (lane & 3);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const size_t e = e0 + wi * 16 + (lane >> 2) + 8 * hr;
+      const bf16* row = p.saved + e * (MERGED ? d2 : 2 * d2);
+      res.pre[2 * i + hr] = *reinterpret_cast<const bf162*>(row + pc);
+      if constexpr (!MERGED)
+        res.sig[2 * i + hr] = *reinterpret_cast<const bf162*>(row + d2 + pc);
+    }
+  }
+}
+
+// dh chunk (64 columns from pc0 of [dh_g | dh_a]) -> the silu' chain on the
+// accumulators: dpre_c to device memory and to the swizzled dpre_c tile,
+// h_c to device memory, db's column sums (rows paired, a shuffle tree over
+// the warp's 16 rows, then the warpgroup's 4 warps in order) -> bsum[0:64).
+// red: this warpgroup's [4][64] buffer, alternating between two from one
+// epilogue to the next so that one barrier orders writes and reads
+template <bool MERGED>
+__device__ __forceinline__ void tc_dh_epilogue(const Args<bf16>& p,
+                                               const float (&acc)[32],
+                                               const DhResidual& res,
+                                               size_t e0, int pc0,
+                                               unsigned char* p_g, float* red,
+                                               float* bsum, int wg) {
+  const int wt = threadIdx.x & 127, wi = wt >> 5, lane = wt & 31;
+  const int d2 = 2 * p.d;
+  float cs[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pc = pc0 + 8 * i + 2 * (lane & 3);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = wi * 16 + (lane >> 2) + 8 * hr;
+      const size_t e = e0 + r;
+      const float2 pre = __bfloat1622float2(res.pre[2 * i + hr]);
+      float2 sg;
+      if constexpr (MERGED) {
+        sg = make_float2(sigmoid_f(pre.x), sigmoid_f(pre.y));
+      } else {
+        sg = __bfloat1622float2(res.sig[2 * i + hr]);
+      }
+      const float h0 = __fmul_rn(pre.x, sg.x), h1 = __fmul_rn(pre.y, sg.y);
+      const float dp0 = __fmul_rn(
+          acc[4 * i + 2 * hr],
+          __fadd_rn(sg.x, __fmul_rn(h0, __fadd_rn(1.f, -sg.x))));
+      const float dp1 = __fmul_rn(
+          acc[4 * i + 2 * hr + 1],
+          __fadd_rn(sg.y, __fmul_rn(h1, __fadd_rn(1.f, -sg.y))));
+      const bf162 v = __floats2bfloat162_rn(dp0, dp1);
+      *reinterpret_cast<bf162*>(p.dpre_out + e * d2 + pc) = v;
+      *reinterpret_cast<bf162*>(p.h_out + e * d2 + pc) =
+          __floats2bfloat162_rn(h0, h1);
+      *reinterpret_cast<bf162*>(p_g + sw_off(r, pc)) = v;
+      cs[2 * i] = hr ? __fadd_rn(cs[2 * i], dp0) : dp0;
+      cs[2 * i + 1] = hr ? __fadd_rn(cs[2 * i + 1], dp1) : dp1;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    cs[k] = __fadd_rn(cs[k], __shfl_xor_sync(0xffffffffu, cs[k], 4));
+    cs[k] = __fadd_rn(cs[k], __shfl_xor_sync(0xffffffffu, cs[k], 8));
+    cs[k] = __fadd_rn(cs[k], __shfl_xor_sync(0xffffffffu, cs[k], 16));
+  }
+  if (lane < 4)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      red[wi * 64 + 8 * i + 2 * lane] = cs[2 * i];
+      red[wi * 64 + 8 * i + 2 * lane + 1] = cs[2 * i + 1];
+    }
+  bar_sync(2 + wg, 128);
+  if (wt < 64) {
+    float s = red[wt];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) s = __fadd_rn(s, red[w * 64 + wt]);
+    bsum[wt] = s;
+  }
+}
+
+// offset of a thread's accumulator pair [2 i + hr] of a de chunk (64
+// columns from k0) in an [E, d] array
+__device__ __forceinline__ size_t de_off(size_t e0, int k0, int d, int i,
+                                         int hr) {
+  const int wt = threadIdx.x & 127, wi = wt >> 5, lane = wt & 31;
+  return (e0 + wi * 16 + (lane >> 2) + 8 * hr) * d + k0 + 8 * i +
+         2 * (lane & 3);
+}
+
+// deres at the thread's elements of a de chunk, loaded before its products
+__device__ __forceinline__ void tc_de_residual(const Args<bf16>& p,
+                                               size_t e0, int k0,
+                                               bf162 (&deres)[16]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      deres[2 * i + hr] = *reinterpret_cast<const bf162*>(
+          p.deres + de_off(e0, k0, p.d, i, hr));
+}
+
+// de chunk (64 columns from k0): de = deres + acc -> e's dtype
+__device__ __forceinline__ void tc_de_epilogue(const Args<bf16>& p,
+                                               const float (&acc)[32],
+                                               const bf162 (&deres)[16],
+                                               size_t e0, int k0) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const size_t o = de_off(e0, k0, p.d, i, hr);
+      const float2 r = __bfloat1622float2(deres[2 * i + hr]);
+      *reinterpret_cast<bf162*>(p.de + o) =
+          __floats2bfloat162_rn(__fadd_rn(r.x, acc[4 * i + 2 * hr]),
+                                __fadd_rn(r.y, acc[4 * i + 2 * hr + 1]));
+    }
+  }
+}
+
+// ------------------------------------------------------ bf16 pass 1: tile
+template <bool MERGED>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    edge_bwd_tile_tc(Args<bf16> p, const __grid_constant__ CUtensorMap w1g_m,
+                     const __grid_constant__ CUtensorMap w1a_m,
+                     const __grid_constant__ CUtensorMap we_m) {
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const int d = p.d, d2 = 2 * d;
+  const TileLayout L(d);
+  const uint32_t raw = saddr(smem_tc);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_tc + (base - raw);
+  const Ring ring{base + (uint32_t)L.ring, base + (uint32_t)L.bars,
+                  base + (uint32_t)L.bars + 8u * L.stages, L.stages};
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n_tiles = p.E / TE;
+  if (tid == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 4);  // the 4 warps of one warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: the weight slabs, in the consumers' order
+    if ((tid & 31) == 0) {
+      uint32_t n = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        for (int half = 0; half < 2; ++half)
+          for (int jp = 0; jp < d / 128; ++jp)
+            for (int ks = 0; ks < d / 64; ++ks)
+              for (int w = 0; w < 2; ++w, ++n)
+                tma_load(ring.acquire(n, SLAB, SLAB), half ? &w1a_m : &w1g_m,
+                         ring.full + 8 * ring.stage(n), ks * 64,
+                         (2 * jp + w) * 64);
+        for (int jp = 0; jp < d / 128; ++jp)
+          for (int ks = 0; ks < d2 / 64; ++ks)
+            for (int w = 0; w < 2; ++w, ++n)
+              tma_load(ring.acquire(n, SLAB, SLAB), &we_m,
+                       ring.full + 8 * ring.stage(n), ks * 64,
+                       (2 * jp + w) * 64);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns the 64-column chunks 2 jp + wg
+  const int wg = warp >> 2;
+  const uint32_t a_s = base + (uint32_t)L.a, p_s = base + (uint32_t)L.p;
+  unsigned char* a_g = gbase + L.a;
+  unsigned char* p_g = gbase + L.p;
+  float* red = reinterpret_cast<float*>(gbase + L.red) + 512 * wg;
+  // the prologue's and ds's column partials use the dpre_c tile's halves,
+  // free until the epilogues of half 0 and half 1 write them
+  float* red_dg = reinterpret_cast<float*>(p_g);
+  float* red_ds = reinterpret_cast<float*>(p_g + (size_t)d * 128);
+  uint32_t pos = 0, ep = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const size_t e0 = (size_t)t * TE;
+    float* bpart = p.bias_part + (size_t)t * 4 * d;
+    tc_prologue<MERGED>(p, e0, a_g, red_dg, bpart + d2);  // dg, db1g
+    for (int half = 0; half < 2; ++half) {
+      if (half == 1)
+        tc_load_ds<MERGED>(p, e0, a_g, red_ds, bpart + d2 + d);  // ds, db1a
+      fence_async_smem();
+      bar_sync(1, 256);  // the A tile is in place
+      for (int jp = 0; jp < d / 128; ++jp) {
+        const int pc0 = half * d + (2 * jp + wg) * 64;
+        DhResidual res;
+        tc_dh_residual<MERGED>(p, e0, pc0, res);
+        float acc[32];
+        tc_chunk(acc, a_s, d / 64, ring, pos, wg);
+        tc_dh_epilogue<MERGED>(p, acc, res, e0, pc0, p_g,
+                               red + 256 * (ep++ & 1), bpart + pc0, wg);
+      }
+      fence_async_smem();
+      bar_sync(1, 256);  // the A tile is read; this half of dpre_c written
+    }
+    for (int jp = 0; jp < d / 128; ++jp) {
+      float acc[32];
+      bf162 deres[16];
+      tc_de_residual(p, e0, (2 * jp + wg) * 64, deres);
+      tc_chunk(acc, p_s, d2 / 64, ring, pos, wg);
+      tc_de_epilogue(p, acc, deres, e0, (2 * jp + wg) * 64);
+    }
+    bar_sync(1, 256);  // the tiles are free for the next edge tile
+  }
+}
+
+// --------------------------------------------------- bf16 pass 2: weights
+// dW tile [128 x 128] of dWe (A = e, B = dpre_c), dW1g (A = h_g, B = dg) or
+// dW1a (A = h_a, B = ds) summed over one edge range; warpgroup wg owns rows
+// 64 wg .. 64 wg + 63. A stage holds A's two 64-column boxes, then B's.
+template <bool MERGED>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    edge_bwd_weights_tc(Args<bf16> p, int per_split,
+                        const __grid_constant__ CUtensorMap e_m,
+                        const __grid_constant__ CUtensorMap h_m,
+                        const __grid_constant__ CUtensorMap dpre_m,
+                        const __grid_constant__ CUtensorMap dg_m,
+                        const __grid_constant__ CUtensorMap ds_m) {
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  constexpr uint32_t STAGE = 4 * SLAB;
   const int d = p.d;
-  const WTile w = weight_tile(blockIdx.x, d);
-  const size_t ebeg = (size_t)blockIdx.y * per_split;
-  const size_t eend = ebeg + per_split < (size_t)p.E ? ebeg + per_split
-                                                     : (size_t)p.E;
+  const uint32_t raw = saddr(smem_tc);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + WT_STAGES * STAGE;
+  const Ring ring{base, bars, bars + 8u * WT_STAGES, WT_STAGES};
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const WTile w = weight_tile(blockIdx.x, d, WT, WT);
+  const int ebeg = blockIdx.y * per_split;
+  const int eend = ebeg + per_split < p.E ? ebeg + per_split : p.E;
+  const int nslab = eend > ebeg ? (eend - ebeg) / TE : 0;
+  if (tid == 0) {
+    for (int s = 0; s < WT_STAGES; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 8);  // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if ((tid & 31) == 0) {
+      const CUtensorMap* am = w.mat == 0 ? &e_m : &h_m;
+      const CUtensorMap* bm = w.mat == 0 ? &dpre_m
+                            : w.mat == 1 ? &dg_m : &ds_m;
+      const int acol = (w.mat == 2 ? d : 0) + w.rt * WT, bcol = w.ct * WT;
+      for (int i = 0; i < nslab; ++i) {
+        const uint32_t st = ring.acquire(i, STAGE, STAGE);
+        const uint32_t fb = ring.full + 8 * ring.stage(i);
+        const int e = ebeg + i * TE;
+        tma_load(st, am, fb, acol, e);
+        tma_load(st + SLAB, am, fb, acol + 64, e);
+        tma_load(st + 2 * SLAB, bm, fb, bcol, e);
+        tma_load(st + 3 * SLAB, bm, fb, bcol + 64, e);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wt = tid & 127, wi = wt >> 5, lane = wt & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nslab; ++i) {
+    const uint32_t st = ring.wait_full(i, STAGE);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 edges each: 2 swizzle atoms
+      wgmma_m64n128<1, 1>(
+          acc, sw128_desc(st + wg * SLAB + kk * 2048, SLAB, 1024),
+          sw128_desc(st + 2 * SLAB + kk * 2048, SLAB, 1024));
+    wg_commit();
+    fence_acc(acc);
+    if (i > 0) {
+      wg_wait<1>();
+      fence_acc(acc);
+      ring.release(i - 1);
+    }
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  if (nslab > 0) ring.release(nslab - 1);
   float* out = p.w_part + (size_t)blockIdx.y * 4 * d * d + w.off +
-               (size_t)w.rt * WR * w.ld_out + w.ct * WC;
-  weight_tile_loop<MERGED>(p, w, ebeg, ebeg < eend ? eend : ebeg, out);
+               (size_t)(w.rt * WT + wg * 64) * w.ld_out + w.ct * WT;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int c = 8 * i + 2 * (lane & 3);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = wi * 16 + (lane >> 2) + 8 * hr;
+      *reinterpret_cast<float2*>(out + (size_t)r * w.ld_out + c) =
+          make_float2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------- pass 3: reduce
@@ -564,7 +1184,8 @@ __global__ void __launch_bounds__(NTHREADS)
     const size_t i = (size_t)b * NTHREADS + tid;
     if (i < n) {
       float s = 0.f;
-      for (int k = 0; k < KSPLIT; ++k) s = __fadd_rn(s, p.w_part[k * n + i]);
+      for (int k = 0; k < p.ksplit; ++k)
+        s = __fadd_rn(s, p.w_part[k * n + i]);
       p.dw[i] = s;
     }
     return;
@@ -623,17 +1244,86 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// ------------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                         12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      ptr = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      ptr = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] matrix read in 64 x 64 boxes, 128-byte
+// swizzled (the layout the wgmma descriptors above describe)
+bool make_map(CUtensorMap* map, const void* ptr, int cols, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int num_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || n <= 0)
+    n = 132;
+  return n;
+}
+
+int n_weight_tiles(int d, int is_bf16) {
+  return is_bf16 ? 4 * d * d / (WT * WT) : (d / WR) * (4 * d / WC);
+}
+
+// edge ranges of the weight pass: the bf16 grid (tiles x KSPLIT) fills the
+// SMs; f32 keeps 4
+int ksplit_of(int E, int d, int is_bf16) {
+  if (!is_bf16) return KSPLIT_F32;
+  int k = num_sms() / n_weight_tiles(d, 1);
+  if (k > E / TE) k = E / TE;
+  return k < 1 ? 1 : k;
+}
+
 // the operands of one call, untyped, as the C entry points receive them
 // (the pointers a pass does not read stay null)
 struct Ptrs {
   const void *e, *we, *w1g, *w1a, *saved, *gate, *meanw, *ds1w, *dm2w,
       *dgate, *dsender, *deres, *sender, *env, *scale, *shift, *daggr, *dst,
       *emask, *dst_rowptr, *src_perm, *src_rowptr;
-  void *de, *dg_buf, *ds_buf, *dpre_buf, *dxi, *dxj, *dw, *dbias, *work;
+  void *de, *dg_buf, *ds_buf, *dpre_buf, *h_buf, *dxi, *dxj, *dw, *dbias,
+      *work;
 };
 
-template <typename T, bool MERGED>
-cudaError_t launch(const Ptrs& q, int E, int N, int d, cudaStream_t stream) {
+template <typename T>
+Args<T> make_args(const Ptrs& q, int E, int N, int d, int te) {
   Args<T> p{};
   p.e = (const T*)q.e;
   p.we = (const T*)q.we;
@@ -661,49 +1351,100 @@ cudaError_t launch(const Ptrs& q, int E, int N, int d, cudaStream_t stream) {
   p.dg_out = (T*)q.dg_buf;
   p.ds_out = (T*)q.ds_buf;
   p.dpre_out = (T*)q.dpre_buf;
+  p.h_out = (T*)q.h_buf;
   p.dxi = (float*)q.dxi;
   p.dxj = (float*)q.dxj;
   p.dw = (float*)q.dw;
   p.dbias = (float*)q.dbias;
   p.bias_part = (float*)q.work;
-  p.w_part = p.bias_part + (size_t)(E / Cfg<T>::TE1) * 4 * d;
+  p.w_part = p.bias_part + (size_t)(E / te) * 4 * d;
   p.E = E;
   p.N = N;
   p.d = d;
+  p.ksplit = ksplit_of(E, d, sizeof(T) == 2);
+  return p;
+}
 
-  const size_t smem = Layout1<T>(d).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_bwd_tile<T, MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = E / Cfg<T>::TE1;
-  edge_bwd_tile<T, MERGED><<<n_tiles, NTHREADS, smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int KE = Cfg<T>::KE;
-  const int per_split = (E / KE + KSPLIT - 1) / KSPLIT * KE;
-  const int n_wtiles = (d / WR) * (4 * d / WC);
-  edge_bwd_weights<T, MERGED>
-      <<<dim3(n_wtiles, KSPLIT), NTHREADS, 0, stream>>>(p, per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
+template <typename T>
+cudaError_t launch_reduce(const Args<T>& p, int n_tiles, cudaStream_t stream) {
+  const int d = p.d;
   const int nw = (4 * d * d + NTHREADS - 1) / NTHREADS;
   const int nb = (4 * d + NTHREADS - 1) / NTHREADS;
-  edge_bwd_reduce<T><<<nw + nb + 2 * N, NTHREADS, 0, stream>>>(p, nw, nb,
-                                                               n_tiles);
+  edge_bwd_reduce<T><<<nw + nb + 2 * p.N, NTHREADS, 0, stream>>>(p, nw, nb,
+                                                                 n_tiles);
   return cudaGetLastError();
+}
+
+template <bool MERGED>
+cudaError_t launch_f32(const Ptrs& q, int E, int N, int d,
+                       cudaStream_t stream) {
+  const Args<float> p = make_args<float>(q, E, N, d, TE1);
+  const size_t smem = Layout1(d).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_bwd_tile_fma<MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = E / TE1;
+  edge_bwd_tile_fma<MERGED><<<n_tiles, NTHREADS, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int per_split = (E / KE + p.ksplit - 1) / p.ksplit * KE;
+  edge_bwd_weights_fma<MERGED>
+      <<<dim3(n_weight_tiles(d, 0), p.ksplit), NTHREADS, 0, stream>>>(
+          p, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(p, n_tiles, stream);
+}
+
+template <bool MERGED>
+cudaError_t launch_bf16(const Ptrs& q, int E, int N, int d,
+                        cudaStream_t stream) {
+  const Args<bf16> p = make_args<bf16>(q, E, N, d, TE);
+  CUtensorMap w1g_m, w1a_m, we_m, e_m, h_m, dpre_m, dg_m, ds_m;
+  if (!make_map(&w1g_m, q.w1g, d, d) || !make_map(&w1a_m, q.w1a, d, d) ||
+      !make_map(&we_m, q.we, 2 * d, d) || !make_map(&e_m, q.e, d, E) ||
+      !make_map(&h_m, q.h_buf, 2 * d, E) ||
+      !make_map(&dpre_m, q.dpre_buf, 2 * d, E) ||
+      !make_map(&dg_m, q.dg_buf, d, E) ||
+      !make_map(&ds_m, MERGED ? q.ds_buf : q.dsender, d, E))
+    return cudaErrorInvalidValue;
+  const TileLayout L(d);
+  if (L.stages < 2 || L.total > (size_t)SMEM_LIMIT)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_bwd_tile_tc<MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = E / TE, nsm = num_sms();
+  edge_bwd_tile_tc<MERGED>
+      <<<n_tiles < nsm ? n_tiles : nsm, TC_THREADS, L.total, stream>>>(
+          p, w1g_m, w1a_m, we_m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(edge_bwd_weights_tc<MERGED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)WEIGHT_SMEM);
+  if (err != cudaSuccess) return err;
+  const int per_split = (E / TE + p.ksplit - 1) / p.ksplit * TE;
+  edge_bwd_weights_tc<MERGED>
+      <<<dim3(n_weight_tiles(d, 1), p.ksplit), TC_THREADS, WEIGHT_SMEM,
+         stream>>>(p, per_split, e_m, h_m, dpre_m, dg_m, ds_m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(p, n_tiles, stream);
 }
 
 }  // namespace
 
-// C entry points (bound with ctypes). d % 128 == 0, d <= 256, E % 64 == 0,
-// E > 0; every T tensor is bf16 (bf16 = 1) or f32 (0); the
+// C entry points (bound with ctypes). d % 128 == 0, d <= 512, E % 64 == 0,
+// E > 0; every T tensor is bf16 (bf16 = 1) or f32 (0), 16-byte aligned; the
 // moments/meanw are f32 [E / 64, d]; index tensors int32; emask bool.
-// dg_buf [E, d] and dpre_buf [E, 2d] (T) and work (edge_phase_bwd_workspace
-// floats) are scratch. dw receives dWe | dW1g | dW1a, dbias db | db1g | db1a.
-// Three launches each; they return cudaGetLastError() after them.
+// dg_buf [E, d] and dpre_buf [E, 2d] (T), h_buf [E, 2d] (bf16 only; null in
+// f32) and work (edge_phase_bwd_workspace floats) are scratch. dw receives
+// dWe | dW1g | dW1a, dbias db | db1g | db1a. Three launches each; they
+// return cudaGetLastError() after them (cudaErrorInvalidValue when a
+// tensor map cannot be made).
 
 // K5: saved is [pre | sig] [E, 4d]
 extern "C" int edge_phase_bwd(
@@ -712,19 +1453,19 @@ extern "C" int edge_phase_bwd(
     const void* dm2w, const void* dgate, const void* dsender,
     const void* deres, const void* emask, const void* dst_rowptr,
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
-    void* dpre_buf, void* dxi, void* dxj, void* dw, void* dbias, void* work,
-    int E, int N, int d, int is_bf16, void* stream) {
+    void* dpre_buf, void* h_buf, void* dxi, void* dxj, void* dw, void* dbias,
+    void* work, int E, int N, int d, int is_bf16, void* stream) {
   Ptrs q{};
   q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = saved;
   q.gate = gate; q.meanw = meanw; q.ds1w = ds1w; q.dm2w = dm2w;
   q.dgate = dgate; q.dsender = dsender; q.deres = deres; q.emask = emask;
   q.dst_rowptr = dst_rowptr; q.src_perm = src_perm;
   q.src_rowptr = src_rowptr; q.de = de; q.dg_buf = dg_buf;
-  q.dpre_buf = dpre_buf; q.dxi = dxi; q.dxj = dxj; q.dw = dw;
-  q.dbias = dbias; q.work = work;
+  q.dpre_buf = dpre_buf; q.h_buf = h_buf; q.dxi = dxi; q.dxj = dxj;
+  q.dw = dw; q.dbias = dbias; q.work = work;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<bf16, false>(q, E, N, d, s)
-                 : launch<float, false>(q, E, N, d, s);
+  return is_bf16 ? launch_bf16<false>(q, E, N, d, s)
+                 : launch_f32<false>(q, E, N, d, s);
 }
 
 // K6: pre is the rounded pre alone [E, 2d]; sender, deout [E, d] and env
@@ -737,8 +1478,8 @@ extern "C" int edge_phase_merged_bwd(
     const void* ds1w, const void* dm2w, const void* deout, const void* daggr,
     const void* dst, const void* emask, const void* dst_rowptr,
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
-    void* ds_buf, void* dpre_buf, void* dxi, void* dxj, void* dw,
-    void* dbias, void* work, int E, int N, int d, int is_bf16,
+    void* ds_buf, void* dpre_buf, void* h_buf, void* dxi, void* dxj,
+    void* dw, void* dbias, void* work, int E, int N, int d, int is_bf16,
     void* stream) {
   Ptrs q{};
   q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = pre;
@@ -747,21 +1488,22 @@ extern "C" int edge_phase_merged_bwd(
   q.deres = deout; q.daggr = daggr; q.dst = dst; q.emask = emask;
   q.dst_rowptr = dst_rowptr; q.src_perm = src_perm;
   q.src_rowptr = src_rowptr; q.de = de; q.dg_buf = dg_buf;
-  q.ds_buf = ds_buf; q.dpre_buf = dpre_buf; q.dxi = dxi; q.dxj = dxj;
-  q.dw = dw; q.dbias = dbias; q.work = work;
+  q.ds_buf = ds_buf; q.dpre_buf = dpre_buf; q.h_buf = h_buf; q.dxi = dxi;
+  q.dxj = dxj; q.dw = dw; q.dbias = dbias; q.work = work;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<bf16, true>(q, E, N, d, s)
-                 : launch<float, true>(q, E, N, d, s);
+  return is_bf16 ? launch_bf16<true>(q, E, N, d, s)
+                 : launch_f32<true>(q, E, N, d, s);
 }
 
 // floats of scratch that edge_phase_bwd needs in ``work``
 extern "C" long long edge_phase_bwd_workspace(int E, int d, int is_bf16) {
-  const int te1 = is_bf16 ? Cfg<bf16>::TE1 : Cfg<float>::TE1;
-  return (long long)(E / te1) * 4 * d + (long long)KSPLIT * 4 * d * d;
+  const int te = is_bf16 ? TE : TE1;
+  return (long long)(E / te) * 4 * d +
+         (long long)ksplit_of(E, d, is_bf16) * 4 * d * d;
 }
 
 // dynamic shared memory (bytes) of the tile pass
 extern "C" long long edge_phase_bwd_smem(int d, int is_bf16) {
-  return is_bf16 ? (long long)Layout1<bf16>(d).total
-                 : (long long)Layout1<float>(d).total;
+  return is_bf16 ? (long long)TileLayout(d).total
+                 : (long long)Layout1(d).total;
 }

@@ -21,13 +21,16 @@
 //
 // Design: one block per tile of TE edges. The block gathers xi[dst] and
 // xj[src] rows directly by index (the TPU's banded one-hot gathers are not
-// needed), keeps the e tile and the whole h = silu(pre) tile in shared
-// memory, so the [E, 2d] pre/h intermediates never reach device memory, and
-// runs both second-layer products from that tile. Weight chunks are staged
-// through shared memory. Every sum runs in a fixed order, so results are
-// bitwise repeatable. The elementwise epilogue uses explicitly rounded
-// adds/multiplies so nothing is contracted into an FMA that the plain
-// PyTorch version does not have.
+// needed) and works one half of pre at a time: the gate half's h = silu(pre)
+// [TE, d] tile in shared memory feeds the gate product, then the aggregate
+// half's tile (in the same place) feeds the sender product, so the [E, 2d]
+// pre/h intermediates never reach device memory and d <= 512 fits in
+// shared memory. The e tile is staged too where it fits (bf16 edges always;
+// f32 edges up to d = 384), else the phase-1 product reads e from device
+// memory. Weight chunks are staged through shared memory. Every sum runs in
+// a fixed order, so results are bitwise repeatable. The elementwise
+// epilogue uses explicitly rounded adds/multiplies so nothing is contracted
+// into an FMA that the plain PyTorch version does not have.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +46,7 @@ using bf16 = __nv_bfloat16;
 constexpr int TE = 64;         // edges per block
 constexpr int NTHREADS = 256;  // 8 warps
 constexpr int CN = 128;        // output columns per chunk
+constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -79,6 +83,7 @@ struct Args {
   float* m2w;
   int d;
   int save_sig;  // saved row: [pre | sig] (1) or pre alone (0)
+  int stage_e;   // f32 edges: the e tile is staged in shared memory
 };
 
 // phase-1 epilogue of one element: pre = xi[dst] + xj[src] + acc + b,
@@ -105,8 +110,10 @@ __device__ __forceinline__ float phase1_element(const Args<TT, ET>& p,
 }
 
 // column-wise masked Welford partials of the TE x CN rounded gate block in
-// g_s (row stride ldg): s1 = sum(m g), M2 = sum((m (g - s1/n))^2)
-__device__ __forceinline__ void window_moments(const float* g_s, int ldg,
+// g_s (row stride ldg; shared or device memory): s1 = sum(m g),
+// M2 = sum((m (g - s1/n))^2)
+template <typename G>
+__device__ __forceinline__ void window_moments(const G* g_s, int ldg,
                                                const float* m_s, float* s1w,
                                                float* m2w, size_t out0) {
   const int tid = threadIdx.x;
@@ -114,12 +121,13 @@ __device__ __forceinline__ void window_moments(const float* g_s, int ldg,
   float n = 0.f, s1 = 0.f;
   for (int r = 0; r < TE; ++r) {
     n = __fadd_rn(n, m_s[r]);
-    s1 = __fadd_rn(s1, __fmul_rn(g_s[r * ldg + tid], m_s[r]));
+    s1 = __fadd_rn(s1, __fmul_rn(to_f(g_s[r * ldg + tid]), m_s[r]));
   }
   const float mean = s1 / fmaxf(n, 1.f);
   float m2 = 0.f;
   for (int r = 0; r < TE; ++r) {
-    const float df = __fmul_rn(__fadd_rn(g_s[r * ldg + tid], -mean), m_s[r]);
+    const float df =
+        __fmul_rn(__fadd_rn(to_f(g_s[r * ldg + tid]), -mean), m_s[r]);
     m2 = __fadd_rn(m2, __fmul_rn(df, df));
   }
   s1w[out0 + tid] = s1;
@@ -180,74 +188,85 @@ __device__ __forceinline__ void gemm_fma(const float* A, int lda,
   }
 }
 
+// shared memory of the FMA kernel (bytes): [e tile,] h half tile, weight
+// chunk, ids and mask
+__host__ __device__ inline size_t fma_smem(int d, bool stage_e) {
+  return sizeof(float) * ((stage_e ? (size_t)TE * (d + 4) : 0) +
+                          (size_t)TE * (d + 4) + KC * CN + 3 * TE);
+}
+
 template <typename TT>
 __global__ void __launch_bounds__(NTHREADS)
     edge_phase_fwd_fma(Args<TT, float> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int d = p.d, d2 = 2 * d, lda = d + 4, ldh = d2 + 4;
-  float* a_s = smem;              // [TE][lda]  e tile, later gate rows
-  float* h_s = a_s + TE * lda;    // [TE][ldh]  h = silu(pre)
-  float* w_s = h_s + TE * ldh;    // [KC][CN]   weight chunk
+  const int d = p.d, d2 = 2 * d, ldh = d + 4;
+  const int te = p.stage_e ? TE * (d + 4) : 0;
+  float* a_s = smem;              // [TE][d + 4]  e tile (if staged)
+  float* h_s = a_s + te;          // [TE][ldh]    h = silu(pre), one half
+  float* w_s = h_s + TE * ldh;    // [KC][CN]     weight chunk
   int* dst_s = reinterpret_cast<int*>(w_s + KC * CN);
   int* src_s = dst_s + TE;
   float* m_s = reinterpret_cast<float*>(src_s + TE);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t e0 = (size_t)blockIdx.x * TE;
+  // the phase-1 A operand: the staged tile or e's rows in device memory
+  const float* A = p.stage_e ? a_s : p.e + e0 * d;
+  const int lda = p.stage_e ? d + 4 : d;
 
   if (tid < TE) {
     dst_s[tid] = p.dst[e0 + tid];
     src_s[tid] = p.src[e0 + tid];
     m_s[tid] = p.emask[e0 + tid] ? 1.f : 0.f;
   }
-  for (int i = tid; i < TE * d; i += NTHREADS) {
-    const int r = i / d, c = i % d;
-    a_s[r * lda + c] = p.e[(e0 + r) * d + c];
-  }
+  if (p.stage_e)
+    for (int i = tid; i < TE * d; i += NTHREADS) {
+      const int r = i / d, c = i % d;
+      a_s[r * lda + c] = p.e[(e0 + r) * d + c];
+    }
   __syncthreads();
 
-  for (int c0 = 0; c0 < d2; c0 += CN) {  // phase 1
-    float acc[TM][TN] = {};
-    gemm_fma(a_s, lda, p.we, d2, d, c0, w_s, acc);
+  for (int half = 0; half < 2; ++half) {
+    for (int c0 = 0; c0 < d; c0 += CN) {  // phase 1, this half of pre
+      float acc[TM][TN] = {};
+      gemm_fma(A, lda, p.we, d2, d, half * d + c0, w_s, acc);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty * TM + i;
+      for (int i = 0; i < TM; ++i) {
+        const int r = ty * TM + i;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = c0 + col_of(tx, j);
-        h_s[r * ldh + c] =
-            phase1_element(p, e0, r, c, dst_s[r], src_s[r], acc[i][j]);
+        for (int j = 0; j < TN; ++j) {
+          const int c = c0 + col_of(tx, j);
+          h_s[r * ldh + c] = phase1_element(p, e0, r, half * d + c, dst_s[r],
+                                            src_s[r], acc[i][j]);
+        }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  for (int half = 0; half < 2; ++half) {  // phase 2
-    const float* w1 = half ? p.w1a : p.w1g;
+    const float* w1 = half ? p.w1a : p.w1g;  // phase 2, this half's product
     const float* b1 = half ? p.b1a : p.b1g;
     TT* out = half ? p.sender : p.gate;
     const bool mom = half == 0 && p.s1w != nullptr;
     for (int c0 = 0; c0 < d; c0 += CN) {
       float acc[TM][TN] = {};
-      gemm_fma(h_s + half * d, ldh, w1, d, d, c0, w_s, acc);
+      gemm_fma(h_s, ldh, w1, d, d, c0, w_s, acc);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const int r = ty * TM + i;
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int cl = col_of(tx, j);
-          const TT o = from_f<TT>(__fadd_rn(acc[i][j], b1[c0 + cl]));
-          out[(e0 + r) * d + c0 + cl] = o;
-          if (mom) a_s[r * CN + cl] = to_f(o);  // e tile no longer needed
+          out[(e0 + r) * d + c0 + cl] =
+              from_f<TT>(__fadd_rn(acc[i][j], b1[c0 + cl]));
         }
       }
-      if (mom) {
+      if (mom) {  // from the rounded gate this block just wrote
         __syncthreads();
-        window_moments(a_s, CN, m_s, p.s1w, p.m2w,
+        window_moments(out + e0 * d + c0, d, m_s, p.s1w, p.m2w,
                        (size_t)blockIdx.x * d + c0);
-        __syncthreads();
       }
     }
+    __syncthreads();  // h_s is rewritten by the next half
   }
 }
 
@@ -309,7 +328,7 @@ struct TcLayout {
   __host__ __device__ explicit TcLayout(int d)
       : e(0),
         h(align128(sizeof(bf16) * TE * (d + PAD16))),
-        w(h + align128(sizeof(bf16) * TE * (2 * d + PAD16))),
+        w(h + align128(sizeof(bf16) * TE * (d + PAD16))),
         c(w + align128(sizeof(bf16) * KW * LDW)),
         ids(c + align128(sizeof(float) * TE * LDC)),
         total(ids + sizeof(int) * 3 * TE) {}
@@ -319,10 +338,10 @@ template <typename TT>
 __global__ void __launch_bounds__(NTHREADS)
     edge_phase_fwd_wmma(Args<TT, bf16> p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int d = p.d, d2 = 2 * d, lda = d + PAD16, ldh = d2 + PAD16;
+  const int d = p.d, d2 = 2 * d, lda = d + PAD16, ldh = d + PAD16;
   const TcLayout L(d);
   bf16* e_s = reinterpret_cast<bf16*>(smem_raw + L.e);   // [TE][lda]
-  bf16* h_s = reinterpret_cast<bf16*>(smem_raw + L.h);   // [TE][ldh]
+  bf16* h_s = reinterpret_cast<bf16*>(smem_raw + L.h);   // [TE][ldh], a half
   bf16* w_s = reinterpret_cast<bf16*>(smem_raw + L.w);   // [KW][LDW]
   float* c_s = reinterpret_cast<float*>(smem_raw + L.c); // [TE][LDC]
   int* dst_s = reinterpret_cast<int*>(smem_raw + L.ids);
@@ -343,24 +362,25 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   __syncthreads();
 
-  for (int c0 = 0; c0 < d2; c0 += CN) {  // phase 1
-    gemm_wmma(e_s, lda, p.we, d2, d, c0, w_s, c_s);
-    for (int i = tid; i < TE * CN; i += NTHREADS) {
-      const int r = i / CN, cl = i % CN;
-      h_s[r * ldh + c0 + cl] = from_f<bf16>(phase1_element(
-          p, e0, r, c0 + cl, dst_s[r], src_s[r], c_s[r * LDC + cl]));
+  for (int half = 0; half < 2; ++half) {
+    for (int c0 = 0; c0 < d; c0 += CN) {  // phase 1, this half of pre
+      gemm_wmma(e_s, lda, p.we, d2, d, half * d + c0, w_s, c_s);
+      for (int i = tid; i < TE * CN; i += NTHREADS) {
+        const int r = i / CN, cl = i % CN;
+        h_s[r * ldh + c0 + cl] = from_f<bf16>(
+            phase1_element(p, e0, r, half * d + c0 + cl, dst_s[r], src_s[r],
+                           c_s[r * LDC + cl]));
+      }
+      // the next gemm_wmma rewrites c_s only after its own barriers
     }
-    // the next gemm_wmma rewrites c_s only after its own barriers
-  }
-  __syncthreads();
+    __syncthreads();
 
-  for (int half = 0; half < 2; ++half) {  // phase 2
-    const bf16* w1 = half ? p.w1a : p.w1g;
+    const bf16* w1 = half ? p.w1a : p.w1g;  // phase 2, this half's product
     const bf16* b1 = half ? p.b1a : p.b1g;
     TT* out = half ? p.sender : p.gate;
     const bool mom = half == 0 && p.s1w != nullptr;
     for (int c0 = 0; c0 < d; c0 += CN) {
-      gemm_wmma(h_s + half * d, ldh, w1, d, d, c0, w_s, c_s);
+      gemm_wmma(h_s, ldh, w1, d, d, c0, w_s, c_s);
       for (int i = tid; i < TE * CN; i += NTHREADS) {
         const int r = i / CN, cl = i % CN;
         const TT o =
@@ -387,9 +407,7 @@ cudaError_t launch(const Args<TT, ET>& p, int E, cudaStream_t stream) {
     smem = TcLayout(d).total;
     kern = edge_phase_fwd_wmma<TT>;
   } else {
-    smem = sizeof(float) *
-           ((size_t)TE * (d + 4) + (size_t)TE * (2 * d + 4) + KC * CN +
-            3 * TE);
+    smem = fma_smem(d, p.stage_e != 0);
     kern = edge_phase_fwd_fma<TT>;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -406,18 +424,20 @@ cudaError_t run(const void* xi, const void* xj, const void* e, const void* we,
                 const void* src, const void* emask, void* gate, void* sender,
                 void* saved, void* s1w, void* m2w, int E, int d,
                 int save_sig, cudaStream_t stream) {
+  const int stage_e = fma_smem(d, true) <= (size_t)SMEM_LIMIT;
   const Args<TT, ET> p{(const TT*)xi,  (const TT*)xj,  (const ET*)e,
                        (const ET*)we,  (const ET*)b,   (const ET*)w1g,
                        (const ET*)b1g, (const ET*)w1a, (const ET*)b1a,
                        (const int*)dst, (const int*)src,
                        (const uint8_t*)emask, (TT*)gate, (TT*)sender,
-                       (TT*)saved, (float*)s1w, (float*)m2w, d, save_sig};
+                       (TT*)saved, (float*)s1w, (float*)m2w, d, save_sig,
+                       stage_e};
   return launch(p, E, stream);
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). E % 64 == 0, d % 128 == 0, d <= 256.
+// C entry point (bound with ctypes). E % 64 == 0, d % 128 == 0, d <= 512.
 // table_bf16 / edge_bf16 select bf16 (1) or f32 (0) node tables / edge
 // activations and weights; save_sig selects the saved residual's layout
 // ([pre | sig] [E, 4d] or pre [E, 2d]). Returns cudaGetLastError() after the

@@ -18,12 +18,14 @@ windows; any tile size merges exactly in the training slice.
 Node tables (xi, xj) come in bf16 or f32; e and the weights share the compute
 dtype. Every edge is computed, pads included (pads point at real rows).
 On a CUDA tensor ``edge_phase_fwd`` launches ``csrc/edge_phase_fwd.cu`` or
-raises; on a CPU tensor it runs ``edge_phase_fwd_plain``.
+raises; on a CPU tensor it runs ``edge_phase_fwd_plain``. The kernels take
+d % 128 == 0 and d <= 512 (``MAX_WIDTH``).
 
 The backward (port of ``edge_phase_bwd_call`` -> ``_bwd_kernel``, driven by
 ``_ep_bwd``) is ``edge_phase_bwd``: on a CUDA tensor it launches
 ``csrc/edge_phase_bwd.cu`` (three launches per call: a tile pass, a
-weight-gradient pass, a fixed-order reduce pass; no atomics) or raises; on a
+weight-gradient pass, a fixed-order reduce pass; no atomics; in bf16 the
+first two run on wgmma fed by TMA) or raises; on a
 CPU tensor it runs ``edge_phase_bwd_plain``. It needs node tables and edges
 in one dtype, as training has them. ``EdgePhase`` is the autograd Function:
 forward K1 with the saved residual and the moments, backward K5.
@@ -127,15 +129,42 @@ def _check(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask):
         raise TypeError("emask must be bool")
 
 
+MAX_WIDTH = 512  # the edge kernels take d % 128 == 0 and d <= MAX_WIDTH
+
+
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
 def _smem_bytes(d: int, edge_bf16: bool) -> int:
-    """Dynamic shared memory of one block (mirrors the CUDA source)."""
+    """Dynamic shared memory of one K1 block (mirrors edge_phase_fwd.cu)."""
     t = TILE_EDGES
-    if edge_bf16:  # WMMA path: bf16 e/h tiles, bf16 weight chunk, f32 acc
-        a128 = lambda n: -(-n // 128) * 128
-        return (a128(2 * t * (d + 8)) + a128(2 * t * (2 * d + 8))
-                + a128(2 * 64 * 136) + a128(4 * t * 132) + 4 * 3 * t)
-    # FMA path: f32 e/h tiles (rows padded by 4), weight chunk, ids/mask
-    return 4 * (t * (d + 4) + t * (2 * d + 4) + 16 * 128 + 3 * t)
+    if edge_bf16:  # WMMA path: bf16 e and half-h tiles, weight chunk, f32 acc
+        return (2 * _a128(2 * t * (d + 8)) + _a128(2 * 64 * 136)
+                + _a128(4 * t * 132) + 4 * 3 * t)
+    # FMA path: the f32 e tile where it fits, the half-h tile, weight
+    # chunk, ids/mask
+    fma = lambda stage_e: 4 * ((t * (d + 4) if stage_e else 0)
+                               + t * (d + 4) + 16 * 128 + 3 * t)
+    return fma(True) if fma(True) <= _SMEM_LIMIT else fma(False)
+
+
+def bwd_smem_plan(d: int, bf16: bool) -> dict:
+    """K5/K6's shared memory per pass (mirrors edge_phase_bwd.cu, whose
+    ``edge_phase_bwd_smem`` gives the tile pass's on the card): bf16,
+    the tile pass's TMA ring (8 KB stages, as many as fit up to 16), dg/ds
+    [64, d] and dpre_c [64, 2d] tiles, 4 KB of sums, barriers and 1 KB of
+    alignment slack, and the weight pass's 4 stages of 32 KB; f32, the FMA
+    passes' tiles."""
+    if bf16:
+        fixed = 1024 + 384 * d + 4096 + 16 * 16
+        stages = min(16, max(0, (_SMEM_LIMIT - fixed) // 8192))
+        return {"tile": 1024 + stages * 8192 + 384 * d + 4096 + 16 * stages,
+                "weights": 1024 + 4 * 4 * 8192 + 16 * 4, "stages": stages}
+    te = 32
+    return {"tile": (_a128(4 * te * (d + 4)) + _a128(4 * te * (2 * d + 4))
+                     + _a128(4 * 16 * 132) + _a128(4 * te * 132) + 4 * te),
+            "weights": 4 * 32 * (68 + 132), "stages": 0}
 
 
 def _lib():
@@ -167,9 +196,11 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
         raise ValueError("edge_phase_fwd needs 16-byte aligned e/weights")
     E, d = e.shape
     edge_bf16 = e.dtype == torch.bfloat16
-    if E % TILE_EDGES or d % 128 or _smem_bytes(d, edge_bf16) > _SMEM_LIMIT:
+    if (E % TILE_EDGES or d % 128 or d > MAX_WIDTH
+            or _smem_bytes(d, edge_bf16) > _SMEM_LIMIT):
         raise ValueError(f"edge_phase_fwd kernel needs E % {TILE_EDGES} == 0"
-                         f" and d % 128 == 0 with d <= 256 (E={E}, d={d})")
+                         f", d % 128 == 0 and d <= {MAX_WIDTH} (E={E}, "
+                         f"d={d})")
     dev, cdt = e.device, xi.dtype
     gate = torch.empty((E, d), dtype=cdt, device=dev)
     sender = torch.empty((E, d), dtype=cdt, device=dev)
@@ -290,10 +321,10 @@ def _lib_bwd():
     lib = _build.load("edge_phase_bwd")
     fn = lib.edge_phase_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.edge_phase_merged_bwd.argtypes = [ctypes.c_void_p] * 29 \
+        lib.edge_phase_merged_bwd.argtypes = [ctypes.c_void_p] * 30 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.edge_phase_merged_bwd.restype = ctypes.c_int
         lib.edge_phase_bwd_workspace.argtypes = [ctypes.c_int] * 3
@@ -304,34 +335,37 @@ def _lib_bwd():
 
 
 def _launch_bwd(entry: str, args, e, N: int):
-    """Launch ``entry`` of csrc/edge_phase_bwd.cu on ``args`` (contiguous,
-    the first six 16-byte aligned) with fresh outputs and scratch -> (de,
+    """Launch ``entry`` of csrc/edge_phase_bwd.cu on ``args`` (contiguous;
+    an operand that is not 16-byte aligned, as the kernel's vector and TMA
+    loads need, is copied first) with fresh outputs and scratch -> (de,
     dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a)."""
     if not all(t.is_contiguous() for t in args):
         raise ValueError(f"{entry} needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in args[:6]):
-        raise ValueError(f"{entry} needs 16-byte aligned e, weights, the "
-                         f"saved residual and gate")
-    lib = _lib_bwd()
     E, d = e.shape
+    if d % 128 or d > MAX_WIDTH or E == 0:
+        raise ValueError(f"{entry} kernel needs d % 128 == 0, d <= "
+                         f"{MAX_WIDTH} and E > 0 (E={E}, d={d})")
+    args = tuple(t.clone() if t.data_ptr() % 16 else t for t in args)
+    lib = _lib_bwd()
     is_bf16 = int(e.dtype == torch.bfloat16)
-    if d % 128 or E == 0 or lib.edge_phase_bwd_smem(d, is_bf16) > _SMEM_LIMIT:
-        raise ValueError(f"{entry} kernel needs d % 128 == 0, d <= 256 and "
-                         f"E > 0 (E={E}, d={d})")
     dev, f32 = e.device, torch.float32
     de = torch.empty_like(e)
     scratch = [torch.empty((E, d), dtype=e.dtype, device=dev)]  # dg
     if entry == "edge_phase_merged_bwd":
         scratch.append(torch.empty((E, d), dtype=e.dtype, device=dev))  # ds
     scratch.append(torch.empty((E, 2 * d), dtype=e.dtype, device=dev))
+    # h_c = round(pre sig), written by the bf16 tile pass for the weight pass
+    h = torch.empty((E, 2 * d), dtype=e.dtype, device=dev) if is_bf16 \
+        else None
     dxi = torch.empty((N, 2 * d), dtype=f32, device=dev)
     dxj = torch.empty((N, 2 * d), dtype=f32, device=dev)
     dw = torch.empty(4 * d * d, dtype=f32, device=dev)
     dbias = torch.empty(4 * d, dtype=f32, device=dev)
     work = torch.empty(lib.edge_phase_bwd_workspace(E, d, is_bf16),
                        dtype=f32, device=dev)
-    outs = (de, *scratch, dxi, dxj, dw, dbias, work)
-    err = getattr(lib, entry)(*(t.data_ptr() for t in tuple(args) + outs),
+    outs = (de, *scratch, h, dxi, dxj, dw, dbias, work)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = getattr(lib, entry)(*(ptr(t) for t in tuple(args) + outs),
                               E, N, d, is_bf16,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)

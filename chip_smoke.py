@@ -7,7 +7,8 @@ Phases, one JSON line each (every line names the card and its power limit):
   1. device   the card (nvidia-smi name and power limit, also printed raw)
   2. build    nvcc builds the eight kernels from csrc/ (seven sources, one
               process per source, all started together; K6 is the second
-              entry point of edge_phase_bwd.cu)
+              entry point of edge_phase_bwd.cu); each kernel's registers,
+              spills and static shared memory from ptxas
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: K1/K2 in every dtype combination the
               CartNet inference forward feeds them, with K1's optional
@@ -47,6 +48,16 @@ Phases, one JSON line each (every line names the card and its power limit):
               bitwise equal, f32 gradients within F32_STEP_TOL, each bf16
               gradient's distance from the f32 gradient through K6 and
               through K4 + K5)
+  6b. widths  the CartNet edge kernels at d = 384 and 512, bf16 and f32: K1
+              (training layout), K2, K4, K5 and K6 against their plain
+              versions with bitwise repeats, K5's and K6's device time per
+              pass; then one CartNet micro-step (4 layers) per width, dtype
+              and backward path (default: K1, K2, K4, K5 4 each; merged:
+              K1, K2, K6 4 each) through the kernels against the plain
+              versions, with its launch counts
+  6c. cli_scalar  the CLI's --dataset synthetic without --cholesky: the
+              scalar head on scalar targets (the JAX CLI's rule), trained
+              through the kernels
   7. ecomformer  the eComformer inference sweep on the same 2 batches (dim
               256, 3 convs + the equivariant block, Cholesky head, bf16,
               random weights from seed 0): K1 3, K2 3, K3 2, K7 2 launches
@@ -65,7 +76,8 @@ Phases, one JSON line each (every line names the card and its power limit):
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
               work, K3's index_add_ time and the [E, d] x [d, 5120] GEMM
-              beside K7, cuBLAS's three products beside K8, one CartNet
+              beside K7, cuBLAS's three products beside K8, K5's and K6's
+              device time per pass (tile, weights, reduce), one CartNet
               layer's whole backward through the default path and through
               the merged one, the forward times per batch (CartNet,
               eComformer) and the train micro-step times (CartNet default and
@@ -85,6 +97,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -122,6 +135,11 @@ ECO_FWD = dict(edge_phase_fwd=3, sigma_segsum_fwd=3, segment_sum_csr=2,
                tp_contract_fwd=2)
 ECO_MICRO = dict(ECO_FWD, segment_sum_csr=7, sigma_segsum_bwd=3,
                  edge_phase_bwd=3, tp_contract_bwd=2)
+# widths beyond the flagship's 256 that the CartNet edge kernels take
+WIDTHS = (384, 512)
+# K5/K6's passes, by the CUDA kernel's name
+BWD_PASSES = (("tile", "edge_bwd_tile"), ("weights", "edge_bwd_weights"),
+              ("reduce", "edge_bwd_reduce"))
 
 
 def emit(**obj):
@@ -180,6 +198,77 @@ def device_ms(fn, calls: int = 10) -> float:
     return sum(ev.device_time for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA) \
         / 1e3 / calls
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable kernel name from ptxas's mangled one: the innermost name
+    of the nested name and its template arguments."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, parts = 3, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    rest = mangled[i:]
+    args = rest[1:rest.index("E")] if rest.startswith("I") else ""
+    for raw, nice in (("Lb0", "false"), ("Lb1", "true"),
+                      ("13__nv_bfloat16", "bf16"), ("f", "float")):
+        if args == raw:
+            args = nice
+    return parts[-1] + (f"<{args}>" if args else "")
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, spills and static shared memory of each kernel of a
+    source, from ``nvcc -Xptxas -v`` (dynamic shared memory is set at
+    launch)."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1))}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = (int(m.group(1)),
+                                                       int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return rows
+
+
+def pass_device_ms(fn, calls: int = 10) -> dict:
+    """Device time per call of each of K5/K6's three passes (profiler),
+    and the CUDA kernels per call: {tile, weights, reduce, other,
+    kernels_per_call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([k for k, _ in BWD_PASSES] + ["other"], 0.0)
+    n = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((k for k, sub in BWD_PASSES if sub in ev.name), "other")
+        out[key] += ev.device_time / 1e3 / calls
+        n += key != "other"
+    out["kernels_per_call"] = n / calls
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -607,8 +696,8 @@ def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
     errs.update({n: normalized_err(a, b)[1]
                  for n, a, b in zip(bnames, k_bn, p_bn)})
     g_err = grad_errors(pnames, k_grads, p_grads)
-    line = dict(model=cfg.model.name, merged=os.environ.get(
-                    "CARTNET_MERGED") == "1",
+    line = dict(model=cfg.model.name, dim_in=cfg.model.dim_in,
+                merged=os.environ.get("CARTNET_MERGED") == "1",
                 compute_dtype=str(cfg.model.compute_dtype), tol=tol,
                 loss=float(k_loss), loss_plain=float(p_loss),
                 loss_rel_err=errs["loss"],
@@ -742,9 +831,7 @@ def main() -> int:
     ptxas = {}
     for src in SOURCES:
         log = (_build.BUILD_DIR / f"{src}.log")
-        ptxas[src] = [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln] \
-            if log.exists() else []
+        ptxas[src] = ptxas_report(log.read_text()) if log.exists() else []
     emit(phase="build", card=card, seconds=round(build_s, 3), ptxas=ptxas)
 
     # main-path data: 8 ADP-scale crystals, RCM, 2 batches of 4
@@ -1033,9 +1120,9 @@ def main() -> int:
     # 2 train micro-steps, 1 val and 1 test batch)
     launch_counts(reset=True)
     t0 = time.perf_counter()
-    cstate, ctest = cli.main(["--dataset", "synthetic", "--limit", "8",
-                              "--epochs", "1", "--batch_accumulation", "2",
-                              "--bf16"])
+    cstate, ctest = cli.main(["--dataset", "synthetic", "--cholesky",
+                              "--limit", "8", "--epochs", "1",
+                              "--batch_accumulation", "2", "--bf16"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches_cli = launch_counts()
@@ -1104,9 +1191,9 @@ def main() -> int:
     with merged_path():
         launch_counts(reset=True)
         t0 = time.perf_counter()
-        mcstate, mctest = cli.main(["--dataset", "synthetic", "--limit", "8",
-                                    "--epochs", "1", "--batch_accumulation",
-                                    "2", "--bf16"])
+        mcstate, mctest = cli.main(["--dataset", "synthetic", "--cholesky",
+                                    "--limit", "8", "--epochs", "1",
+                                    "--batch_accumulation", "2", "--bf16"])
         torch.cuda.synchronize()
         mcli_s = time.perf_counter() - t0
         launches_mcli = launch_counts()
@@ -1131,6 +1218,110 @@ def main() -> int:
                                                       device=dev, seed=0),
                        dev_batches[0], F32_STEP_TOL)
     merged_vs_default(card, tcfg, tmodel, dev_batches[0])
+
+    # 6b. widths: the CartNet edge kernels beyond d = 256 (K1 in its
+    # training layout, K2, K4, K5, K6 against their plain versions with
+    # bitwise repeats; K5/K6's passes timed), then one CartNet micro-step
+    # per width, dtype and backward path through the kernels against the
+    # plain versions, with its launch counts
+    sums = ("dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a", "db1a",
+            "dscale", "dshift")
+    for wd in WIDTHS:
+        for wdt, wname in ((bf, "bf16"), (f32, "f32")):
+            case = f"d{wd}_{wname}"
+            tol_of = (lambda o: CHECK_TOL["bf16"]) if wdt == bf else (
+                lambda o: CHECK_TOL["sum" if o in sums else "f32"])
+            elem_tol = lambda _, t=CHECK_TOL["bf16" if wdt == bf
+                                             else "f32"]: t
+            kargs = edge_inputs(b0, wdt, wdt, wd, gen, dev)
+            kw = dict(saved=True, moments=True)
+            got, again = (ek.edge_phase_fwd(*kargs, *idx, **kw)
+                          for _ in range(2))
+            want = ek.edge_phase_fwd_plain(*kargs, *idx, **kw)
+            torch.cuda.synchronize()
+            check_outputs(card, "edge_phase_fwd", case,
+                          ("gate", "sender", "saved", "s1_w", "M2_w"), got,
+                          again, want, elem_tol)
+            sargs = sigma_inputs(b0, wdt, wdt, wd, gen, dev)
+            got, again = (sk.sigma_segsum(*sargs, b0.edge_dst, b0.edge_mask,
+                                          b0.dst_rowptr, N)
+                          for _ in range(2))
+            want = sk.sigma_segsum_plain(*sargs, b0.edge_dst, b0.edge_mask,
+                                         N)
+            torch.cuda.synchronize()
+            check_outputs(card, "sigma_segsum_fwd", case, ("e_out", "aggr"),
+                          got, again, want, elem_tol)
+            eargs, s4args = backward_inputs(b0, wdt, wd, gen, dev)
+            margs, _ = merged_inputs(b0, wdt, wd, gen, dev)
+            passes = {}
+            for kname, fn, plain, names, a in (
+                    ("sigma_segsum_bwd", sk.sigma_segsum_bwd,
+                     sk.sigma_segsum_bwd_plain, SIGMA_BWD_OUT, s4args),
+                    ("edge_phase_bwd", ek.edge_phase_bwd, edge_bwd_plain,
+                     EDGE_BWD_OUT, eargs),
+                    ("edge_phase_merged_bwd", ek.merged_bwd,
+                     merged_bwd_plain, EDGE_BWD_OUT, margs)):
+                got, again, want = fn(*a), fn(*a), plain(*a)
+                torch.cuda.synchronize()
+                check_outputs(card, kname, case, names, got, again, want,
+                              tol_of)
+                if kname != "sigma_segsum_bwd":
+                    passes[kname] = pass_device_ms(lambda f=fn, a=a: f(*a))
+            # the CPU tests' mirror of the tile pass's shared-memory plan
+            smem = ek._lib_bwd().edge_phase_bwd_smem(wd, int(wdt == bf))
+            plan = ek.bwd_smem_plan(wd, wdt == bf)
+            emit(phase="widths_time", card=card, case=case, d=wd,
+                 passes_device_ms=passes, tile_smem=smem, smem_plan=plan)
+            if smem != plan["tile"]:
+                fail(f"{case}: the tile pass takes {smem} bytes of shared "
+                     f"memory, bwd_smem_plan says {plan['tile']}")
+            del eargs, s4args, margs
+            wcfg = Config(model=ModelConfig(dim_in=wd, dim_rbf=64,
+                                            num_layers=4, cholesky=True,
+                                            use_temperature=True,
+                                            use_atom_types=True,
+                                            compute_dtype=wdt),
+                          optim=OptimConfig(max_epoch=1,
+                                            batch_accumulation=TRAIN_ACCUM))
+            wmodel = model_mod.CartNet(wcfg.model, device=dev, seed=0)
+            for merged in (False, True):
+                with merged_path(merged):
+                    launch_counts(reset=True)
+                    train_vs_plain(card, wcfg, wmodel, dev_batches[0],
+                                   PRED_TOL if wdt == bf else F32_STEP_TOL)
+                    wl = launch_counts()
+                want_l = dict.fromkeys(KERNELS, 0)
+                want_l.update(MERGED_MICRO if merged
+                              else dict.fromkeys(CARTNET_KERNELS, 4))
+                emit(phase="widths_train", card=card, case=case, d=wd,
+                     merged=merged, launches=wl, expected_launches=want_l)
+                if wl != want_l:
+                    fail(f"widths {case} merged={merged}: launches {wl}, "
+                         f"expected {want_l}")
+            del wmodel
+
+    # 6c. the CLI's default head: --dataset synthetic without --cholesky
+    # trains the scalar head on scalar targets (the JAX CLI's rule), through
+    # the kernels
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    sstate, stest = cli.main(["--dataset", "synthetic", "--limit", "8",
+                              "--epochs", "1", "--batch_accumulation", "2",
+                              "--bf16"])
+    torch.cuda.synchronize()
+    scli_s = time.perf_counter() - t0
+    launches_scli = launch_counts()
+    head = type(sstate.model.head).__name__
+    emit(phase="cli_scalar", card=card, head=head,
+         cholesky=sstate.model.cfg.cholesky, launches=launches_scli,
+         expected_launches=expect_cli, optimizer_steps=sstate.step,
+         bad_steps=int(sstate.bad_steps), test=stest,
+         seconds=round(scli_s, 3))
+    if (launches_scli != expect_cli or head != "ScalarHead"
+            or sstate.step != 1 or int(sstate.bad_steps)
+            or not all(math.isfinite(v) for v in stest.values())):
+        fail(f"scalar-head CLI run: head {head}, launches {launches_scli}, "
+             f"{sstate.step} optimizer steps, test stats {stest}")
 
     # 7. eComformer serving: the inference sweep through K1, K2, K3, K7
     ecfg = ModelConfig(name="ecomformer", dim_in=d, cholesky=True,
@@ -1183,8 +1374,9 @@ def main() -> int:
     # (2 crystals, 1 batch)
     launch_counts(reset=True)
     t0 = time.perf_counter()
-    cout = cli.main(["--dataset", "synthetic", "--limit", "8", "--inference",
-                     "--model", "eComformer", "--bf16", "--inference_output",
+    cout = cli.main(["--dataset", "synthetic", "--cholesky", "--limit", "8",
+                     "--inference", "--model", "eComformer", "--bf16",
+                     "--inference_output",
                      str(_build.BUILD_DIR / "chip_smoke_cli_ecomformer.pkl")])
     torch.cuda.synchronize()
     ecli_s = time.perf_counter() - t0
@@ -1245,9 +1437,10 @@ def main() -> int:
     # CLI (2 train micro-steps, 1 val and 1 test forward)
     launch_counts(reset=True)
     t0 = time.perf_counter()
-    ecstate, ectest = cli.main(["--dataset", "synthetic", "--limit", "8",
-                                "--epochs", "1", "--batch_accumulation", "2",
-                                "--model", "eComformer", "--bf16"])
+    ecstate, ectest = cli.main(["--dataset", "synthetic", "--cholesky",
+                                "--limit", "8", "--epochs", "1",
+                                "--batch_accumulation", "2", "--model",
+                                "eComformer", "--bf16"])
     torch.cuda.synchronize()
     ecli_train_s = time.perf_counter() - t0
     launches_ecli_train = launch_counts()
@@ -1332,6 +1525,8 @@ def main() -> int:
         time_row("edge_phase_bwd", case,
                  lambda a=eargs: ek.edge_phase_bwd(*a),
                  lambda a=eargs: edge_bwd_plain(*a), t_bound, by, calls)
+        rows_t["edge_phase_bwd"][case]["passes_device_ms"] = pass_device_ms(
+            lambda a=eargs: ek.edge_phase_bwd(*a))
         sargs = timing_inputs[("sigma_bwd", case)]
         t_bound, by = sigma_bwd_cost(sargs, sk.sigma_segsum_bwd(*sargs), E, d)
         time_row("sigma_segsum_bwd", case,
@@ -1345,6 +1540,11 @@ def main() -> int:
         time_row("edge_phase_merged_bwd", case,
                  lambda a=margs: ek.merged_bwd(*a),
                  lambda a=margs: merged_bwd_plain(*a), t_bound, by, calls)
+        rows_t["edge_phase_merged_bwd"][case]["passes_device_ms"] = \
+            pass_device_ms(lambda a=margs: ek.merged_bwd(*a))
+        emit(phase="time_passes", card=card, case=case, passes_device_ms={
+            k: rows_t[k][case]["passes_device_ms"]
+            for k in ("edge_phase_bwd", "edge_phase_merged_bwd")})
     # one CartNet layer's whole backward (autograd through the layer's
     # Functions, bf16, random cotangents zero on pad rows): default (K4, the
     # window-moment merge's backward, K5) beside merged (phase A', the
@@ -1532,7 +1732,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": r["device_ms"],
-            "plain_device_ms": r["plain_device_ms"]})
+            "plain_device_ms": r["plain_device_ms"],
+            "passes_device_ms": r.get("passes_device_ms")})
     for kname, src, replaces, case in (
             ("segment_sum_csr", "cartnet_tpu_torch/csrc/segment_sum_csr.cu",
              "cartnet_tpu/ops/pallas/segment_kernels.py:38", "f32_128"),

@@ -276,7 +276,7 @@ def test_cli_sweep_matches_jax_runner(tmp_path):
     torch.save(ecomformer_params_from_jax(
         params, state, ModelConfig(name="ecomformer", dim_in=D)), ckpt)
     out_t, out_j = tmp_path / "port.pkl", tmp_path / "jax.pkl"
-    cli.main(["--device", "cpu", "--dataset", "synthetic", "--limit", "8",
+    cli.main(["--device", "cpu", "--dataset", "synthetic", "--cholesky", "--limit", "8",
               "--inference", "--model", "eComformer", "--inference_output",
               str(out_t), "--checkpoint_path", str(ckpt), "--dim_in",
               str(D)])

@@ -312,7 +312,7 @@ def test_gather_pad_cotangents_are_zero(batches, monkeypatch, case):
 def test_cli_trains_ecomformer_on_cpu(tmp_path, monkeypatch, caplog):
     monkeypatch.chdir(tmp_path)
     caplog.set_level("INFO")
-    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic",
+    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic", "--cholesky",
                             "--limit", "8", "--epochs", "1",
                             "--batch_accumulation", "2", "--model",
                             "eComformer", "--dim_in", str(D)])

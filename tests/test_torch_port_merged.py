@@ -405,7 +405,7 @@ def test_cli_trains_merged_on_cpu(tmp_path, monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(ek, "merged_bwd", spy)
-    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic",
+    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic", "--cholesky",
                             "--limit", "8", "--epochs", "1",
                             "--batch_accumulation", "2", "--dim_in", "128",
                             "--num_layers", "2"])

@@ -188,7 +188,7 @@ def test_cli_sweep_matches_jax_runner(tmp_path):
                                 export_state_dict(params, state,
                                                   jcfg.model).items()}}, ckpt)
     out_t, out_j = tmp_path / "port.pkl", tmp_path / "jax.pkl"
-    cli.main(["--device", "cpu", "--dataset", "synthetic", "--limit", "8",
+    cli.main(["--device", "cpu", "--dataset", "synthetic", "--cholesky", "--limit", "8",
               "--inference", "--inference_output", str(out_t),
               "--checkpoint_path", str(ckpt), "--dim_in", str(D),
               "--dim_rbf", str(RBF), "--num_layers", str(L)])

@@ -361,7 +361,7 @@ def test_accumulation_with_epoch_end_flush_matches_jax(batches):
 def test_cli_trains_on_cpu(tmp_path, monkeypatch, caplog):
     monkeypatch.chdir(tmp_path)
     caplog.set_level("INFO")
-    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic",
+    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic", "--cholesky",
                             "--limit", "8", "--epochs", "1",
                             "--batch_accumulation", "2", "--dim_in", "32",
                             "--dim_rbf", "16", "--num_layers", "2"])
