@@ -49,7 +49,8 @@
 // (dg, dpre_c, h_c: ~54 MB at those shapes).
 //
 // Three launches per call, no atomics, every sum in a fixed order, so the
-// results are bitwise repeatable; d % 128 == 0 and d <= 512.
+// results are bitwise repeatable; d % 128 == 0 and d <= 512 (the wrappers
+// zero-pad other widths).
 //
 // bf16 (training) design, wgmma + TMA:
 //   1. tile pass, a persistent grid (one block per SM) walking the 64-edge
@@ -95,12 +96,15 @@
 // Elementwise steps use explicitly rounded operations so nvcc contracts
 // nothing into an FMA that the plain PyTorch version does not have.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+// TMA, mbarriers, wgmma descriptors and products, the TMA ring, the tensor
+// maps (shared with K1 and K8)
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -467,7 +471,6 @@ __global__ void __launch_bounds__(NTHREADS)
 
 constexpr int TC_THREADS = 288;  // two consumer warpgroups + a producer warp
 constexpr int TE = 64;           // edges per tile (one wgmma M; = MOM)
-constexpr int SLAB = 8192;       // a 64 x 64 bf16 tile, 128-byte swizzled
 constexpr int TC_MAX_STAGES = 16;
 constexpr int RED_BYTES = 4096;  // epilogue sums: [2 wg][2 buffers][4][64]
 constexpr int WT_STAGES = 4;     // weight-pass ring, 4 slabs per stage
@@ -494,199 +497,6 @@ struct TileLayout {
 constexpr size_t WEIGHT_SMEM = 1024 + (size_t)WT_STAGES * 4 * SLAB +
                                16 * WT_STAGES;
 
-__device__ __forceinline__ uint32_t saddr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// 2-D TMA load of one box at (x = column, y = row) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
-      : "memory");
-}
-// wgmma shared-memory descriptor, 128-byte swizzle (atoms 1024-aligned)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// generic-proxy shared stores -> visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// D[64 x 64] += A (K-major) B (K-major or, with TB, MN-major): 32 f32 a thread
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// D[64 x 128] += A B: 64 f32 a thread
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// a ring of TMA stages: full[s] completes when stage s has landed, empty[s]
-// when its consumers have read it. Position n uses stage n % stages for
-// the (n / stages)-th time.
-struct Ring {
-  uint32_t base, full, empty;
-  int stages;
-  __device__ __forceinline__ int stage(uint32_t n) const {
-    return (int)(n % (uint32_t)stages);
-  }
-  __device__ __forceinline__ uint32_t use(uint32_t n) const {
-    return n / (uint32_t)stages;
-  }
-  // producer: wait for the stage to be free, then announce `bytes`
-  __device__ __forceinline__ uint32_t acquire(uint32_t n, uint32_t bytes,
-                                              uint32_t stage_bytes) const {
-    const int s = stage(n);
-    const uint32_t k = use(n);
-    if (k > 0) mbar_wait(empty + 8 * s, (k - 1) & 1);
-    mbar_expect_tx(full + 8 * s, bytes);
-    return base + (uint32_t)s * stage_bytes;
-  }
-  __device__ __forceinline__ uint32_t wait_full(uint32_t n,
-                                                uint32_t stage_bytes) const {
-    const int s = stage(n);
-    mbar_wait(full + 8 * s, use(n) & 1);
-    return base + (uint32_t)s * stage_bytes;
-  }
-  __device__ __forceinline__ void release(uint32_t n) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * stage(n));
-  }
-};
-
-// acc = A[64, 64 kslabs] (K-major slabs at a_s) x B^T, B's 64 x 64 K-major
-// slabs arriving through the ring at positions 2 pos + wg. One warpgroup;
-// keeps one group of products in flight and frees each stage once read.
-__device__ __forceinline__ void tc_chunk(float (&acc)[32], uint32_t a_s,
-                                         int kslabs, const Ring& ring,
-                                         uint32_t& pos, int wg) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  uint32_t prev = 0;
-  for (int ks = 0; ks < kslabs; ++ks) {
-    const uint32_t n = 2 * pos + wg;
-    const uint32_t b_s = ring.wait_full(n, SLAB);
-    fence_acc(acc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n64<0, 0>(acc,
-                         sw128_desc(a_s + ks * SLAB + kk * 32, 16, 1024),
-                         sw128_desc(b_s + kk * 32, 16, 1024));
-    wg_commit();
-    fence_acc(acc);
-    if (ks > 0) {
-      wg_wait<1>();
-      fence_acc(acc);
-      ring.release(prev);
-    }
-    prev = n;
-    ++pos;
-  }
-  wg_wait<0>();
-  fence_acc(acc);
-  ring.release(prev);
-}
-
-// byte offset of (row r, column c) inside a run of 64-column swizzled slabs
-__device__ __forceinline__ uint32_t sw_off(int r, int c) {
-  return (uint32_t)((c >> 6) * SLAB + r * 128 +
-                    ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
-}
 
 __device__ __forceinline__ void load8(const bf16* src, float (&v)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(src);
@@ -1245,59 +1055,6 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ------------------------------------------------------------------- host
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      ptr = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &q) != cudaSuccess)
-      ptr = nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a row-major bf16 [rows, cols] matrix read in 64 x 64 boxes, 128-byte
-// swizzled (the layout the wgmma descriptors above describe)
-bool make_map(CUtensorMap* map, const void* ptr, int cols, int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int num_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || n <= 0)
-    n = 132;
-  return n;
-}
 
 int n_weight_tiles(int d, int is_bf16) {
   return is_bf16 ? 4 * d * d / (WT * WT) : (d / WR) * (4 * d / WC);

@@ -67,15 +67,15 @@ __global__ void __launch_bounds__(NTHREADS)
                     float* __restrict__ part, int E, int d) {
   __shared__ float red_s[2][NWARPS][32 * MAXQ];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nq = d / 32;
+  const int nq = (d + 31) / 32;  // lanes past d in the last word own nothing
   float acc_sc[MAXQ], acc_sh[MAXQ], sc[MAXQ], sh[MAXQ];
 #pragma unroll
   for (int q = 0; q < MAXQ; ++q) {
     const int f = lane + 32 * q;
     acc_sc[q] = 0.f;
     acc_sh[q] = 0.f;
-    sc[q] = q < nq ? scale[f] : 0.f;
-    sh[q] = q < nq ? shift[f] : 0.f;
+    sc[q] = f < d ? scale[f] : 0.f;
+    sh[q] = f < d ? shift[f] : 0.f;
   }
   const int e0 = blockIdx.x * TE;
   for (int r = warp; r < TE; r += NWARPS) {
@@ -89,6 +89,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int q = 0; q < MAXQ; ++q) {
       if (q >= nq) break;
+      if (lane + 32 * q >= d) continue;
       const size_t o = row + lane + 32 * q;
       const float g = to_f(gate[o]);
       const float a = __fadd_rn(__fmul_rn(g, sc[q]), sh[q]);
@@ -114,6 +115,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
   for (int q = 0; q < MAXQ; ++q) {
     if (q >= nq) break;
+    if (lane + 32 * q >= d) continue;
     red_s[0][warp][lane + 32 * q] = acc_sc[q];
     red_s[1][warp][lane + 32 * q] = acc_sh[q];
   }
@@ -161,7 +163,7 @@ cudaError_t launch(const void* gate, const void* scale, const void* shift,
 
 }  // namespace
 
-// C entry point (bound with ctypes). d % 32 == 0 and d <= 512; E > 0.
+// C entry point (bound with ctypes). 0 < d <= 512 (any width); E > 0.
 // gate_bf16 / e_bf16 select bf16 (1) or f32 (0) for gate, env, sender,
 // daggr and their cotangents / for deout. dscale_shift [2d] f32 receives
 // dscale then dshift; part is scratch of ceil(E / 32) * 2d floats. Two

@@ -18,33 +18,70 @@
 //
 // What bounds it: three E x d x 5120 products (the w_all recompute, dh and
 // dwt), 165 GFLOP at E = 20992, d = 256, against ~30 MB of inputs and
-// outputs: the tensor cores (bf16) or the f32 FMA rate.
+// outputs: the tensor cores (bf16: 0.168 ms at the 989 TFLOP/s of an NVIDIA
+// H100 SXM at its 700 W limit) or the f32 FMA rate. Nothing of size
+// [E, 5120] or [E, U, V] reaches device memory (dwall alone would be 215 MB
+// in bf16 at those shapes, 0.13 ms at that card's 3.35 TB/s), no float
+// atomics, every sum in a fixed order: the results
+// repeat bitwise. d % 128 == 0 and d <= 512 (the wrapper zero-pads other
+// widths: padded columns of h and wt are zero, so w_all, da and the real
+// columns of dh and dwt are unchanged).
 //
-// Design: two launches, no float atomics, fixed summation orders (bitwise
-// repeatable); nothing of size [E, 5120] or [E, U, V] reaches device memory.
-// (a) Edge-tile pass (dh, da): one block per 64 edges, 8 warps; h's tile
-//     stays in shared memory and wt streams through in chunks of 64 rows
-//     (double-buffered cp.async). Per chunk, mma.sync m16n8k16 recomputes
-//     the chunk of w_all (warp: 16 edges x 32 columns) and each thread
-//     contracts its fragment with dc in registers; the sums over v finish
-//     with quad shuffles and a fixed-order merge of the two column halves
-//     into an f32 da table in shared memory. dwall's chunk needs no weights
-//     (it is dc (x) a): each thread builds its A fragments from the staged a
-//     and dc rows, and a second mma.sync with the same wt chunk (ldmatrix
-//     .trans) accumulates dh (warp: 16 edges x d/2 columns) in registers.
-// (b) Output-tiled weight pass (dwt, db): one block per (64-row chunk of
-//     dwt, 128 columns of d); it walks the edges in ascending 64-edge tiles,
-//     builds its dwall columns from a and dc into shared memory, and
-//     accumulates dwt^T = dwall^T h with mma.sync (both operands through
-//     ldmatrix .trans); db is a serial column sum of the same tiles.
-// f32: the same two passes on the CUDA cores (FMA), with 32-edge tiles in
-// pass (a) and 32-edge steps in pass (b).
+// bf16 design, wgmma + TMA, three launches:
+//  (a) tile pass, dh and da: a persistent grid (one block per SM) walking
+//      64-edge tiles in a static order (tile = blockIdx.x + k gridDim.x).
+//      Block = two consumer warpgroups + one producer warp. The producer
+//      loads the h tile [64, d] by TMA (d/64 128-byte swizzled slabs, once
+//      per tile) and streams wt through a ring of 64 x 64 slabs (TMA,
+//      mbarrier completion): chunk ch is the d/64 slabs of wt rows
+//      [64 ch, 64 ch + 64), the same for every tile (L2-resident). Each
+//      chunk's slabs serve both products: the w_all recompute reads them
+//      K-major, dh += dwall_ch @ wt_ch reads them MN-major, so wt is loaded
+//      once for both. The two warpgroups split each product by columns:
+//      * d <= 256 (tp_bwd_tile_split): warpgroup wg runs w_all_ch's 32
+//        columns from 32 wg (wgmma m64n32k16, A = the h tile) and dh's d/2
+//        columns from wg d/2 (wgmma m64n64k16 with A from registers: the
+//        A fragments of dwall_ch = round(dc (x) a) are computed in
+//        registers from the tile's a and dc rows, staged in shared memory,
+//        so no dwall tile passes through shared memory). The next chunk's
+//        w_all product is started before the current chunk's epilogue, and
+//        the current chunk's slabs go back to the producer before it, so
+//        the epilogue (w = round(acc + b), round(w dc), fixed-order sums
+//        over v, quad shuffles) runs while the next product is in flight;
+//        each warpgroup sums its half of every row into its own f32 da
+//        table, and the two are added in a fixed order at the tile's end.
+//        The ring holds two chunks at once.
+//      * d = 384, 512 (tp_bwd_tile_tc): dh's [64, d] f32 accumulator
+//        takes d/4 registers a thread per half, which leaves no room for a
+//        second chunk in flight; each chunk's w_all product runs on one
+//        owner warpgroup (wgmma m64n64k16), both warpgroups build dwall_ch
+//        into a swizzled shared tile (fence.proxy.async) and accumulate
+//        their d/2 columns of dh from it; the owner's epilogue runs while
+//        the dh products do. A chunk's owner is fixed so that the three L1
+//        path terms of one a column land in one thread, in path order.
+//  (b) weight pass, dwt and db: output tiles of 128 rows (two chunks, one
+//      per warpgroup) x 128 columns of dwt, E split over KSPLIT ranges so
+//      that tiles x KSPLIT fills the SMs. A = dwall^T (MN-major) is built in
+//      shared memory from a and dc (double-buffered, the next step's a/dc
+//      loads in flight during the product); B = h (MN-major) arrives by TMA
+//      in a 4-stage ring; wgmma m64n128k16. The blocks of the first column
+//      tile also sum their dwall columns (db) in a fixed order. (256-row
+//      tiles, each h box feeding four chunks, measured slower: 0.30 against
+//      0.18 ms device at d = 256 on an NVIDIA H100 80GB HBM3 at 700 W.)
+//  (c) reduce: the KSPLIT partials of dwt and db in split order.
+//
+// f32 design: the same two passes on the CUDA cores (FMA), with 32-edge
+// tiles in pass (a) (the h tile read from device memory where it does not
+// fit beside the wt chunk, d = 512) and 32-edge steps in pass (b); two
+// launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -56,10 +93,10 @@ constexpr int CW = 64;              // wt rows (w_all columns) per chunk
 constexpr int NCHUNK = NUMEL / CW;  // 80
 constexpr int CH_P1 = 4096 / CW;    // first chunk of path 1 (64)
 constexpr int CH_P2 = 4608 / CW;    // first chunk of path 2 (72)
-constexpr int NTHREADS = 256;       // 8 warps, every kernel
-constexpr int TE = 64;              // bf16: edges per tile (both passes)
+constexpr int NTHREADS = 256;       // f32 passes and the reduce: 8 warps
 constexpr int TEF = 32;             // f32: edges per tile (both passes)
-constexpr int KB = 128;             // pass (b): d columns per block
+constexpr int KB = 128;             // f32 pass (b): d columns per block
+constexpr long long SMEM_LIMIT = 232448;  // bytes a block may use
 
 // a table: L1 a [64]; L2 a0 | a1 | a2 [80]. dc table: L1 dc0 | dc1 | dc2
 // [80]; L2 dc [64].
@@ -98,48 +135,61 @@ __device__ __forceinline__ T dc_at(const T* dc0, const T* dc1, const T* dc2,
   return col < 72 ? dc1[e * 8 + col - 64] : dc2[e * 8 + col - 72];
 }
 
-// -------------------------------------------------- bf16: tensor cores
+// ============================================ bf16: wgmma + TMA (3 passes)
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* s, const void* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(s)),
-               "l"(g));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// c += A (16x16, row) * B (16x8, col); bf16 operands, f32 accumulators.
-// Fragment c: c[0], c[1] at (row g, cols 2t, 2t+1); c[2], c[3] at row g+8.
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned as_u32(bf162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
+constexpr int TC_THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int TE = 64;           // edges per tile (one wgmma M)
+constexpr int TAB = 80;          // row width of the staged a / dc tables
+constexpr int TC_MAX_STAGES = 16;
+constexpr int W_STAGES = 4;      // pass (b) ring: two h slabs a stage
+constexpr int W_ROWS = 128;      // pass (b) output tile: two chunks ...
+constexpr int W_COLS = 128;      // ... x 128 columns of d
+constexpr int KSPLIT_MAX = 4;
 
+struct TcArgs {
+  const bf16 *h, *a0, *a1, *a2, *wt, *bias, *dc0, *dc1, *dc2;
+  bf16 *dh, *da0, *da1, *da2;
+  float* w_part;   // [ksplit][5120 d]
+  float* db_part;  // [ksplit][5120]
+  int E, d;
+};
+
+// shared-memory plan of the tile pass (bytes from the 1024-aligned base;
+// total includes the 1024 bytes of alignment slack): the h tile (d/64
+// slabs), one dwall slab per warpgroup, the a and dc tables [64][80] bf16,
+// the da table [64][80] f32, then the wt ring (as many 8 KB slabs as fit,
+// up to 16; a chunk's d/64 slabs must fit at once) and its barriers
+struct TileLayout {
+  int stages;
+  size_t h, dw, a, dc, da, ring, bars, total;
+  __host__ __device__ explicit TileLayout(int d) {
+    h = 0;
+    dw = h + (size_t)d * 128;
+    a = dw + 2 * (size_t)SLAB;
+    dc = a + (size_t)TE * TAB * 2;
+    da = dc + (size_t)TE * TAB * 2;
+    ring = (da + (size_t)TE * TAB * 4 + 1023) / 1024 * 1024;
+    const long long s = (SMEM_LIMIT - 1024 - (long long)ring -
+                         16 * TC_MAX_STAGES - 16) / SLAB;
+    stages = (int)(s < TC_MAX_STAGES ? (s < 0 ? 0 : s) : TC_MAX_STAGES);
+    bars = ring + (size_t)stages * SLAB;  // full[S], empty[S], h_full/empty
+    total = 1024 + bars + 16 * (size_t)stages + 16;
+  }
+};
+
+// pass (b): the h ring, two A buffers per warpgroup, the db sums, barriers
+constexpr size_t W_RING = 0;
+constexpr size_t W_A = W_RING + (size_t)W_STAGES * 2 * SLAB;
+constexpr size_t W_RED = W_A + 4 * (size_t)SLAB;  // [2 wg][16][64] f32
+constexpr size_t W_BARS = W_RED + 2 * 16 * 64 * 4;
+constexpr size_t WEIGHT_SMEM = 1024 + W_BARS + 16 * W_STAGES;
+
+__device__ __forceinline__ uint32_t as_u32(bf162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ bf162 as_bf162(uint32_t u) {
+  return *reinterpret_cast<bf162*>(&u);
+}
 // Two adjacent columns of one row: w = round(acc + b) (one bf16x2
 // conversion), p = round(w * x) (one bf16x2 multiply: the exact product of
 // two bf16 values rounded once), the Pallas kernel's rounding points
@@ -149,360 +199,771 @@ __device__ __forceinline__ float2 term2(float acc0, float acc1, float2 b,
       __floats2bfloat162_rn(__fadd_rn(acc0, b.x), __fadd_rn(acc1, b.y));
   return __bfloat1622float2(__hmul2(w, x));
 }
-// quad (4 lanes of one fragment row) sum, the same bits in every lane
+// quad (4 lanes of one accumulator row) sum, the same bits in every lane
 __device__ __forceinline__ float quad_sum(float s) {
   s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
   return __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
 }
+// eight dwall values = round(dc[0..7] * a), packed as 16 bytes
+__device__ __forceinline__ uint4 dwall8(uint4 dv, bf16 a) {
+  const bf162 a2 = __bfloat162bfloat162(a);
+  return make_uint4(as_u32(__hmul2(as_bf162(dv.x), a2)),
+                    as_u32(__hmul2(as_bf162(dv.y), a2)),
+                    as_u32(__hmul2(as_bf162(dv.z), a2)),
+                    as_u32(__hmul2(as_bf162(dv.w), a2)));
+}
 
-// dwall[row, ch*CW + c], dwall[row, ch*CW + c + 1] (c even) from the staged
-// a and dc rows, as one bf16x2 A-fragment register
+// The warpgroup that owns chunk ch's w_all product and da epilogue: L1's
+// u takes path terms from chunks u, 64 + u/8 and 72 + u/8, all owned by
+// warpgroup (u / 8) % 2, so one thread sums them in path order
+__device__ __forceinline__ int owner_of(bool l2, int ch) {
+  return (l2 || ch >= CH_P1) ? (ch & 1) : ((ch >> 3) & 1);
+}
+
+// dwall_ch [64 edges, 64 columns] from the staged tables -> the warpgroup's
+// swizzled K-major tile. Thread wt: columns 8 (wt % 8) .. + 7 of rows
+// wt / 8 + 16 q.
 template <bool L2>
-__device__ __forceinline__ unsigned dwall2(const bf16* a_row,
-                                           const bf16* dc_row, int ch,
-                                           int c) {
-  int acol, dcol;
-  chunk_cols<L2>(ch, c, acol, dcol);
-  const bf162 d = *reinterpret_cast<const bf162*>(dc_row + dcol);
-  return as_u32(__hmul2(d, __bfloat162bfloat162(a_row[acol])));
+__device__ __forceinline__ void build_dwall(const bf16* a_s,
+                                            const bf16* dc_s, int ch,
+                                            unsigned char* dw_g, int wt) {
+  const int vc = wt & 7;
+  const bool v64 = L2 || ch < CH_P1;
+  const int dcol = v64 ? 8 * vc : (ch < CH_P2 ? 64 : 72);
+  const int acol = v64 ? ch : (ch - (ch < CH_P2 ? CH_P1 : CH_P2)) * 8 + vc;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = (wt >> 3) + 16 * q;
+    const uint4 dv = *reinterpret_cast<const uint4*>(dc_s + r * TAB + dcol);
+    *reinterpret_cast<uint4*>(dw_g + sw_off(r, 8 * vc)) =
+        dwall8(dv, a_s[r * TAB + acol]);
+  }
 }
 
-template <int D> __host__ __device__ constexpr int tile_ldh() { return D + 8; }
-
-template <bool L2, int D>
-size_t smem_tile_bf16() {
-  constexpr int LDH = tile_ldh<D>();
-  constexpr int AS = a_width<L2>() + 8, DS = dc_width<L2>() + 8;
-  return sizeof(bf16) * ((size_t)TE * LDH + 2 * CW * LDH + TE * AS + TE * DS) +
-         sizeof(float) * ((size_t)TE * a_width<L2>() + 2 * TE);
+// da from the owner's w_all chunk in registers: acc[4 i + 2 hr + j] holds
+// row r_lo + 8 hr, column 8 i + 2 t4 + j of the chunk
+template <bool L2>
+__device__ __forceinline__ void da_epilogue(const float (&acc)[32],
+                                            const bf16* bias,
+                                            const bf16* dc_s, float* da_s,
+                                            int ch, int r_lo, int t4) {
+  const bf162* b2 = reinterpret_cast<const bf162*>(bias + ch * CW) + t4;
+  const bf16* dlo = dc_s + r_lo * TAB;
+  const bf16* dhi = dc_s + (r_lo + 8) * TAB;
+  float* out_lo = da_s + r_lo * TAB;
+  float* out_hi = da_s + (r_lo + 8) * TAB;
+  if (L2 || ch < CH_P1) {  // V = 64: u = ch (a-table column ch), v = column
+    float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + 2 * t4;
+      const float2 bj = __bfloat1622float2(b2[4 * i]);
+      const float2 plo =
+          term2(acc[4 * i], acc[4 * i + 1], bj,
+                *reinterpret_cast<const bf162*>(dlo + col));
+      const float2 phi =
+          term2(acc[4 * i + 2], acc[4 * i + 3], bj,
+                *reinterpret_cast<const bf162*>(dhi + col));
+      s_lo = __fadd_rn(__fadd_rn(s_lo, plo.x), plo.y);
+      s_hi = __fadd_rn(__fadd_rn(s_hi, phi.x), phi.y);
+    }
+    s_lo = quad_sum(s_lo);
+    s_hi = quad_sum(s_hi);
+    if (t4 == 0) {
+      out_lo[ch] = __fadd_rn(out_lo[ch], s_lo);
+      out_hi[ch] = __fadd_rn(out_hi[ch], s_hi);
+    }
+  } else {  // L1 V = 8: column 8 i + v is u = u0 + i, v = 2 t4, 2 t4 + 1
+    const bool p1 = ch < CH_P2;
+    const int u0 = (ch - (p1 ? CH_P1 : CH_P2)) * 8;
+    const int dcol = (p1 ? 64 : 72) + 2 * t4;
+    const bf162 dl = *reinterpret_cast<const bf162*>(dlo + dcol);
+    const bf162 dh = *reinterpret_cast<const bf162*>(dhi + dcol);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 bj = __bfloat1622float2(b2[4 * i]);
+      const float2 plo = term2(acc[4 * i], acc[4 * i + 1], bj, dl);
+      const float2 phi = term2(acc[4 * i + 2], acc[4 * i + 3], bj, dh);
+      const float s_lo = quad_sum(__fadd_rn(plo.x, plo.y));
+      const float s_hi = quad_sum(__fadd_rn(phi.x, phi.y));
+      if (t4 == 0) {
+        out_lo[u0 + i] = __fadd_rn(out_lo[u0 + i], s_lo);
+        out_hi[u0 + i] = __fadd_rn(out_hi[u0 + i], s_hi);
+      }
+    }
+  }
 }
 
-// (a) dh and da for one 64-edge tile
-template <bool L2, int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    tp_bwd_tile_mma(const bf16* __restrict__ h, const bf16* __restrict__ a0,
-                    const bf16* __restrict__ a1, const bf16* __restrict__ a2,
-                    const bf16* __restrict__ wt, const bf16* __restrict__ bias,
-                    const bf16* __restrict__ dc0, const bf16* __restrict__ dc1,
-                    const bf16* __restrict__ dc2, bf16* __restrict__ dh,
-                    bf16* __restrict__ da0, bf16* __restrict__ da1,
-                    bf16* __restrict__ da2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int LDH = tile_ldh<D>();
+// ------------------------------------------------- bf16 pass (a): dh, da
+template <bool L2, int NH>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    tp_bwd_tile_tc(TcArgs p, const __grid_constant__ CUtensorMap h_m,
+                   const __grid_constant__ CUtensorMap wt_m) {
+  constexpr int D = 128 * NH, KS = D / 64;
   constexpr int AW = a_width<L2>(), DW = dc_width<L2>();
-  constexpr int AS = AW + 8, DS = DW + 8;
-  constexpr int NT2 = D / 16;  // dh n-tiles per warp (d / 2 columns)
-  bf16* h_s = reinterpret_cast<bf16*>(smem_raw);  // [TE][LDH]
-  bf16* w_s = h_s + TE * LDH;                      // 2 x [CW][LDH]
-  bf16* a_s = w_s + 2 * CW * LDH;                  // [TE][AS]
-  bf16* dc_s = a_s + TE * AS;                      // [TE][DS]
-  float* da_s = reinterpret_cast<float*>(dc_s + TE * DS);  // [TE][AW]
-  float* red_s = da_s + TE * AW;                           // [2][TE]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 3, half = warp >> 2;
-  const int r_lo = rg * 16 + g, r_hi = r_lo + 8;
-  const size_t e0 = (size_t)blockIdx.x * TE;
-
-  constexpr int SEGS = D / 8;
-  for (int i = tid; i < TE * SEGS; i += NTHREADS) {
-    const int r = i / SEGS, s = i % SEGS;
-    cp_async16(h_s + r * LDH + 8 * s, h + (e0 + r) * D + 8 * s);
-  }
-  for (int i = tid; i < CW * SEGS; i += NTHREADS) {
-    const int n = i / SEGS, s = i % SEGS;
-    cp_async16(w_s + n * LDH + 8 * s, wt + (size_t)n * D + 8 * s);
-  }
-  cp_commit();
-  for (int i = tid; i < TE * AW; i += NTHREADS) {
-    const int r = i / AW, c = i % AW;
-    a_s[r * AS + c] = a_at<L2>(a0, a1, a2, e0 + r, c);
-    da_s[i] = 0.f;
-  }
-  for (int i = tid; i < TE * DW; i += NTHREADS) {
-    const int r = i / DW, c = i % DW;
-    dc_s[r * DS + c] = dc_at<L2>(dc0, dc1, dc2, e0 + r, c);
-  }
-
-  float acc[NT2][4];
-#pragma unroll
-  for (int n = 0; n < NT2; ++n)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
-  const bf16* a_lo = a_s + r_lo * AS;
-  const bf16* a_hi = a_s + r_hi * AS;
-  const bf16* d_lo = dc_s + r_lo * DS;
-  const bf16* d_hi = dc_s + r_hi * DS;
-
-  for (int ch = 0; ch < NCHUNK; ++ch) {
-    cp_wait_all();
-    // chunk ch has landed everywhere, and every warp is done with chunk
-    // ch - 1, whose buffer the next load reuses
-    __syncthreads();
-    if (ch + 1 < NCHUNK) {
-      bf16* dst = w_s + ((ch + 1) & 1) * CW * LDH;
-      for (int i = tid; i < CW * SEGS; i += NTHREADS) {
-        const int n = i / SEGS, s = i % SEGS;
-        cp_async16(dst + n * LDH + 8 * s,
-                   wt + (size_t)((ch + 1) * CW + n) * D + 8 * s);
-      }
-      cp_commit();
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const TileLayout L(D);
+  const uint32_t raw = saddr(smem_tc);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_tc + (base - raw);
+  const Ring ring{base + (uint32_t)L.ring, base + (uint32_t)L.bars,
+                  base + (uint32_t)L.bars + 8u * L.stages, L.stages};
+  const uint32_t h_full = base + (uint32_t)L.bars + 16u * L.stages;
+  const uint32_t h_empty = h_full + 8;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n_tiles = p.E / TE;
+  if (tid == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 8);  // the 8 consumer warps
     }
-    const bf16* wb = w_s + (ch & 1) * CW * LDH;
-
-    // w_all chunk: rows rg*16.., columns half*32 .. half*32 + 31
-    float f[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) f[j][q] = 0.f;
-    for (int kk = 0; kk < D; kk += 16) {
-      unsigned af[4];
-      ldmatrix_x4(af, h_s + (rg * 16 + (lane & 15)) * LDH + kk +
-                          (lane >> 4) * 8);
-      const int m = lane >> 3, rr = lane & 7;
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        unsigned bfr[4];
-        ldmatrix_x4(bfr, wb + (half * 32 + 16 * jp + 8 * (m >> 1) + rr) * LDH +
-                             kk + 8 * (m & 1));
-        mma_bf16(f[2 * jp], af, bfr[0], bfr[1]);
-        mma_bf16(f[2 * jp + 1], af, bfr[2], bfr[3]);
-      }
-    }
-
-    // da: contract the fragment with dc over v
-    const bf162* b2 =
-        reinterpret_cast<const bf162*>(bias + ch * CW + half * 32) + t;
-    if (L2 || ch < CH_P1) {  // V = 64: u = ch, v = column
-      float s_lo = 0.f, s_hi = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = half * 32 + 8 * j + 2 * t;
-        const float2 bj = __bfloat1622float2(b2[4 * j]);
-        const float2 plo = term2(
-            f[j][0], f[j][1], bj, *reinterpret_cast<const bf162*>(d_lo + col));
-        const float2 phi = term2(
-            f[j][2], f[j][3], bj, *reinterpret_cast<const bf162*>(d_hi + col));
-        s_lo = __fadd_rn(__fadd_rn(s_lo, plo.x), plo.y);
-        s_hi = __fadd_rn(__fadd_rn(s_hi, phi.x), phi.y);
-      }
-      s_lo = quad_sum(s_lo);
-      s_hi = quad_sum(s_hi);
-      if (t == 0) {
-        red_s[half * TE + r_lo] = s_lo;
-        red_s[half * TE + r_hi] = s_hi;
-      }
-    } else {  // L1 V = 8: n-tile j is u = u0 + 4*half + j, v = 2t, 2t + 1
-      const bool p1 = ch < CH_P2;
-      const int u0 = (ch - (p1 ? CH_P1 : CH_P2)) * 8 + 4 * half;
-      const int dcol = (p1 ? 64 : 72) + 2 * t;
-      const bf162 dlo = *reinterpret_cast<const bf162*>(d_lo + dcol);
-      const bf162 dhi = *reinterpret_cast<const bf162*>(d_hi + dcol);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 bj = __bfloat1622float2(b2[4 * j]);
-        const float2 plo = term2(f[j][0], f[j][1], bj, dlo);
-        const float2 phi = term2(f[j][2], f[j][3], bj, dhi);
-        const float s_lo = quad_sum(__fadd_rn(plo.x, plo.y));
-        const float s_hi = quad_sum(__fadd_rn(phi.x, phi.y));
-        if (t == 0) {  // the only writer of these entries in this chunk
-          float* lo = da_s + r_lo * AW + u0 + j;
-          float* hi = da_s + r_hi * AW + u0 + j;
-          *lo = __fadd_rn(*lo, s_lo);
-          *hi = __fadd_rn(*hi, s_hi);
-        }
-      }
-    }
-
-    // dh += dwall chunk [16 rows, 64] @ wt chunk [64, this warp's d / 2]
-#pragma unroll
-    for (int ks = 0; ks < CW / 16; ++ks) {
-      const int c0 = 16 * ks + 2 * t;
-      unsigned af[4];
-      af[0] = dwall2<L2>(a_lo, d_lo, ch, c0);
-      af[1] = dwall2<L2>(a_hi, d_hi, ch, c0);
-      af[2] = dwall2<L2>(a_lo, d_lo, ch, c0 + 8);
-      af[3] = dwall2<L2>(a_hi, d_hi, ch, c0 + 8);
-      const bf16* brow = wb + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  LDH + half * (D / 2) + (lane >> 4) * 8;
-#pragma unroll
-      for (int jp = 0; jp < NT2 / 2; ++jp) {
-        unsigned bfr[4];
-        ldmatrix_x4_trans(bfr, brow + 16 * jp);
-        mma_bf16(acc[2 * jp], af, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * jp + 1], af, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // red_s is complete
-    if ((L2 || ch < CH_P1) && tid < TE) {  // merge the halves, fixed order
-      float* p = da_s + tid * AW + ch;
-      *p = __fadd_rn(*p, __fadd_rn(red_s[tid], red_s[TE + tid]));
-    }
+    mbar_init(h_full, 1);
+    mbar_init(h_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  auto put = [](bf16* p, float x, float y) {
-    *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(x, y);
-  };
-#pragma unroll
-  for (int n = 0; n < NT2; ++n) {
-    const int col = half * (D / 2) + 8 * n + 2 * t;
-    put(dh + (e0 + r_lo) * D + col, acc[n][0], acc[n][1]);
-    put(dh + (e0 + r_hi) * D + col, acc[n][2], acc[n][3]);
-  }
-  for (int i = tid; i < TE * AW; i += NTHREADS) {
-    const int r = i / AW, c = i % AW;
-    const bf16 v = __float2bfloat16_rn(da_s[i]);
-    if (!L2 || c < 64)
-      da0[(e0 + r) * 64 + c] = v;
-    else if (c < 72)
-      da1[(e0 + r) * 8 + c - 64] = v;
-    else
-      da2[(e0 + r) * 8 + c - 72] = v;
-  }
-}
-
-constexpr int LDB = KB + 8;  // pass (b): h tile row stride (bf16)
-constexpr int LDW = CW + 8;  // pass (b): dwall tile row stride (bf16)
-
-constexpr size_t smem_weight_bf16() {
-  return sizeof(bf16) * 2 * ((size_t)TE * LDB + (size_t)TE * LDW);
-}
-
-// (b) dwt rows [ch*CW, ch*CW + 64) x columns [kb*KB, kb*KB + 128) and db
-template <bool L2, int D>
-__global__ void __launch_bounds__(NTHREADS)
-    tp_bwd_weight_mma(const bf16* __restrict__ h,
-                      const bf16* __restrict__ a0,
-                      const bf16* __restrict__ a1,
-                      const bf16* __restrict__ a2,
-                      const bf16* __restrict__ dc0,
-                      const bf16* __restrict__ dc1,
-                      const bf16* __restrict__ dc2, float* __restrict__ dwt,
-                      float* __restrict__ db, int E) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* h_s = reinterpret_cast<bf16*>(smem_raw);  // 2 x [TE][LDB]
-  bf16* w_s = h_s + 2 * TE * LDB;                  // 2 x [TE][LDW]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int ch = blockIdx.x, kb = blockIdx.y;
-  const int m0 = 16 * (warp & 3), n0 = 64 * (warp >> 2);
-  const bool v64 = L2 || ch < CH_P1;
-  const bool with_db = kb == 0 && tid < CW;
-  const int ntiles = E / TE;
-  // this thread's share of a dwall tile: row er, columns cq .. cq + 15
-  const int er = tid >> 2, cq = (tid & 3) * 16;
-
-  auto stage_h = [&](int it, bf16* dst) {
-    const size_t e = (size_t)it * TE;
-    for (int i = tid; i < TE * (KB / 8); i += NTHREADS) {
-      const int r = i / (KB / 8), s = i % (KB / 8);
-      cp_async16(dst + r * LDB + 8 * s, h + (e + r) * D + kb * KB + 8 * s);
-    }
-    cp_commit();
-  };
-  // dc values (16) and a values (one per 8 columns) of a tile's share
-  uint4 dv0, dv1;
-  bf16 av0, av1;
-  auto fetch = [&](int it) {
-    const size_t e = (size_t)it * TE + er;
-    if (v64) {
-      const uint4* p = reinterpret_cast<const uint4*>(dc0 + e * 64 + cq);
-      dv0 = p[0];
-      dv1 = p[1];
-      av0 = av1 = a_at<L2>(a0, a1, a2, e, ch);
-    } else {
-      const bool p1 = ch < CH_P2;
-      const uint4* p =
-          reinterpret_cast<const uint4*>((p1 ? dc1 : dc2) + e * 8);
-      dv0 = dv1 = p[0];
-      const int u = (ch - (p1 ? CH_P1 : CH_P2)) * 8 + (cq >> 3);
-      av0 = a0[e * 64 + u];
-      av1 = a0[e * 64 + u + 1];
-    }
-  };
-  auto store = [&](bf16* dst) {  // pair i: columns cq + 2i, cq + 2i + 1
-    const unsigned dw[8] = {dv0.x, dv0.y, dv0.z, dv0.w,
-                            dv1.x, dv1.y, dv1.z, dv1.w};
-    unsigned out[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const unsigned dword = v64 ? dw[i] : dw[i & 3];
-      const bf16 a = (v64 || i < 4) ? av0 : av1;
-      out[i] = as_u32(__hmul2(*reinterpret_cast<const bf162*>(&dword),
-                              __bfloat162bfloat162(a)));
-    }
-    uint4* p = reinterpret_cast<uint4*>(dst + er * LDW + cq);
-    p[0] = make_uint4(out[0], out[1], out[2], out[3]);
-    p[1] = make_uint4(out[4], out[5], out[6], out[7]);
-  };
-
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
-  float dbs = 0.f;
-
-  stage_h(0, h_s);
-  fetch(0);
-  store(w_s);
-  for (int it = 0; it < ntiles; ++it) {
-    cp_wait_all();
-    __syncthreads();  // tile it is in place; tile it - 1's buffers are free
-    const int cur = it & 1, nxt = cur ^ 1;
-    const bool more = it + 1 < ntiles;
-    if (more) {
-      stage_h(it + 1, h_s + nxt * TE * LDB);
-      fetch(it + 1);
-    }
-    const bf16* hb = h_s + cur * TE * LDB;
-    const bf16* wb = w_s + cur * TE * LDW;
-#pragma unroll
-    for (int ks = 0; ks < TE / 16; ++ks) {
-      unsigned af[4];
-      ldmatrix_x4_trans(af, wb + (16 * ks + (lane & 7) + ((lane >> 4) << 3)) *
-                                     LDW + m0 + ((lane >> 3) & 1) * 8);
-      const bf16* brow = hb + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  LDB + n0 + (lane >> 4) * 8;
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        unsigned bfr[4];
-        ldmatrix_x4_trans(bfr, brow + 16 * jp);
-        mma_bf16(acc[2 * jp], af, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * jp + 1], af, bfr[2], bfr[3]);
+  if (warp == 8) {  // producer: the h tile, then wt chunk by chunk
+    if ((tid & 31) == 0) {
+      uint32_t n = 0, it = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+        if (it > 0) mbar_wait(h_empty, (it - 1) & 1);
+        mbar_expect_tx(h_full, D * 128);
+        for (int j = 0; j < KS; ++j)
+          tma_load(base + (uint32_t)L.h + j * SLAB, &h_m, h_full, j * 64,
+                   t * TE);
+        for (int ch = 0; ch < NCHUNK; ++ch)
+          for (int j = 0; j < KS; ++j, ++n)
+            tma_load(ring.acquire(n, SLAB, SLAB), &wt_m,
+                     ring.full + 8 * ring.stage(n), j * 64, ch * CW);
       }
     }
-    if (with_db)
-      for (int r = 0; r < TE; ++r)
-        dbs = __fadd_rn(dbs, __bfloat162float(wb[r * LDW + tid]));
-    if (more) store(w_s + nxt * TE * LDW);
+    return;
   }
 
-  const size_t row = (size_t)ch * CW + m0 + g;
+  const int wg = warp >> 2, wt = tid & 127, wi = wt >> 5, lane = wt & 31;
+  const int r_lo = wi * 16 + (lane >> 2), t4 = lane & 3;
+  bf16* a_s = reinterpret_cast<bf16*>(gbase + L.a);      // [TE][TAB]
+  bf16* dc_s = reinterpret_cast<bf16*>(gbase + L.dc);    // [TE][TAB]
+  float* da_s = reinterpret_cast<float*>(gbase + L.da);  // [TE][TAB]
+  unsigned char* dw_g = gbase + L.dw + (size_t)wg * SLAB;
+  const uint32_t dw_a = base + (uint32_t)L.dw + (uint32_t)wg * SLAB;
+  const uint32_t h_a = base + (uint32_t)L.h;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  uint32_t pos = 0, it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    const size_t e0 = (size_t)t * TE;
+    for (int i = tid; i < TE * TAB; i += 256) {
+      const int r = i / TAB, c = i % TAB;
+      a_s[i] = c < AW ? a_at<L2>(p.a0, p.a1, p.a2, e0 + r, c) : zero;
+      dc_s[i] = c < DW ? dc_at<L2>(p.dc0, p.dc1, p.dc2, e0 + r, c) : zero;
+      da_s[i] = 0.f;
+    }
+    bar_sync(1, 256);  // the tables are in place
+    mbar_wait(h_full, it & 1);
+    float dh[NH][32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = kb * KB + n0 + 8 * n + 2 * t;
-    *reinterpret_cast<float2*>(dwt + row * D + col) =
-        make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(dwt + (row + 8) * D + col) =
-        make_float2(acc[n][2], acc[n][3]);
+    for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dh[nt][i] = 0.f;
+    for (int ch = 0; ch < NCHUNK; ++ch) {
+      const uint32_t nb = pos;
+      pos += KS;
+      const bool own = owner_of(L2, ch) == wg;
+      float acc[32];
+      if (own) {  // w_all chunk = h @ wt_ch^T, in flight during the build
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint32_t b_s = ring.wait_full(nb + ks, SLAB);
+          fence_acc(acc);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n64<0, 0>(acc,
+                               sw128_desc(h_a + ks * SLAB + kk * 32, 16, 1024),
+                               sw128_desc(b_s + kk * 32, 16, 1024));
+        }
+        wg_commit();
+        fence_acc(acc);
+      }
+      bar_sync(2 + wg, 128);  // the previous chunk's dh products are done
+      build_dwall<L2>(a_s, dc_s, ch, dw_g, wt);
+      fence_async_smem();
+      bar_sync(2 + wg, 128);  // dwall_ch is in place
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) {  // dh[:, own half] += dwall wt_ch
+        const uint32_t b_s = ring.wait_full(nb + wg * NH + nt, SLAB);
+        fence_acc(dh[nt]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64<0, 1>(dh[nt], sw128_desc(dw_a + kk * 32, 16, 1024),
+                             sw128_desc(b_s + kk * 2048, SLAB, 1024));
+      }
+      wg_commit();
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) fence_acc(dh[nt]);
+      if (own) {  // da while the dh products run
+        wg_wait<1>();
+        fence_acc(acc);
+        da_epilogue<L2>(acc, p.bias, dc_s, da_s, ch, r_lo, t4);
+      }
+      wg_wait<0>();
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) fence_acc(dh[nt]);
+      // a slab is released by all 8 warps, each after seeing it land (so an
+      // arrival never counts toward the slab's previous use)
+      if (!own)
+        for (int s = 0; s < KS; ++s) ring.wait_full(nb + s, SLAB);
+      if (lane == 0) {
+        for (int s = 0; s < KS; ++s)
+          mbar_arrive(ring.empty + 8 * ring.stage(nb + s));
+        if (ch == NCHUNK - 1) mbar_arrive(h_empty);
+      }
+    }
+    // dh, rounded: columns wg d/2 + 64 nt + 8 i + 2 t4 (+1)
+#pragma unroll
+    for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const size_t row = e0 + r_lo + 8 * hr;
+          const int col = wg * (D / 2) + nt * 64 + 8 * i + 2 * t4;
+          *reinterpret_cast<bf162*>(p.dh + row * D + col) =
+              __floats2bfloat162_rn(dh[nt][4 * i + 2 * hr],
+                                    dh[nt][4 * i + 2 * hr + 1]);
+        }
+    bar_sync(1, 256);  // da_s is complete
+    for (int i = tid; i < TE * AW; i += 256) {
+      const int r = i / AW, c = i % AW;
+      const bf16 v = __float2bfloat16_rn(da_s[r * TAB + c]);
+      if (!L2 || c < 64)
+        p.da0[(e0 + r) * 64 + c] = v;
+      else if (c < 72)
+        p.da1[(e0 + r) * 8 + c - 64] = v;
+      else
+        p.da2[(e0 + r) * 8 + c - 72] = v;
+    }
+    bar_sync(1, 256);  // the tables are free for the next tile
   }
-  if (with_db) db[ch * CW + tid] = dbs;
+}
+
+// ------------------------------- bf16 pass (a), d <= 256: column halves
+// The same work with every product split between the warpgroups by
+// columns, so both do the same work on every chunk, and with the da
+// epilogue overlapped with the products: warpgroup wg runs w_all_ch's 32
+// columns from 32 wg (wgmma m64n32k16, A = the h tile, B = rows 32 wg.. of
+// the chunk's slabs, K-major), the next chunk's product in flight while it
+// contracts the current one in registers (its half of each row's sum over
+// v goes to its own f32 da table; the two tables are added in a fixed
+// order at the tile's end), and accumulates dh's d/2 columns from wg d/2
+// from dwall_ch's A fragments computed in registers from the staged a and
+// dc rows (wgmma with A from registers, B = the same slabs MN-major), so no
+// dwall tile passes through shared memory.
+
+struct SplitLayout {
+  int stages;
+  size_t h, a, dc, da, bias, ring, bars, total;
+  __host__ __device__ explicit SplitLayout(int d) {
+    h = 0;  // d/64 slabs
+    a = h + (size_t)d * 128;
+    dc = a + (size_t)TE * TAB * 2;
+    da = dc + (size_t)TE * TAB * 2;           // [2 wg][TE][TAB] f32
+    bias = da + 2 * (size_t)TE * TAB * 4;     // b [5120] bf16, every tile
+    ring = (bias + (size_t)NUMEL * 2 + 1023) / 1024 * 1024;
+    const long long s = (SMEM_LIMIT - 1024 - (long long)ring -
+                         16 * TC_MAX_STAGES - 16) / SLAB;
+    stages = (int)(s < TC_MAX_STAGES ? (s < 0 ? 0 : s) : TC_MAX_STAGES);
+    bars = ring + (size_t)stages * SLAB;  // full[S], empty[S], h_full/empty
+    total = 1024 + bars + 16 * (size_t)stages + 16;
+  }
+};
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// this warp's arrivals on the empty barriers of a chunk's KS slabs
+__device__ __forceinline__ void chunk_release(const Ring& ring, uint32_t nb,
+                                              int ks_n) {
+  if ((threadIdx.x & 31) == 0)
+    for (int s = 0; s < ks_n; ++s)
+      mbar_arrive(ring.empty + 8 * ring.stage(nb + s));
+}
+
+// w_all_ch's 32 columns from 32 wg into acc: the chunk's KS slabs from ring
+// position nb (rows 32 wg.. of each, 4096 bytes in), A = the h tile's KS
+// slabs at h_a; one commit group
+template <int KS>
+__device__ __forceinline__ void half_wall_mma(float (&acc)[16],
+                                                uint32_t h_a, int wg,
+                                                const Ring& ring,
+                                                uint32_t nb) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t b_s = ring.wait_full(nb + ks, SLAB) + 4096u * wg;
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n32<0, 0>(acc, sw128_desc(h_a + ks * SLAB + kk * 32, 16, 1024),
+                         sw128_desc(b_s + kk * 32, 16, 1024));
+  }
+  wg_commit();
+  fence_acc(acc);
+}
+
+// the dc values this thread's epilogue multiplies, for the whole tile: rows
+// r_lo + 8 hr, columns 32 wg + 8 i + 2 t4 of the V = 64 table (L1 dc0, L2
+// dc), and L1's dc1 / dc2 at 2 t4
+struct DcHalf {
+  bf162 v64[2][4];
+  bf162 v8[2][2];
+};
+
+template <bool L2>
+__device__ __forceinline__ void load_dc_half(const bf16* dc_s, int wg,
+                                             int r_lo, int t4, DcHalf& f) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const bf16* row = dc_s + (r_lo + 8 * hr) * TAB;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f.v64[hr][i] = as_bf162(ld_u32(row + 32 * wg + 8 * i + 2 * t4));
+    if (!L2) {
+      f.v8[0][hr] = as_bf162(ld_u32(row + 64 + 2 * t4));
+      f.v8[1][hr] = as_bf162(ld_u32(row + 72 + 2 * t4));
+    }
+  }
+}
+
+// da terms from the warpgroup's half of w_all_ch (acc[4 i + 2 hr + j]: row
+// r_lo + 8 hr, column 32 wg + 8 i + 2 t4 + j) into its table da_w: as
+// da_epilogue, with the dc values and the bias (staged in shared memory) at
+// hand and two independent sums a row
+template <bool L2>
+__device__ __forceinline__ void half_da_epilogue(const float (&acc)[16],
+                                                 int ch, int wg,
+                                                 const bf16* bias_s,
+                                                 const DcHalf& dc,
+                                                 float* da_w, int r_lo,
+                                                 int t4) {
+  const bf162* b2 =
+      reinterpret_cast<const bf162*>(bias_s + ch * CW + 32 * wg) + t4;
+  float* out[2] = {da_w + r_lo * TAB, da_w + (r_lo + 8) * TAB};
+  if (L2 || ch < CH_P1) {  // V = 64: u = ch (a-table column ch), v = column
+    float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 bj = __bfloat1622float2(b2[4 * i]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float2 pr = term2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1],
+                                bj, dc.v64[hr][i]);
+        sum[hr][i & 1] = __fadd_rn(__fadd_rn(sum[hr][i & 1], pr.x), pr.y);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float v = quad_sum(__fadd_rn(sum[hr][0], sum[hr][1]));
+      if (t4 == 0) out[hr][ch] = __fadd_rn(out[hr][ch], v);
+    }
+  } else {  // L1 V = 8: column 8 uu + v is u = u0 + uu, uu = 4 wg + i
+    const bool p1 = ch < CH_P2;
+    const int u = (ch - (p1 ? CH_P1 : CH_P2)) * 8 + 4 * wg;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 bj = __bfloat1622float2(b2[4 * i]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float2 pr = term2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1],
+                                bj, dc.v8[p1 ? 0 : 1][hr]);
+        const float v = quad_sum(__fadd_rn(pr.x, pr.y));
+        if (t4 == 0) out[hr][u + i] = __fadd_rn(out[hr][u + i], v);
+      }
+    }
+  }
+}
+
+// the A fragments of dwall_ch [64, 64] for this thread (k16 step kk:
+// columns 16 kk + 2 t4 (+1, +8, +9), rows r_lo, r_lo + 8), from the staged
+// a and dc rows: round(dc * a), as build_dwall
+template <bool L2>
+__device__ __forceinline__ void dwall_frags(const bf16* a_s,
+                                            const bf16* dc_s, int ch,
+                                            int r_lo, int t4,
+                                            uint32_t (&af)[4][4]) {
+  const bf16* dlo = dc_s + r_lo * TAB;
+  const bf16* dhi = dc_s + (r_lo + 8) * TAB;
+  const bf16* alo = a_s + r_lo * TAB;
+  const bf16* ahi = a_s + (r_lo + 8) * TAB;
+  if (L2 || ch < CH_P1) {  // V = 64: dc[v = column] * a[u = ch]
+    const bf162 al = __bfloat162bfloat162(alo[ch]);
+    const bf162 ah = __bfloat162bfloat162(ahi[ch]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = 16 * kk + 2 * t4;
+      af[kk][0] = as_u32(__hmul2(as_bf162(ld_u32(dlo + c)), al));
+      af[kk][1] = as_u32(__hmul2(as_bf162(ld_u32(dhi + c)), ah));
+      af[kk][2] = as_u32(__hmul2(as_bf162(ld_u32(dlo + c + 8)), al));
+      af[kk][3] = as_u32(__hmul2(as_bf162(ld_u32(dhi + c + 8)), ah));
+    }
+  } else {  // L1 V = 8: column 8 uu + v is dc[64|72 + v] * a[u0 + uu]
+    const bool p1 = ch < CH_P2;
+    const int u0 = (ch - (p1 ? CH_P1 : CH_P2)) * 8;
+    const int dcol = (p1 ? 64 : 72) + 2 * t4;
+    const bf162 dl = as_bf162(ld_u32(dlo + dcol));
+    const bf162 dh = as_bf162(ld_u32(dhi + dcol));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int u = u0 + 2 * kk;
+      af[kk][0] = as_u32(__hmul2(dl, __bfloat162bfloat162(alo[u])));
+      af[kk][1] = as_u32(__hmul2(dh, __bfloat162bfloat162(ahi[u])));
+      af[kk][2] = as_u32(__hmul2(dl, __bfloat162bfloat162(alo[u + 1])));
+      af[kk][3] = as_u32(__hmul2(dh, __bfloat162bfloat162(ahi[u + 1])));
+    }
+  }
+}
+
+// dh[:, wg d/2 ..] += dwall_ch @ wt_ch: n-tile nt reads slab wg NH + nt
+// (MN-major) of the chunk at ring position nb; A = af; one commit group
+template <int NH>
+__device__ __forceinline__ void half_dh_mma(float (&dh)[NH][32],
+                                              const uint32_t (&af)[4][4],
+                                              int wg, const Ring& ring,
+                                              uint32_t nb, bool first) {
+  uint32_t b_s[NH];
+#pragma unroll
+  for (int nt = 0; nt < NH; ++nt)
+    b_s[nt] = ring.wait_full(nb + wg * NH + nt, SLAB);
+#pragma unroll
+  for (int nt = 0; nt < NH; ++nt) fence_acc(dh[nt]);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < NH; ++nt)
+      wgmma_m64n64_rs<1>(dh[nt], af[kk],
+                         sw128_desc(b_s[nt] + kk * 2048, SLAB, 1024),
+                         !(first && kk == 0));
+  wg_commit();
+#pragma unroll
+  for (int nt = 0; nt < NH; ++nt) fence_acc(dh[nt]);
+}
+
+template <bool L2, int NH>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    tp_bwd_tile_split(TcArgs p, const __grid_constant__ CUtensorMap h_m,
+                      const __grid_constant__ CUtensorMap wt_m) {
+  constexpr int D = 128 * NH, KS = D / 64;
+  constexpr int AW = a_width<L2>(), DW = dc_width<L2>();
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const SplitLayout L(D);
+  const uint32_t raw = saddr(smem_tc);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_tc + (base - raw);
+  const Ring ring{base + (uint32_t)L.ring, base + (uint32_t)L.bars,
+                  base + (uint32_t)L.bars + 8u * L.stages, L.stages};
+  const uint32_t h_full = base + (uint32_t)L.bars + 16u * L.stages;
+  const uint32_t h_empty = h_full + 8;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n_tiles = p.E / TE;
+  if (tid == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 8);  // the 8 consumer warps
+    }
+    mbar_init(h_full, 1);
+    mbar_init(h_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: the h tile, then wt chunk by chunk
+    if ((tid & 31) == 0) {
+      uint32_t n = 0, it = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+        if (it > 0) mbar_wait(h_empty, (it - 1) & 1);
+        mbar_expect_tx(h_full, D * 128);
+        for (int j = 0; j < KS; ++j)
+          tma_load(base + (uint32_t)L.h + j * SLAB, &h_m, h_full, j * 64,
+                   t * TE);
+        for (int ch = 0; ch < NCHUNK; ++ch)
+          for (int j = 0; j < KS; ++j, ++n)
+            tma_load(ring.acquire(n, SLAB, SLAB), &wt_m,
+                     ring.full + 8 * ring.stage(n), j * 64, ch * CW);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wt = tid & 127, wi = wt >> 5, lane = wt & 31;
+  const int r_lo = wi * 16 + (lane >> 2), t4 = lane & 3;
+  bf16* a_s = reinterpret_cast<bf16*>(gbase + L.a);      // [TE][TAB]
+  bf16* dc_s = reinterpret_cast<bf16*>(gbase + L.dc);    // [TE][TAB]
+  float* da_s = reinterpret_cast<float*>(gbase + L.da);  // [2][TE][TAB]
+  float* da_w = da_s + wg * TE * TAB;
+  bf16* bias_s = reinterpret_cast<bf16*>(gbase + L.bias);
+  for (int i = tid; i < NUMEL / 8; i += 256)
+    reinterpret_cast<uint4*>(bias_s)[i] =
+        reinterpret_cast<const uint4*>(p.bias)[i];
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  const uint32_t h_a = base + (uint32_t)L.h;
+  uint32_t pos = 0, it = 0;  // ring position of the tile's first slab
+  for (int t = blockIdx.x; t < n_tiles;
+       t += gridDim.x, pos += NCHUNK * KS, ++it) {
+    const size_t e0 = (size_t)t * TE;
+    bar_sync(1, 256);  // the previous tile is done with the tables
+    for (int i = tid; i < TE * TAB; i += 256) {
+      const int r = i / TAB, c = i % TAB;
+      a_s[i] = c < AW ? a_at<L2>(p.a0, p.a1, p.a2, e0 + r, c) : zero;
+      dc_s[i] = c < DW ? dc_at<L2>(p.dc0, p.dc1, p.dc2, e0 + r, c) : zero;
+      da_s[i] = 0.f;
+      da_s[TE * TAB + i] = 0.f;
+    }
+    bar_sync(1, 256);  // the tables (and the bias) are in place
+    DcHalf dcf;
+    load_dc_half<L2>(dc_s, wg, r_lo, t4, dcf);
+    mbar_wait(h_full, it & 1);
+    float dh[NH][32], acc0[16], acc1[16];
+    uint32_t af[4][4];
+    half_wall_mma<KS>(acc0, h_a, wg, ring, pos);
+    for (int ch = 0; ch < NCHUNK; ch += 2) {
+      // chunk ch: its dh products, then the next chunk's w_all half; once
+      // both of chunk ch's products are done its slabs go back to the
+      // producer, and its epilogue runs while the next product does
+      dwall_frags<L2>(a_s, dc_s, ch, r_lo, t4, af);
+      half_dh_mma<NH>(dh, af, wg, ring, pos + ch * KS, ch == 0);
+      half_wall_mma<KS>(acc1, h_a, wg, ring, pos + (ch + 1) * KS);
+      wg_wait<1>();
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) fence_acc(dh[nt]);
+      fence_acc(acc0);
+      chunk_release(ring, pos + ch * KS, KS);
+      half_da_epilogue<L2>(acc0, ch, wg, bias_s, dcf, da_w, r_lo, t4);
+      // chunk ch + 1, likewise
+      dwall_frags<L2>(a_s, dc_s, ch + 1, r_lo, t4, af);
+      half_dh_mma<NH>(dh, af, wg, ring, pos + (ch + 1) * KS, false);
+      const bool more = ch + 2 < NCHUNK;
+      if (more) {
+        half_wall_mma<KS>(acc0, h_a, wg, ring, pos + (ch + 2) * KS);
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt) fence_acc(dh[nt]);
+      fence_acc(acc1);
+      chunk_release(ring, pos + (ch + 1) * KS, KS);
+      if (!more && lane == 0) mbar_arrive(h_empty);  // h is read
+      half_da_epilogue<L2>(acc1, ch + 1, wg, bias_s, dcf, da_w, r_lo, t4);
+    }
+    // dh, rounded: columns wg d/2 + 64 nt + 8 i + 2 t4 (+1)
+#pragma unroll
+    for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const size_t row = e0 + r_lo + 8 * hr;
+          const int col = wg * (D / 2) + nt * 64 + 8 * i + 2 * t4;
+          *reinterpret_cast<bf162*>(p.dh + row * D + col) =
+              __floats2bfloat162_rn(dh[nt][4 * i + 2 * hr],
+                                    dh[nt][4 * i + 2 * hr + 1]);
+        }
+    bar_sync(1, 256);  // both da tables are complete
+    for (int i = tid; i < TE * AW; i += 256) {
+      const int r = i / AW, c = i % AW;
+      const bf16 v = __float2bfloat16_rn(
+          __fadd_rn(da_s[r * TAB + c], da_s[TE * TAB + r * TAB + c]));
+      if (!L2 || c < 64)
+        p.da0[(e0 + r) * 64 + c] = v;
+      else if (c < 72)
+        p.da1[(e0 + r) * 8 + c - 64] = v;
+      else
+        p.da2[(e0 + r) * 8 + c - 72] = v;
+    }
+  }
+}
+
+// the a value and dc vector of one dwall row for pass (b): chunk ch,
+// columns 8 vc .. 8 vc + 7, edge e
+template <bool L2>
+__device__ __forceinline__ void fetch_row(const TcArgs& p, int ch, int vc,
+                                          size_t e, uint4& dv, bf16& av) {
+  if (L2 || ch < CH_P1) {
+    dv = *reinterpret_cast<const uint4*>(p.dc0 + e * 64 + 8 * vc);
+    av = a_at<L2>(p.a0, p.a1, p.a2, e, ch);
+  } else {
+    const bool p1 = ch < CH_P2;
+    dv = *reinterpret_cast<const uint4*>((p1 ? p.dc1 : p.dc2) + e * 8);
+    av = p.a0[e * 64 + (ch - (p1 ? CH_P1 : CH_P2)) * 8 + vc];
+  }
+}
+
+// ----------------------------------------------- bf16 pass (b): dwt, db
+// block (rt, ct) x split: dwt rows [128 rt, 128 rt + 128) (chunk 2 rt + wg
+// per warpgroup) x columns [128 ct, 128 ct + 128) over one edge range
+template <bool L2>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    tp_bwd_weights_tc(TcArgs p, int per_split,
+                      const __grid_constant__ CUtensorMap h_m) {
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  constexpr uint32_t STAGE = 2 * SLAB;
+  const int d = p.d, nct = d / W_COLS;
+  const int rt = blockIdx.x / nct, ct = blockIdx.x % nct;
+  const uint32_t raw = saddr(smem_tc);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_tc + (base - raw);
+  const uint32_t bars = base + (uint32_t)W_BARS;
+  const Ring ring{base + (uint32_t)W_RING, bars, bars + 8u * W_STAGES,
+                  W_STAGES};
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ebeg = blockIdx.y * per_split;
+  const int eend = ebeg + per_split < p.E ? ebeg + per_split : p.E;
+  const int nsteps = eend > ebeg ? (eend - ebeg) / TE : 0;
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 8);  // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: the h boxes of each 64-edge step
+    if ((tid & 31) == 0)
+      for (int i = 0; i < nsteps; ++i) {
+        const uint32_t st = ring.acquire(i, STAGE, STAGE);
+        const uint32_t fb = ring.full + 8 * ring.stage(i);
+        tma_load(st, &h_m, fb, ct * W_COLS, ebeg + i * TE);
+        tma_load(st + SLAB, &h_m, fb, ct * W_COLS + 64, ebeg + i * TE);
+      }
+    return;
+  }
+
+  const int wg = warp >> 2, wt = tid & 127, wi = wt >> 5, lane = wt & 31;
+  const int vc = wt & 7, rg = wt >> 3;
+  const int ch = 2 * rt + wg;
+  const bool with_db = ct == 0;
+  unsigned char* a_g = gbase + W_A + (size_t)wg * 2 * SLAB;
+  const uint32_t a_a = base + (uint32_t)W_A + (uint32_t)wg * 2 * SLAB;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float dbs[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) dbs[k] = 0.f;
+  uint4 dv[4];
+  bf16 av[4];
+  if (nsteps > 0)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      fetch_row<L2>(p, ch, vc, (size_t)ebeg + rg + 16 * q, dv[q], av[q]);
+  for (int i = 0; i < nsteps; ++i) {
+    unsigned char* buf = a_g + (i & 1) * SLAB;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // dwall^T rows = edges, 64 chunk columns
+      const uint4 u = dwall8(dv[q], av[q]);
+      *reinterpret_cast<uint4*>(buf + sw_off(rg + 16 * q, 8 * vc)) = u;
+      if (with_db) {
+        const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(as_bf162(w4[k]));
+          dbs[2 * k] = __fadd_rn(dbs[2 * k], f.x);
+          dbs[2 * k + 1] = __fadd_rn(dbs[2 * k + 1], f.y);
+        }
+      }
+    }
+    if (i + 1 < nsteps)  // the next step's rows, in flight during the product
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        fetch_row<L2>(p, ch, vc, (size_t)ebeg + (i + 1) * TE + rg + 16 * q,
+                      dv[q], av[q]);
+    fence_async_smem();
+    bar_sync(2 + wg, 128);  // this step's A tile is in place
+    const uint32_t st = ring.wait_full(i, STAGE);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 edges each
+      wgmma_m64n128<1, 1>(
+          acc, sw128_desc(a_a + (i & 1) * SLAB + kk * 2048, SLAB, 1024),
+          sw128_desc(st + kk * 2048, SLAB, 1024));
+    wg_commit();
+    fence_acc(acc);
+    if (i > 0) {
+      wg_wait<1>();
+      fence_acc(acc);
+      ring.release(i - 1);
+    }
+    bar_sync(2 + wg, 128);  // every warp saw step i - 1 done: its A is free
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  if (nsteps > 0) ring.release(nsteps - 1);
+  float* out = p.w_part + (size_t)blockIdx.y * NUMEL * d +
+               (size_t)(ch * CW) * d + ct * W_COLS;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int c = 8 * i + 2 * (lane & 3);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = wi * 16 + (lane >> 2) + 8 * hr;
+      *reinterpret_cast<float2*>(out + (size_t)r * d + c) =
+          make_float2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+    }
+  }
+  if (with_db) {  // the 16 row groups' sums in order
+    float* red = reinterpret_cast<float*>(gbase + W_RED) + wg * 16 * 64;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) red[rg * 64 + 8 * vc + k] = dbs[k];
+    bar_sync(2 + wg, 128);
+    if (wt < 64) {
+      float s = red[wt];
+      for (int g = 1; g < 16; ++g) s = __fadd_rn(s, red[g * 64 + wt]);
+      p.db_part[(size_t)blockIdx.y * NUMEL + ch * CW + wt] = s;
+    }
+  }
+}
+
+// ------------------------------------------------------ pass (c): reduce
+__global__ void __launch_bounds__(NTHREADS)
+    tp_bwd_reduce(const float* __restrict__ w_part,
+                  const float* __restrict__ db_part, float* __restrict__ dwt,
+                  float* __restrict__ db, int n_w, int ksplit) {
+  const size_t i = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
+  if (i < (size_t)n_w) {
+    float s = 0.f;
+    for (int k = 0; k < ksplit; ++k)
+      s = __fadd_rn(s, w_part[(size_t)k * n_w + i]);
+    dwt[i] = s;
+  } else if (i < (size_t)n_w + NUMEL) {
+    const size_t c = i - n_w;
+    float s = 0.f;
+    for (int k = 0; k < ksplit; ++k)
+      s = __fadd_rn(s, db_part[(size_t)k * NUMEL + c]);
+    db[c] = s;
+  }
 }
 
 // ------------------------------------------------------ f32: CUDA cores
 
 template <bool L2, int D>
-size_t smem_tile_f32() {
+size_t smem_tile_f32(bool full_h) {
   return sizeof(float) *
-         ((size_t)TEF * (D + 4) + (size_t)CW * (D + 4) +
+         ((full_h ? (size_t)TEF * (D + 4) : 0) + (size_t)CW * (D + 4) +
           TEF * (a_width<L2>() + dc_width<L2>()) + TEF * (CW + 1) +
           TEF * a_width<L2>());
 }
 
-// (a) dh and da for one 32-edge tile
+// (a) dh and da for one 32-edge tile; the h tile is staged in shared
+// memory where it fits (full_h), else read from device memory
 template <bool L2, int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
     tp_bwd_tile_fma(const float* __restrict__ h, const float* __restrict__ a0,
@@ -514,27 +975,29 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                     const float* __restrict__ dc1,
                     const float* __restrict__ dc2, float* __restrict__ dh,
                     float* __restrict__ da0, float* __restrict__ da1,
-                    float* __restrict__ da2) {
+                    float* __restrict__ da2, int full_h) {
   extern __shared__ float4 smem4[];
   constexpr int LD = D + 4;
   constexpr int AW = a_width<L2>(), DW = dc_width<L2>();
   constexpr int QC = D / 64;  // dh columns per thread
-  float* h_s = reinterpret_cast<float*>(smem4);  // [TEF][LD]
-  float* w_s = h_s + TEF * LD;                    // [CW][LD]
-  float* a_s = w_s + CW * LD;                     // [TEF][AW]
-  float* dc_s = a_s + TEF * AW;                   // [TEF][DW]
-  float* dw_s = dc_s + TEF * DW;                  // [TEF][CW + 1]
-  float* da_s = dw_s + TEF * (CW + 1);            // [TEF][AW]
+  float* h_s = reinterpret_cast<float*>(smem4);   // [TEF][LD] (full_h)
+  float* w_s = h_s + (full_h ? TEF * LD : 0);      // [CW][LD]
+  float* a_s = w_s + CW * LD;                      // [TEF][AW]
+  float* dc_s = a_s + TEF * AW;                    // [TEF][DW]
+  float* dw_s = dc_s + TEF * DW;                   // [TEF][CW + 1]
+  float* da_s = dw_s + TEF * (CW + 1);             // [TEF][AW]
   const int tid = threadIdx.x;
   const int r = tid >> 3, sub = tid & 7;       // chunk work: row, column
   const int kc = tid & 63, rq = (tid >> 6) * 8;  // dh work: columns, rows
   const size_t e0 = (size_t)blockIdx.x * TEF;
+  const float* hrow = full_h ? h_s + r * LD : h + (e0 + r) * D;
 
-  for (int i = tid; i < TEF * D / 4; i += NTHREADS) {
-    const int rr = i / (D / 4), c = 4 * (i % (D / 4));
-    *reinterpret_cast<float4*>(h_s + rr * LD + c) =
-        *reinterpret_cast<const float4*>(h + (e0 + rr) * D + c);
-  }
+  if (full_h)
+    for (int i = tid; i < TEF * D / 4; i += NTHREADS) {
+      const int rr = i / (D / 4), c = 4 * (i % (D / 4));
+      *reinterpret_cast<float4*>(h_s + rr * LD + c) =
+          *reinterpret_cast<const float4*>(h + (e0 + rr) * D + c);
+    }
   for (int i = tid; i < TEF * AW; i += NTHREADS) {
     a_s[i] = a_at<L2>(a0, a1, a2, e0 + i / AW, i % AW);
     da_s[i] = 0.f;
@@ -562,7 +1025,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
     for (int j = 0; j < 8; ++j) f[j] = 0.f;
     for (int k = 0; k < D; k += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(h_s + r * LD + k);
+      const float4 x = *reinterpret_cast<const float4*>(hrow + k);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float4 w =
@@ -583,9 +1046,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       int acol, dcol;
       chunk_cols<L2>(ch, c, acol, dcol);
       const float w = __fadd_rn(f[j], bias[ch * CW + c]);
-      const float p = __fmul_rn(drow[dcol], w);
-      s64 = __fadd_rn(s64, p);
-      s8[j] = p;
+      const float pr = __fmul_rn(drow[dcol], w);
+      s64 = __fadd_rn(s64, pr);
+      s8[j] = pr;
       dw_s[r * (CW + 1) + c] = __fmul_rn(drow[dcol], arow[acol]);
     }
     // sums over v across the 8 lanes of a row (fixed xor order)
@@ -706,91 +1169,190 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // --------------------------------------------------------------- host
 
-template <bool L2, int D>
-size_t smem_bytes(bool is_bf16) {
-  if (is_bf16) {
-    const size_t a = smem_tile_bf16<L2, D>(), b = smem_weight_bf16();
-    return a > b ? a : b;
+int n_weight_tiles(int d) { return (NUMEL / W_ROWS) * (d / W_COLS); }
+
+// edge ranges of the bf16 weight pass: the KSPLIT (up to 4) whose waves of
+// tiles x KSPLIT blocks over the SMs take the least time
+int ksplit_of(int E, int d) {
+  const int tiles = n_weight_tiles(d), nsm = num_sms();
+  int best = 1;
+  double best_t = 1e30;
+  for (int k = 1; k <= KSPLIT_MAX && k <= E / TE; ++k) {
+    const double t = (double)((tiles * k + nsm - 1) / nsm) / k;
+    if (t < best_t) {
+      best_t = t;
+      best = k;
+    }
   }
-  const size_t a = smem_tile_f32<L2, D>(), b = smem_weight_f32();
-  return a > b ? a : b;
+  return best;
 }
 
 template <typename K, typename... Args>
-cudaError_t launch(K kern, dim3 blocks, size_t smem, cudaStream_t s,
-                   Args... args) {
+cudaError_t launch(K kern, dim3 blocks, int threads, size_t smem,
+                   cudaStream_t s, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<blocks, NTHREADS, smem, s>>>(args...);
+  kern<<<blocks, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <bool L2, int NH>
+cudaError_t run_bf16(const TcArgs& p, float* dwt, float* db, cudaStream_t s) {
+  constexpr int D = 128 * NH;
+  CUtensorMap h_m, wt_m;
+  if (!make_map(&h_m, p.h, D, p.E) || !make_map(&wt_m, p.wt, D, NUMEL))
+    return cudaErrorInvalidValue;
+  const int n_tiles = p.E / TE, nsm = num_sms();
+  const dim3 grid(n_tiles < nsm ? n_tiles : nsm);
+  cudaError_t err;
+  if constexpr (NH <= 2) {  // column halves, two chunks in the ring
+    const SplitLayout L(D);
+    if (L.stages < 2 * (D / 64) || L.total > (size_t)SMEM_LIMIT)
+      return cudaErrorInvalidConfiguration;
+    err = launch(tp_bwd_tile_split<L2, NH>, grid, TC_THREADS, L.total, s, p,
+                 h_m, wt_m);
+  } else {
+    const TileLayout L(D);
+    if (L.stages < D / 64 || L.total > (size_t)SMEM_LIMIT)
+      return cudaErrorInvalidConfiguration;
+    err = launch(tp_bwd_tile_tc<L2, NH>, grid, TC_THREADS, L.total, s, p,
+                 h_m, wt_m);
+  }
+  if (err != cudaSuccess) return err;
+  const int ksplit = ksplit_of(p.E, D);
+  const int per_split = (n_tiles + ksplit - 1) / ksplit * TE;
+  err = launch(tp_bwd_weights_tc<L2>, dim3(n_weight_tiles(D), ksplit),
+               TC_THREADS, WEIGHT_SMEM, s, p, per_split, h_m);
+  if (err != cudaSuccess) return err;
+  const int n_w = NUMEL * D;
+  tp_bwd_reduce<<<(n_w + NUMEL + NTHREADS - 1) / NTHREADS, NTHREADS, 0, s>>>(
+      p.w_part, p.db_part, dwt, db, n_w, ksplit);
   return cudaGetLastError();
 }
 
 template <bool L2, int D>
+cudaError_t run_f32(const void* h, const void* a0, const void* a1,
+                    const void* a2, const void* wt, const void* bias,
+                    const void* dc0, const void* dc1, const void* dc2,
+                    void* dh, void* da0, void* da1, void* da2, void* dwt,
+                    void* db, int E, cudaStream_t s) {
+  using T = const float*;
+  const bool full_h = smem_tile_f32<L2, D>(true) <= (size_t)SMEM_LIMIT;
+  cudaError_t err = launch(tp_bwd_tile_fma<L2, D>, dim3(E / TEF), NTHREADS,
+                           smem_tile_f32<L2, D>(full_h), s, (T)h, (T)a0,
+                           (T)a1, (T)a2, (T)wt, (T)bias, (T)dc0, (T)dc1,
+                           (T)dc2, (float*)dh, (float*)da0, (float*)da1,
+                           (float*)da2, (int)full_h);
+  if (err != cudaSuccess) return err;
+  return launch(tp_bwd_weight_fma<L2, D>, dim3(NCHUNK, D / KB), NTHREADS,
+                smem_weight_f32(), s, (T)h, (T)a0, (T)a1, (T)a2, (T)dc0,
+                (T)dc1, (T)dc2, (float*)dwt, (float*)db, E);
+}
+
+template <bool L2>
 cudaError_t run(const void* h, const void* a0, const void* a1,
                 const void* a2, const void* wt, const void* bias,
                 const void* dc0, const void* dc1, const void* dc2, void* dh,
-                void* da0, void* da1, void* da2, void* dwt, void* db, int E,
-                bool is_bf16, cudaStream_t s) {
-  const dim3 wgrid(NCHUNK, D / KB);
-  cudaError_t err;
+                void* da0, void* da1, void* da2, void* dwt, void* db,
+                void* work, int E, int d, bool is_bf16, cudaStream_t s) {
   if (is_bf16) {
     using T = const bf16*;
-    err = launch(tp_bwd_tile_mma<L2, D>, dim3(E / TE),
-                 smem_tile_bf16<L2, D>(), s, (T)h, (T)a0, (T)a1, (T)a2,
-                 (T)wt, (T)bias, (T)dc0, (T)dc1, (T)dc2, (bf16*)dh,
-                 (bf16*)da0, (bf16*)da1, (bf16*)da2);
-    if (err != cudaSuccess) return err;
-    return launch(tp_bwd_weight_mma<L2, D>, wgrid, smem_weight_bf16(), s,
-                  (T)h, (T)a0, (T)a1, (T)a2, (T)dc0, (T)dc1, (T)dc2,
-                  (float*)dwt, (float*)db, E);
+    const int ksplit = ksplit_of(E, d);
+    const TcArgs p{(T)h,  (T)a0, (T)a1, (T)a2, (T)wt, (T)bias,
+                   (T)dc0, (T)dc1, (T)dc2, (bf16*)dh, (bf16*)da0,
+                   (bf16*)da1, (bf16*)da2, (float*)work,
+                   (float*)work + (size_t)ksplit * NUMEL * d, E, d};
+    switch (d) {
+      case 128: return run_bf16<L2, 1>(p, (float*)dwt, (float*)db, s);
+      case 256: return run_bf16<L2, 2>(p, (float*)dwt, (float*)db, s);
+      case 384: return run_bf16<L2, 3>(p, (float*)dwt, (float*)db, s);
+      default: return run_bf16<L2, 4>(p, (float*)dwt, (float*)db, s);
+    }
   }
-  using T = const float*;
-  err = launch(tp_bwd_tile_fma<L2, D>, dim3(E / TEF), smem_tile_f32<L2, D>(),
-               s, (T)h, (T)a0, (T)a1, (T)a2, (T)wt, (T)bias, (T)dc0, (T)dc1,
-               (T)dc2, (float*)dh, (float*)da0, (float*)da1, (float*)da2);
-  if (err != cudaSuccess) return err;
-  return launch(tp_bwd_weight_fma<L2, D>, wgrid, smem_weight_f32(), s, (T)h,
-                (T)a0, (T)a1, (T)a2, (T)dc0, (T)dc1, (T)dc2, (float*)dwt,
-                (float*)db, E);
+  switch (d) {
+    case 128:
+      return run_f32<L2, 128>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
+                              da0, da1, da2, dwt, db, E, s);
+    case 256:
+      return run_f32<L2, 256>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
+                              da0, da1, da2, dwt, db, E, s);
+    case 384:
+      return run_f32<L2, 384>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
+                              da0, da1, da2, dwt, db, E, s);
+    default:
+      return run_f32<L2, 512>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
+                              da0, da1, da2, dwt, db, E, s);
+  }
 }
+
+bool width_ok(int d) { return d == 128 || d == 256 || d == 384 || d == 512; }
 
 }  // namespace
 
-// Shared memory of the larger of the two passes' blocks (bytes), for the
-// wrapper's shape check; 0 for an unsupported d.
-extern "C" long long tp_contract_bwd_smem(int d, int is_bf16, int l2) {
-  if (d != 128 && d != 256) return 0;
-  if (l2)
-    return (long long)(d == 128 ? smem_bytes<true, 128>(is_bf16 != 0)
-                                : smem_bytes<true, 256>(is_bf16 != 0));
-  return (long long)(d == 128 ? smem_bytes<false, 128>(is_bf16 != 0)
-                              : smem_bytes<false, 256>(is_bf16 != 0));
+// Shared memory (bytes) of the block of each pass: kind 0 the bf16 tile
+// pass (TileLayout, whose stages must hold a chunk's d / 64 slabs), 1 the
+// bf16 weight pass, 2 the f32 tile pass, 3 the f32 weight pass; 0 for an
+// unsupported d.
+extern "C" long long tp_contract_bwd_smem(int d, int kind, int l2) {
+  if (!width_ok(d)) return 0;
+  switch (kind) {
+    case 0:
+      return (long long)(d <= 256 ? SplitLayout(d).total
+                                  : TileLayout(d).total);
+    case 1: return (long long)WEIGHT_SMEM;
+    case 3: return (long long)smem_weight_f32();
+    default: break;
+  }
+  size_t full, part;
+  switch (d) {
+    case 128:
+      full = l2 ? smem_tile_f32<true, 128>(true) : smem_tile_f32<false, 128>(true);
+      part = l2 ? smem_tile_f32<true, 128>(false) : smem_tile_f32<false, 128>(false);
+      break;
+    case 256:
+      full = l2 ? smem_tile_f32<true, 256>(true) : smem_tile_f32<false, 256>(true);
+      part = l2 ? smem_tile_f32<true, 256>(false) : smem_tile_f32<false, 256>(false);
+      break;
+    case 384:
+      full = l2 ? smem_tile_f32<true, 384>(true) : smem_tile_f32<false, 384>(true);
+      part = l2 ? smem_tile_f32<true, 384>(false) : smem_tile_f32<false, 384>(false);
+      break;
+    default:
+      full = l2 ? smem_tile_f32<true, 512>(true) : smem_tile_f32<false, 512>(true);
+      part = l2 ? smem_tile_f32<true, 512>(false) : smem_tile_f32<false, 512>(false);
+  }
+  return (long long)(full <= (size_t)SMEM_LIMIT ? full : part);
 }
 
-// C entry point (bound with ctypes). E % 64 == 0, d in {128, 256}; every
-// tensor in one dtype (is_bf16), 16-byte aligned. l2 = 0: a0 = a [E, 64],
-// dc0/dc1/dc2 [E,64]/[E,8]/[E,8], da0 [E, 64]; a1/a2/da1/da2 unused (null).
-// l2 = 1: a0/a1/a2 and da0/da1/da2 [E,64]/[E,8]/[E,8], dc0 [E, 64],
-// dc1/dc2 unused. dh [E, d]; dwt [5120, d] and db [5120] f32. Two launches
-// on the stream; returns cudaGetLastError() after them.
+// floats of scratch the bf16 path needs in ``work`` (the weight pass's
+// partials); 0 in f32
+extern "C" long long tp_contract_bwd_workspace(int E, int d, int is_bf16) {
+  if (!is_bf16 || !width_ok(d)) return 0;
+  return (long long)ksplit_of(E, d) * NUMEL * ((long long)d + 1);
+}
+
+// C entry point (bound with ctypes). E % 64 == 0, d in {128, 256, 384, 512};
+// every tensor in one dtype (is_bf16), 16-byte aligned. l2 = 0: a0 = a
+// [E, 64], dc0/dc1/dc2 [E,64]/[E,8]/[E,8], da0 [E, 64]; a1/a2/da1/da2 unused
+// (null). l2 = 1: a0/a1/a2 and da0/da1/da2 [E,64]/[E,8]/[E,8], dc0 [E, 64],
+// dc1/dc2 unused. dh [E, d]; dwt [5120, d] and db [5120] f32; work:
+// tp_contract_bwd_workspace floats. bf16: three launches on the stream
+// (tile pass, weight pass, reduce); f32: two. Returns cudaGetLastError()
+// after them (cudaErrorInvalidValue when a tensor map cannot be made).
 extern "C" int tp_contract_bwd(const void* h, const void* a0, const void* a1,
                                const void* a2, const void* wt,
                                const void* bias, const void* dc0,
                                const void* dc1, const void* dc2, void* dh,
                                void* da0, void* da1, void* da2, void* dwt,
-                               void* db, int E, int d, int is_bf16, int l2,
-                               void* stream) {
+                               void* db, void* work, int E, int d,
+                               int is_bf16, int l2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (E == 0 || (d != 128 && d != 256)) return cudaGetLastError();
+  if (E == 0 || !width_ok(d)) return cudaGetLastError();
   const bool bf = is_bf16 != 0;
   if (l2)
-    return d == 128 ? run<true, 128>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2,
-                                     dh, da0, da1, da2, dwt, db, E, bf, s)
-                    : run<true, 256>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2,
-                                     dh, da0, da1, da2, dwt, db, E, bf, s);
-  return d == 128 ? run<false, 128>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2,
-                                    dh, da0, da1, da2, dwt, db, E, bf, s)
-                  : run<false, 256>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2,
-                                    dh, da0, da1, da2, dwt, db, E, bf, s);
+    return run<true>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh, da0, da1,
+                     da2, dwt, db, work, E, d, bf, s);
+  return run<false>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh, da0, da1,
+                    da2, dwt, db, work, E, d, bf, s);
 }

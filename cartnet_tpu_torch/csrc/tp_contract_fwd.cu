@@ -33,7 +33,11 @@
 // in registers (the TPU's R_rep / R_sum 0/1 matmuls are not needed). Each
 // row's arithmetic is independent of the tile it sits in. f32: blocks of
 // 128 edges, a register-tiled FMA GEMM on the CUDA cores writes the chunk to
-// shared memory and each thread contracts the (edge, v) outputs it owns.
+// shared memory and each thread contracts the (edge, v) outputs it owns;
+// past d = 256 the h tile no longer fits beside the chunk tiles, and h is
+// staged KC columns at a time beside the weight chunk (a K loop over d).
+// bf16 at d = 512 fits with at most 5 warps per block (the wrapper picks
+// the largest warp count that fits).
 // Sums run in a fixed order (ascending u), so results are bitwise
 // repeatable; the epilogue uses explicitly rounded adds/multiplies.
 
@@ -301,10 +305,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                const float* __restrict__ a1, const float* __restrict__ a2,
                const float* __restrict__ wt, const float* __restrict__ bias,
                float* __restrict__ out0, float* __restrict__ out1,
-               float* __restrict__ out2, int E, int d) {
+               float* __restrict__ out2, int E, int d, int full_h) {
   extern __shared__ float4 smem4[];
   constexpr int AS = a_stride<L2, float>();
-  const int ldh = d + 4;
+  // h_s holds the whole h tile where it fits (full_h), else the KC columns
+  // of the current step, staged beside each weight chunk (a K loop over d)
+  const int ldh = full_h ? d + 4 : KC + 4;
   float* h_s = reinterpret_cast<float*>(smem4);  // [TE][ldh]
   float* w_s = h_s + TE * ldh;                    // [KC][CW]
   float* c_s = w_s + KC * CW;                     // [TE][CS]
@@ -312,11 +318,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t e0 = (size_t)blockIdx.x * TE;
 
-  for (int i = tid; i < TE * d / 4; i += NTHREADS) {
-    const int r = i / (d / 4), c = 4 * (i % (d / 4));
-    *reinterpret_cast<float4*>(&h_s[r * ldh + c]) =
-        *reinterpret_cast<const float4*>(&h[(e0 + r) * d + c]);
-  }
+  if (full_h)
+    for (int i = tid; i < TE * d / 4; i += NTHREADS) {
+      const int r = i / (d / 4), c = 4 * (i % (d / 4));
+      *reinterpret_cast<float4*>(&h_s[r * ldh + c]) =
+          *reinterpret_cast<const float4*>(&h[(e0 + r) * d + c]);
+    }
   stage_a<L2, float>(a0, a1, a2, e0, TE, E, a_s);
   __syncthreads();
 
@@ -341,14 +348,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int n = i / KC, kk = i % KC;
         w_s[kk * CW + n] = wt[(size_t)(ch * CW + n) * d + k0 + kk];
       }
+      if (!full_h)
+        for (int i = tid; i < TE * KC / 4; i += NTHREADS) {
+          const int r = i / (KC / 4), c = 4 * (i % (KC / 4));
+          *reinterpret_cast<float4*>(&h_s[r * ldh + c]) =
+              *reinterpret_cast<const float4*>(&h[(e0 + r) * d + k0 + c]);
+        }
       __syncthreads();
+      const int hk = full_h ? k0 : 0;  // h_s column of step k0
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 4) {
         float4 a4[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           a4[i] = *reinterpret_cast<const float4*>(
-              &h_s[(ty * 8 + i) * ldh + k0 + kk]);
+              &h_s[(ty * 8 + i) * ldh + hk + kk]);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float4 b4 =
@@ -418,6 +432,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
+constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
+
+// f32 shared memory (bytes) with the whole h tile staged (full_h) or KC
+// columns of it per step
+size_t smem_f32(int d, bool l2, bool full_h) {
+  const int as = l2 ? a_stride<true, float>() : a_stride<false, float>();
+  return sizeof(float) * ((size_t)TE * (full_h ? d + 4 : KC + 4) + KC * CW +
+                          TE * CS + (size_t)TE * as);
+}
+
 // dynamic shared memory of one block (bytes); warps: the bf16 tile
 size_t smem_bytes(int d, bool is_bf16, bool l2, int warps) {
   if (is_bf16)
@@ -425,9 +449,8 @@ size_t smem_bytes(int d, bool is_bf16, bool l2, int warps) {
            ((size_t)(16 * warps + 2 * CW) * (d + 8) +
             (size_t)16 * warps *
                 (l2 ? a_stride<true, bf16>() : a_stride<false, bf16>()));
-  const int as = l2 ? a_stride<true, float>() : a_stride<false, float>();
-  return sizeof(float) *
-         ((size_t)TE * (d + 4) + KC * CW + TE * CS + (size_t)TE * as);
+  const size_t full = smem_f32(d, l2, true);
+  return full <= SMEM_LIMIT ? full : smem_f32(d, l2, false);
 }
 
 template <typename K, typename... Args>
@@ -450,7 +473,8 @@ cudaError_t run(const void* h, const void* a0, const void* a1,
     return launch(tp_fwd_fma<L2>, E / TE, NTHREADS, smem, s,
                   (const float*)h, (const float*)a0, (const float*)a1,
                   (const float*)a2, (const float*)wt, (const float*)bias,
-                  (float*)out0, (float*)out1, (float*)out2, E, d);
+                  (float*)out0, (float*)out1, (float*)out2, E, d,
+                  (int)(smem_f32(d, L2, true) <= SMEM_LIMIT));
   const int te = 16 * warps, blocks = (E + te - 1) / te;
   if (a_f32)
     return launch(tp_fwd_mma<L2, float>, blocks, 32 * warps, smem, s,
@@ -471,7 +495,8 @@ extern "C" long long tp_contract_fwd_smem(int d, int is_bf16, int l2,
   return (long long)smem_bytes(d, is_bf16 != 0, l2 != 0, warps);
 }
 
-// C entry point (bound with ctypes). E % 128 == 0, d % 16 == 0; h [E, d],
+// C entry point (bound with ctypes). E % 128 == 0, d % 16 == 0 (the wrapper
+// pads other widths), bf16 with a warp count whose smem_bytes fits; h [E, d],
 // wt [5120, d], bias [5120] and the outputs in one dtype (is_bf16), a in f32
 // (a_f32 = 1) or h's dtype. l2 = 0: a0 = a [E, 64], a1/a2 unused (null),
 // outputs out0 [E, 64], out1 [E, 8], out2 [E, 8]; l2 = 1: a0 [E, 64],

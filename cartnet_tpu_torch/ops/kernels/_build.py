@@ -7,7 +7,8 @@ use into ``cartnet_tpu_torch/_build/lib<name>.so``:
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
 The ptxas report (registers, shared memory, spills) is kept beside the
-library as ``<name>.log``. A library newer than its source is reused.
+library as ``<name>.log``. A library newer than its source and than every
+shared header ``csrc/*.cuh`` is reused.
 Nothing is built while a module is imported.
 """
 
@@ -40,8 +41,14 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = lib_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """No library yet, or one older than its source or than any shared
+    header (``csrc/*.cuh``, which several sources include)."""
+    lib = lib_path(name)
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return any(built < dep.stat().st_mtime for dep in deps)
 
 
 def _command(name: str, out: Path):

@@ -18,8 +18,25 @@ windows; any tile size merges exactly in the training slice.
 Node tables (xi, xj) come in bf16 or f32; e and the weights share the compute
 dtype. Every edge is computed, pads included (pads point at real rows).
 On a CUDA tensor ``edge_phase_fwd`` launches ``csrc/edge_phase_fwd.cu`` or
-raises; on a CPU tensor it runs ``edge_phase_fwd_plain``. The kernels take
-d % 128 == 0 and d <= 512 (``MAX_WIDTH``).
+raises; on a CPU tensor it runs ``edge_phase_fwd_plain``.
+
+Widths: the wrappers of K1, K5 and K6 take every 1 <= d <= 512
+(``MAX_WIDTH``). The kernels tile d in 64-column wgmma/TMA slabs shared by
+two warpgroups, 128 columns a pair (and the f32 paths in 128-column
+chunks), so a width that is not a multiple of 128 (``GRANULE``) is
+zero-padded inside the wrapper to the next one (``_pad``; the ``*_PAD``
+specs below say, by operand and output name, which axes carry d) and the
+outputs are cut back. The padding is exact: padded rows and columns of We, W1g, W1a and of
+b, b1g, b1a are zero, and so are the padded columns of xi, xj, e, so the
+padded columns of pre are 0 and h = silu(0) = 0, and the padded gate and
+sender columns are 0; no pad term enters a sum over a real column (every
+product over d meets a zero factor there). In the backward the padded
+cotangents (dgate, dsender, deres; deout, daggr) and window moments are
+zero, so the padded dg, ds, dh and dpre are 0 and add nothing to de, the
+node sums or the weight gradients; padded moments, residual columns and
+gradients are cut away. The padded copies cost time at narrow widths only
+(below 128). Above 512 the wrappers raise: K1's e and h tiles and K5/K6's
+tile-pass tiles would not leave the TMA ring room in shared memory.
 
 The backward (port of ``edge_phase_bwd_call`` -> ``_bwd_kernel``, driven by
 ``_ep_bwd``) is ``edge_phase_bwd``: on a CUDA tensor it launches
@@ -48,7 +65,7 @@ import ctypes
 import torch
 
 from cartnet_tpu_torch.nn.norm import combine_window_moments
-from cartnet_tpu_torch.ops.kernels import _build
+from cartnet_tpu_torch.ops.kernels import _build, _pad
 from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
 
 # the CUDA kernel's edge tile: E must be a multiple of it, and it is the
@@ -129,29 +146,78 @@ def _check(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask):
         raise TypeError("emask must be bool")
 
 
-MAX_WIDTH = 512  # the edge kernels take d % 128 == 0 and d <= MAX_WIDTH
+MAX_WIDTH = 512  # the widest d the edge kernels take
+GRANULE = 128  # the kernels' width granule: other widths are zero-padded
+# pad specs (``_pad``) by name: K1's operands and outputs (the saved
+# residual [pre | sig], or pre alone), the backwards' outputs, and the
+# operands of K5 and K6 (those they share, then each one's own)
+_INDEX_PAD = dict(dst=None, src=None, emask=None, dst_rowptr=None,
+                  src_perm=None, src_rowptr=None)
+FWD_PAD = dict(xi=(False, 2), xj=(False, 2), e=(False, 1), we=(True, 2),
+               b=(False, 2), w1g=(True, 1), b1g=(False, 1), w1a=(True, 1),
+               b1a=(False, 1), dst=None, src=None, emask=None)
+FWD_OUT_PAD = dict(gate=(False, 1), sender=(False, 1), saved=(False, 4),
+                   s1_w=(False, 1), M2_w=(False, 1))
+FWD_OUT_PAD_PRE = dict(FWD_OUT_PAD, saved=(False, 2))
+BWD_OUT_PAD = dict(de=(False, 1), dxi=(False, 2), dxj=(False, 2),
+                   dwe=(True, 2), db=(False, 2), dw1g=(True, 1),
+                   db1g=(False, 1), dw1a=(True, 1), db1a=(False, 1))
+_SHARED_PAD = dict(e=(False, 1), we=(True, 2), w1g=(True, 1), w1a=(True, 1),
+                   gate=(False, 1), meanw=(False, 1), ds1w=(False, 1),
+                   dm2w=(False, 1), **_INDEX_PAD)
+BWD_PAD = dict(_SHARED_PAD, saved=(False, 4), dgate=(False, 1),
+               dsender=(False, 1), deres=(False, 1))
+MERGED_PAD = dict(_SHARED_PAD, pre=(False, 2), sender=(False, 1), env=None,
+                  scale=(False, 1), shift=(False, 1), deout=(False, 1),
+                  daggr=(False, 1))
+
+
+def padded_width(d: int) -> int:
+    """The width the edge kernels run at for a real width d."""
+    if not 0 < d <= MAX_WIDTH:
+        raise ValueError(f"the edge kernels take 0 < d <= {MAX_WIDTH}, "
+                         f"got d={d}")
+    return _pad.round_up(d, GRANULE)
 
 
 def _a128(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def _smem_bytes(d: int, edge_bf16: bool) -> int:
-    """Dynamic shared memory of one K1 block (mirrors edge_phase_fwd.cu)."""
+def fwd_smem_plan(d: int, edge_bf16: bool) -> dict:
+    """K1's dynamic shared memory per block, for the CPU tests (mirrors
+    edge_phase_fwd.cu, whose ``edge_phase_fwd_smem`` the wrapper asks on
+    the card; ``chip_smoke.py`` holds the two equal): bf16 edges, the
+    wgmma kernel's e and h tiles (d x 128 bytes each), 8 KB of moment sums,
+    the tile's ids, then as many 8 KB TMA ring stages as fit up to 16,
+    barriers and 1 KB of alignment slack; f32 edges, the FMA kernel's f32 e
+    tile where it fits, the half-h tile, weight chunk, ids/mask."""
+    if edge_bf16:
+        ring = _a1024(2 * d * 128 + 8192 + 4 * 3 * TILE_EDGES + 16)
+        stages = min(16, max(0, (_SMEM_LIMIT - 1024 - ring - 16 * 16 - 16)
+                             // 8192))
+        return {"total": 1024 + ring + stages * 8192 + 16 * stages + 16,
+                "stages": stages}
     t = TILE_EDGES
-    if edge_bf16:  # WMMA path: bf16 e and half-h tiles, weight chunk, f32 acc
-        return (2 * _a128(2 * t * (d + 8)) + _a128(2 * 64 * 136)
-                + _a128(4 * t * 132) + 4 * 3 * t)
-    # FMA path: the f32 e tile where it fits, the half-h tile, weight
-    # chunk, ids/mask
     fma = lambda stage_e: 4 * ((t * (d + 4) if stage_e else 0)
                                + t * (d + 4) + 16 * 128 + 3 * t)
-    return fma(True) if fma(True) <= _SMEM_LIMIT else fma(False)
+    return {"total": fma(True) if fma(True) <= _SMEM_LIMIT else fma(False),
+            "stages": 0}
+
+
+def _smem_bytes(d: int, edge_bf16: bool) -> int:
+    """Dynamic shared memory of one K1 block (``fwd_smem_plan``)."""
+    return fwd_smem_plan(d, edge_bf16)["total"]
+
+
+def _a1024(n: int) -> int:
+    return -(-n // 1024) * 1024
 
 
 def bwd_smem_plan(d: int, bf16: bool) -> dict:
-    """K5/K6's shared memory per pass (mirrors edge_phase_bwd.cu, whose
-    ``edge_phase_bwd_smem`` gives the tile pass's on the card): bf16,
+    """K5/K6's shared memory per pass, for the CPU tests (mirrors
+    edge_phase_bwd.cu, whose ``edge_phase_bwd_smem`` gives the tile pass's
+    on the card; ``chip_smoke.py`` holds the two equal): bf16,
     the tile pass's TMA ring (8 KB stages, as many as fit up to 16), dg/ds
     [64, d] and dpre_c [64, 2d] tiles, 4 KB of sums, barriers and 1 KB of
     alignment slack, and the weight pass's 4 stages of 32 KB; f32, the FMA
@@ -174,7 +240,9 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.edge_phase_fwd_smem.argtypes = [ctypes.c_int] * 2
+        lib.edge_phase_fwd_smem.restype = ctypes.c_longlong
+    return lib
 
 
 def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
@@ -189,18 +257,38 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
                                     pre_only=pre_only, moments=moments)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
-    args = (xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
-    if not all(t.is_contiguous() for t in args):
+    ops = dict(xi=xi, xj=xj, e=e, we=we, b=b, w1g=w1g, b1g=b1g, w1a=w1a,
+               b1a=b1a, dst=dst, src=src, emask=emask)
+    if not all(t.is_contiguous() for t in ops.values()):
         raise ValueError("edge_phase_fwd needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (e, we, w1g, w1a)):
-        raise ValueError("edge_phase_fwd needs 16-byte aligned e/weights")
+    E, d = e.shape
+    if E % TILE_EDGES:
+        raise ValueError(f"edge_phase_fwd kernel needs E % {TILE_EDGES} == 0"
+                         f" (E={E})")
+    dp = padded_width(d)
+    outs = _launch_fwd(**_pad.pad_named(ops, FWD_PAD, d, dp), saved=saved,
+                       pre_only=pre_only, moments=moments)
+    return tuple(_pad.cut_named(outs, FWD_OUT_PAD_PRE if pre_only
+                                else FWD_OUT_PAD, d, dp).values())
+
+
+def _launch_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
+                saved: bool, pre_only: bool, moments: bool) -> dict:
+    """One launch of csrc/edge_phase_fwd.cu at the padded width -> the
+    outputs by name (``FWD_OUT_PAD``)."""
+    # TMA reads e and the weights (16-byte aligned); the wgmma kernel reads
+    # the node tables as pairs of elements (float2 at most: 8 bytes)
+    if any(t.data_ptr() % 16 for t in (e, we, w1g, w1a)) or any(
+            t.data_ptr() % 8 for t in (xi, xj)):
+        raise ValueError("edge_phase_fwd needs e and the weights 16-byte "
+                         "aligned and the node tables 8-byte aligned")
     E, d = e.shape
     edge_bf16 = e.dtype == torch.bfloat16
-    if (E % TILE_EDGES or d % 128 or d > MAX_WIDTH
-            or _smem_bytes(d, edge_bf16) > _SMEM_LIMIT):
-        raise ValueError(f"edge_phase_fwd kernel needs E % {TILE_EDGES} == 0"
-                         f", d % 128 == 0 and d <= {MAX_WIDTH} (E={E}, "
-                         f"d={d})")
+    lib = _lib()
+    if d % GRANULE or lib.edge_phase_fwd_smem(d, int(edge_bf16)) \
+            > _SMEM_LIMIT:
+        raise ValueError(f"edge_phase_fwd kernel: no shared-memory plan for "
+                         f"d={d}")
     dev, cdt = e.device, xi.dtype
     gate = torch.empty((E, d), dtype=cdt, device=dev)
     sender = torch.empty((E, d), dtype=cdt, device=dev)
@@ -211,14 +299,15 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
         if moments else None
     m2w = torch.empty_like(s1w) if moments else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _lib()(*(ptr(t) for t in args), ptr(gate), ptr(sender), ptr(res),
-                 ptr(s1w), ptr(m2w), E, d, int(cdt == torch.bfloat16),
-                 int(edge_bf16), int(not pre_only),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    args = (xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
+    err = lib.edge_phase_fwd(
+        *(ptr(t) for t in args), ptr(gate), ptr(sender), ptr(res), ptr(s1w),
+        ptr(m2w), E, d, int(cdt == torch.bfloat16), int(edge_bf16),
+        int(not pre_only), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "edge_phase_fwd")
     global launches
     launches += 1
-    return gate, sender, res, s1w, m2w
+    return dict(gate=gate, sender=sender, saved=res, s1_w=s1w, M2_w=m2w)
 
 
 # ------------------------------------------------------------ backward (K5)
@@ -334,18 +423,22 @@ def _lib_bwd():
     return lib
 
 
-def _launch_bwd(entry: str, args, e, N: int):
-    """Launch ``entry`` of csrc/edge_phase_bwd.cu on ``args`` (contiguous;
-    an operand that is not 16-byte aligned, as the kernel's vector and TMA
-    loads need, is copied first) with fresh outputs and scratch -> (de,
-    dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a)."""
-    if not all(t.is_contiguous() for t in args):
+def _launch_bwd(entry: str, ops: dict, specs: dict, N: int):
+    """Launch ``entry`` of csrc/edge_phase_bwd.cu on the operands ``ops``
+    (name -> tensor in the entry point's order; contiguous; zero-padded to
+    the kernels' granule by their ``specs``; an operand that is not
+    16-byte aligned, as the kernel's vector and TMA loads need, is copied
+    first) with fresh outputs and scratch -> (de, dxi, dxj, dwe, db, dw1g,
+    db1g, dw1a, db1a) at the real width."""
+    if not all(t.is_contiguous() for t in ops.values()):
         raise ValueError(f"{entry} needs contiguous tensors")
-    E, d = e.shape
-    if d % 128 or d > MAX_WIDTH or E == 0:
-        raise ValueError(f"{entry} kernel needs d % 128 == 0, d <= "
-                         f"{MAX_WIDTH} and E > 0 (E={E}, d={d})")
-    args = tuple(t.clone() if t.data_ptr() % 16 else t for t in args)
+    E, d0 = ops["e"].shape
+    if E == 0:
+        raise ValueError(f"{entry} kernel needs E > 0")
+    d = padded_width(d0)
+    args = [t.clone() if t.data_ptr() % 16 else t
+            for t in _pad.pad_named(ops, specs, d0, d).values()]
+    e = args[0]
     lib = _lib_bwd()
     is_bf16 = int(e.dtype == torch.bfloat16)
     dev, f32 = e.device, torch.float32
@@ -370,9 +463,11 @@ def _launch_bwd(entry: str, args, e, N: int):
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     d2 = 2 * d * d
-    return (de, dxi, dxj, dw[:d2].view(d, 2 * d),
-            dbias[:2 * d], dw[d2:d2 + d * d].view(d, d), dbias[2 * d:3 * d],
-            dw[d2 + d * d:].view(d, d), dbias[3 * d:])
+    grads = dict(de=de, dxi=dxi, dxj=dxj, dwe=dw[:d2].view(d, 2 * d),
+                 db=dbias[:2 * d], dw1g=dw[d2:d2 + d * d].view(d, d),
+                 db1g=dbias[2 * d:3 * d], dw1a=dw[d2 + d * d:].view(d, d),
+                 db1a=dbias[3 * d:])
+    return tuple(_pad.cut_named(grads, BWD_OUT_PAD, d0, d).values())
 
 
 def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
@@ -393,10 +488,11 @@ def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
                                     src, emask, N)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
-    grads = _launch_bwd("edge_phase_bwd",
-                        (e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
-                         dgate, dsender, deres, emask, dst_rowptr, src_perm,
-                         src_rowptr), e, N)
+    grads = _launch_bwd("edge_phase_bwd", dict(
+        e=e, we=we, w1g=w1g, w1a=w1a, saved=saved, gate=gate, meanw=meanw,
+        ds1w=ds1w, dm2w=dm2w, dgate=dgate, dsender=dsender, deres=deres,
+        emask=emask, dst_rowptr=dst_rowptr, src_perm=src_perm,
+        src_rowptr=src_rowptr), BWD_PAD, N)
     global bwd_launches
     bwd_launches += 1
     return grads
@@ -451,10 +547,12 @@ def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
                                 daggr, dst, src, emask)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
-    grads = _launch_bwd("edge_phase_merged_bwd",
-                        (e, we, w1g, w1a, pre, gate, sender, env, scale,
-                         shift, meanw, ds1w, dm2w, deout, daggr, dst, emask,
-                         dst_rowptr, src_perm, src_rowptr), e, N)
+    grads = _launch_bwd("edge_phase_merged_bwd", dict(
+        e=e, we=we, w1g=w1g, w1a=w1a, pre=pre, gate=gate, sender=sender,
+        env=env, scale=scale, shift=shift, meanw=meanw, ds1w=ds1w,
+        dm2w=dm2w, deout=deout, daggr=daggr, dst=dst, emask=emask,
+        dst_rowptr=dst_rowptr, src_perm=src_perm, src_rowptr=src_rowptr),
+        MERGED_PAD, N)
     global merged_launches
     merged_launches += 1
     return grads

@@ -14,7 +14,9 @@ the masked-in edges of its CSR range [dst_rowptr[n], dst_rowptr[n+1]) in
 edge order, while separate blocks write e_out of the pad edges: no atomics,
 bitwise repeatable. On a CUDA tensor ``sigma_segsum`` launches
 ``csrc/sigma_segsum_fwd.cu`` or raises; on a CPU tensor it runs
-``sigma_segsum_plain``.
+``sigma_segsum_plain``. Both kernels take every width natively (K2
+0 < d <= 1024, K4 0 < d <= 512): threads are features, whole warps are
+launched, and a lane past d owns no feature; nothing is padded.
 
 The backward (port of ``_sigma_bwd`` -> ``_sigma_seg_bwd_kernel``) is
 ``sigma_segsum_bwd``: on a CUDA tensor it launches ``csrc/sigma_segsum_bwd.cu``
@@ -105,9 +107,8 @@ def sigma_segsum(gate, scale, shift, env, sender, e_in, edge_dst, emask,
     if not all(t.is_contiguous() for t in args):
         raise ValueError("sigma_segsum needs contiguous tensors")
     E, d = gate.shape
-    if d % 32 or d > 1024:
-        raise ValueError(f"sigma_segsum kernel needs d % 32 == 0 and "
-                         f"d <= 1024 (d={d})")
+    if d == 0 or d > 1024:
+        raise ValueError(f"sigma_segsum kernel needs 0 < d <= 1024 (d={d})")
     dev = gate.device
     e_out = torch.empty_like(e_in)
     aggr = torch.empty((num_nodes, d), dtype=gate.dtype, device=dev)
@@ -177,9 +178,9 @@ def sigma_segsum_bwd(gate, scale, shift, env, sender, deout, daggr, edge_dst,
     args = (gate, scale, shift, env, sender, deout, daggr, edge_dst, emask)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("sigma_segsum_bwd needs contiguous tensors")
-    if d % 32 or d > 512 or E == 0:
-        raise ValueError(f"sigma_segsum_bwd kernel needs d % 32 == 0, "
-                         f"d <= 512 and E > 0 (E={E}, d={d})")
+    if d == 0 or d > 512 or E == 0:
+        raise ValueError(f"sigma_segsum_bwd kernel needs 0 < d <= 512 and "
+                         f"E > 0 (E={E}, d={d})")
     dev = gate.device
     fn, tile = _lib_bwd()
     dgate = torch.empty_like(gate)

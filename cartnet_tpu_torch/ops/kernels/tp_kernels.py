@@ -18,8 +18,13 @@ the nn.Linear layout of the fc's second layer. ``a`` may be f32 beside bf16
 
 On a CUDA tensor the entries launch ``csrc/tp_contract_fwd.cu`` (one launch
 per call; nothing of size [E, 5120] reaches device memory; bf16 tiles sized
-to fill the card's SMs in one wave) or raise; on a CPU tensor they run
-``tp_contract_plain``.
+to fill the card's SMs in one wave, as far as shared memory allows: at
+d = 512 at most 5 warps a block) or raise; on a CPU tensor they run
+``tp_contract_plain``. The kernel takes d % 16 == 0 (``GRANULE``) natively;
+other widths 1 <= d <= 512 (``MAX_WIDTH``) are zero-padded inside the
+wrapper (h's and wt's padded columns are zero, so every product over d
+gains only zero terms and w_all is unchanged). f32 past d = 256 stages h
+in 16-column steps (a K loop over d).
 
 The backward (port of ``_bwd_call`` -> ``_tp_bwd_kernel``, driven by
 ``_l1_bwd`` / ``_l2_bwd``) is ``tp_contract_bwd``: from the cotangents dc of
@@ -31,11 +36,18 @@ the outputs it recomputes w_all and returns
 
 (L1: the one a sums its three paths in f32 and rounds once; L2: one dc
 [E, 64] feeds all three paths). On a CUDA tensor it launches
-``csrc/tp_contract_bwd.cu`` (one call: an edge-tile pass for dh and da and an
-output-tiled pass for dwt and db; no float atomics, nothing of size
-[E, 5120] in device memory) or raises; on a CPU tensor it runs
-``tp_contract_bwd_plain``. ``TPContractL1`` / ``TPContractL2`` are the
-autograd Functions: K7 forward, K8 backward.
+``csrc/tp_contract_bwd.cu`` or raises; on a CPU tensor it runs
+``tp_contract_bwd_plain``. One call is three CUDA launches in bf16 (a
+persistent wgmma + TMA edge-tile pass for dh and da, an output-tiled wgmma
+pass for dwt and db over KSPLIT edge ranges, a fixed-order reduce of the
+ranges) and two in f32 (the FMA passes); ``bwd_launches`` counts calls. No
+float atomics, nothing of size [E, 5120] in device memory. The kernel takes
+d % 128 == 0 (``BWD_GRANULE``: two warpgroups each own d/2 columns of dh
+in 64-column slabs); other widths up to 512 are zero-padded inside the
+wrapper (h's and wt's padded columns are zero, so w_all, da and the real
+columns of dh and dwt are unchanged; the padded ones are cut away).
+``TPContractL1`` / ``TPContractL2`` are the autograd Functions: K7
+forward, K8 backward.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ import ctypes
 
 import torch
 
-from cartnet_tpu_torch.ops.kernels import _build
+from cartnet_tpu_torch.ops.kernels import _build, _pad
 
 NUMEL = 5120
 # (U, V, column offset) per TP path; 64*64 + 64*8 + 64*8 = 5120
@@ -52,6 +64,8 @@ PATHS_L1 = ((64, 64, 0), (64, 8, 4096), (64, 8, 4608))
 PATHS_L2 = ((64, 64, 0), (8, 64, 4096), (8, 64, 4608))
 TILE_EDGES = 128  # E must be a multiple of it (the f32 kernel's tile)
 WARPS = (4, 12)  # the bf16 kernel's tile: 16 edges per warp, in this range
+GRANULE = 16  # K7's width granule (mma.sync k16): other widths are padded
+MAX_WIDTH = 512  # the widest d the TP kernels take
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -108,28 +122,58 @@ def _lib():
     return lib
 
 
+def fwd_smem_bytes(d: int, is_bf16: bool, l2: bool, warps: int) -> int:
+    """K7's dynamic shared memory per block (mirrors tp_contract_fwd.cu,
+    whose ``tp_contract_fwd_smem`` gives it on the card): bf16, the h tile
+    of 16 edges a warp and the double-buffered 64-row wt chunk (rows of
+    d + 8 bf16) and the a tile; f32, the 128-edge h tile where it fits,
+    else 16 of its columns a step (the K loop over d), the wt step, the
+    chunk tile and the a tile."""
+    a_w = 80 if l2 else 64
+    if is_bf16:
+        return 2 * ((16 * warps + 128) * (d + 8) + 16 * warps * (a_w + 2))
+    f32 = lambda hcols: 4 * (128 * hcols + 16 * 64 + 128 * 68
+                             + 128 * (a_w + 1))
+    return f32(d + 4) if f32(d + 4) <= _SMEM_LIMIT else f32(16 + 4)
+
+
+def fwd_warps(E: int, d: int, l2: bool, n_sm: int) -> int:
+    """The bf16 kernel's warps per block: the fewest whose tiles fill the
+    SMs in one wave, within ``WARPS``, then fewer while the block's shared
+    memory would not fit (wide d: at most 5 at d = 512); 0 when none
+    fits."""
+    warps = min(max(-(-E // (16 * n_sm)), WARPS[0]), WARPS[1])
+    while warps and fwd_smem_bytes(d, True, l2, warps) > _SMEM_LIMIT:
+        warps -= 1
+    return warps
+
+
 def _launch(h, a_list, wt, b, outs, l2: bool):
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     args = (h, *a_list, wt, b)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("tp_contract needs contiguous tensors")
+    E, d0 = h.shape
+    if E % TILE_EDGES or not 0 < d0 <= MAX_WIDTH:
+        raise ValueError(f"tp_contract kernel needs E % {TILE_EDGES} == 0 "
+                         f"and 0 < d <= {MAX_WIDTH} (E={E}, d={d0})")
+    d = _pad.round_up(d0, GRANULE)
+    h, wt = _pad.pad(h, (False, 1), d0, d), _pad.pad(wt, (False, 1), d0, d)
     if any(t.data_ptr() % 16 for t in (h, wt)):
         raise ValueError("tp_contract needs 16-byte aligned h and wt")
-    E, d = h.shape
     lib = _lib()
-    is_bf16 = int(h.dtype == torch.bfloat16)
-    # bf16: the fewest warps per block whose tiles fill the SMs in one wave
+    is_bf16 = h.dtype == torch.bfloat16
     n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
-    warps = min(max(-(-E // (16 * n_sm)), WARPS[0]), WARPS[1])
-    if E % TILE_EDGES or d % 16 or d == 0 or lib.tp_contract_fwd_smem(
-            d, is_bf16, int(l2), warps) > _SMEM_LIMIT:
-        raise ValueError(f"tp_contract kernel needs E % {TILE_EDGES} == 0 "
-                         f"and d % 16 == 0 with d <= 256 (E={E}, d={d})")
+    warps = fwd_warps(E, d, l2, n_sm) if is_bf16 else WARPS[0]
+    if not warps or lib.tp_contract_fwd_smem(d, int(is_bf16), int(l2),
+                                             warps) > _SMEM_LIMIT:
+        raise ValueError(f"tp_contract kernel: no shared-memory plan for "
+                         f"d={d}")
     ptrs = [a.data_ptr() for a in a_list] + [None] * (3 - len(a_list))
     optrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     err = lib.tp_contract_fwd(h.data_ptr(), *ptrs, wt.data_ptr(),
-                              b.data_ptr(), *optrs, E, d, is_bf16,
+                              b.data_ptr(), *optrs, E, d, int(is_bf16),
                               int(a_list[0].dtype == torch.float32), int(l2),
                               warps,
                               torch.cuda.current_stream(h.device).cuda_stream)
@@ -210,16 +254,51 @@ def _check_bwd(paths, h, a_list, wt, b, dc_list):
                             f"{dc.dtype}")
 
 
+BWD_GRANULE = 128  # K8's width granule: other widths are zero-padded
+
+
 def _lib_bwd():
     lib = _build.load("tp_contract_bwd")
     fn = lib.tp_contract_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tp_contract_bwd_smem.argtypes = [ctypes.c_int] * 3
-        lib.tp_contract_bwd_smem.restype = ctypes.c_longlong
+        lib.tp_contract_bwd_workspace.argtypes = [ctypes.c_int] * 3
+        for name in ("tp_contract_bwd_smem", "tp_contract_bwd_workspace"):
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
+
+
+def bwd_smem_plan(d: int, l2: bool) -> dict:
+    """K8's dynamic shared memory per pass, for the CPU tests (mirrors
+    tp_contract_bwd.cu, whose ``tp_contract_bwd_smem`` the wrapper asks on
+    the card; ``chip_smoke.py`` holds the two equal). The bf16 tile
+    pass: the h tile (d x 128 bytes) and the a/dc tables [64][80] bf16,
+    then for d <= 256 two da tables [64][80] f32 (one a warpgroup) and the
+    bias [5120] bf16, for d > 256 one 8 KB dwall slab per warpgroup and one
+    da table; then as many 8 KB wt ring slabs as fit up to 16 (``chunks``
+    chunks of d/64 must), barriers and 1 KB of alignment slack. The bf16
+    weight pass: 4 stages of two h slabs, two A slabs per warpgroup
+    (double-buffered) and the db sums. The f32 passes' tiles (the
+    tile pass reads h from device memory where its tile does not fit)."""
+    tables = 2 * 64 * 80 * 2 + 64 * 80 * 4
+    split = d <= 256
+    head = d * 128 + tables + (64 * 80 * 4 + 5120 * 2 if split
+                               else 2 * 8192)
+    ring = -(-head // 1024) * 1024
+    stages = min(16, max(0, (_SMEM_LIMIT - 1024 - ring - 16 * 16 - 16)
+                         // 8192))
+    a_w = 80 if l2 else 64
+    f32 = lambda h_rows: 4 * (h_rows * (d + 4) + 64 * (d + 4) + 32 * 144
+                              + 32 * 65 + 32 * a_w)
+    return {"tile": 1024 + ring + stages * 8192 + 16 * stages + 16,
+            "stages": stages, "chunks": 2 if split else 1,
+            "weights": 1024 + 4 * 2 * 8192 + 4 * 8192 + 2 * 16 * 64 * 4
+            + 16 * 4,
+            "tile_f32": f32(32) if f32(32) <= _SMEM_LIMIT else f32(0),
+            "weights_f32": 4 * (32 * 128 + 32 * 64)}
 
 
 def tp_contract_bwd(paths, h, a_list, wt, b, dc_list):
@@ -237,32 +316,43 @@ def tp_contract_bwd(paths, h, a_list, wt, b, dc_list):
     args = (h, *a_list, wt, b, *dc_list)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("tp_contract_bwd needs contiguous tensors")
+    E, d0 = h.shape
+    if E % BWD_TILE_EDGES or not 0 < d0 <= MAX_WIDTH:
+        raise ValueError(f"tp_contract_bwd kernel needs E % "
+                         f"{BWD_TILE_EDGES} == 0 and 0 < d <= {MAX_WIDTH} "
+                         f"(E={E}, d={d0})")
+    d = _pad.round_up(d0, BWD_GRANULE)
+    h, wt = _pad.pad(h, (False, 1), d0, d), _pad.pad(wt, (False, 1), d0, d)
+    args = (h, *a_list, wt, b, *dc_list)
     if any(t.data_ptr() % 16 for t in args):
         raise ValueError("tp_contract_bwd needs 16-byte aligned tensors")
-    E, d = h.shape
     l2 = paths == PATHS_L2
     lib = _lib_bwd()
     is_bf16 = int(cdt == torch.bfloat16)
-    if E % BWD_TILE_EDGES or d not in (128, 256) or \
-            lib.tp_contract_bwd_smem(d, is_bf16, int(l2)) > _SMEM_LIMIT:
-        raise ValueError(f"tp_contract_bwd kernel needs E % "
-                         f"{BWD_TILE_EDGES} == 0 and d in (128, 256) "
-                         f"(E={E}, d={d})")
+    # each pass's block (kinds 0, 1 in bf16; 2, 3 in f32); the tile pass's
+    # ring depth is checked at launch
+    if not all(0 < lib.tp_contract_bwd_smem(d, kind, int(l2)) <= _SMEM_LIMIT
+               for kind in ((0, 1) if is_bf16 else (2, 3))):
+        raise ValueError(f"tp_contract_bwd kernel: no shared-memory plan "
+                         f"for d={d}")
     dev = h.device
     dh = torch.empty_like(h)
     das = [torch.empty_like(a) for a in a_list]
     dwt = torch.empty((NUMEL, d), dtype=torch.float32, device=dev)
     db = torch.empty(NUMEL, dtype=torch.float32, device=dev)
+    work = torch.empty(max(lib.tp_contract_bwd_workspace(E, d, is_bf16), 1),
+                       dtype=torch.float32, device=dev)
     pad3 = lambda ts: [t.data_ptr() for t in ts] + [None] * (3 - len(ts))
     err = lib.tp_contract_bwd(h.data_ptr(), *pad3(a_list), wt.data_ptr(),
                               b.data_ptr(), *pad3(dc_list), dh.data_ptr(),
-                              *pad3(das), dwt.data_ptr(), db.data_ptr(), E, d,
-                              is_bf16, int(l2),
+                              *pad3(das), dwt.data_ptr(), db.data_ptr(),
+                              work.data_ptr(), E, d, is_bf16, int(l2),
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tp_contract_bwd")
     global bwd_launches
     bwd_launches += 1
-    return dh, das, dwt, db
+    return (_pad.cut(dh, (False, 1), d0, d), das,
+            _pad.cut(dwt, (False, 1), d0, d), db)
 
 
 def _bwd_grads(ctx, dc_list):

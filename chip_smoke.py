@@ -135,11 +135,41 @@ ECO_FWD = dict(edge_phase_fwd=3, sigma_segsum_fwd=3, segment_sum_csr=2,
                tp_contract_fwd=2)
 ECO_MICRO = dict(ECO_FWD, segment_sum_csr=7, sigma_segsum_bwd=3,
                  edge_phase_bwd=3, tp_contract_bwd=2)
-# widths beyond the flagship's 256 that the CartNet edge kernels take
-WIDTHS = (384, 512)
+# widths besides the flagship's 256 that the widths phase drives: the
+# CartNet edge kernels below their 128-column granule (zero-padded inside
+# the wrappers) and up to MAX_WIDTH; the eComformer's TP kernels likewise
+CARTNET_WIDTHS = (32, 64, 96, 384, 512)
+ECO_WIDTHS = (64, 384, 512)
 # K5/K6's passes, by the CUDA kernel's name
 BWD_PASSES = (("tile", "edge_bwd_tile"), ("weights", "edge_bwd_weights"),
               ("reduce", "edge_bwd_reduce"))
+# K8's passes (bf16: tile, weights, reduce; f32: tile, weights)
+TP_BWD_PASSES = (("tile", "tp_bwd_tile"), ("weights", "tp_bwd_weight"),
+                 ("reduce", "tp_bwd_reduce"))
+# the CUDA kernels one call of each wrapper launches at its own width, by
+# a piece of the kernels' names (K8 in bf16: in f32 it has no reduce pass)
+LAUNCHES = {
+    "edge_phase_fwd": {"edge_phase_fwd_": 1},
+    "sigma_segsum_fwd": {"sigma_segsum_fwd_kernel": 1},
+    "sigma_segsum_bwd": {"sigma_bwd_edges": 1, "sigma_bwd_columns": 1},
+    "edge_phase_bwd": {sub: 1 for _, sub in BWD_PASSES},
+    "edge_phase_merged_bwd": {sub: 1 for _, sub in BWD_PASSES},
+    "segment_sum_csr": {"segment_sum_csr_kernel": 1},
+    "tp_contract_fwd": {"tp_fwd_": 1},
+    "tp_contract_bwd": {sub: 1 for _, sub in TP_BWD_PASSES},
+}
+# profiler captures of one timing at most (``cuda_events``), and the spin
+# kernels around each capture's calls (``_capture``): their name and length
+CAPTURES = 10
+GUARD_KERNEL, GUARD_CYCLES = "spin_kernel", 1000
+
+
+def launches_of(kname: str, bf16: bool = True) -> dict:
+    """``LAUNCHES[kname]`` for the wrapper's dtype."""
+    out = dict(LAUNCHES[kname])
+    if kname == "tp_contract_bwd" and not bf16:
+        out["tp_bwd_reduce"] = 0
+    return out
 
 
 def emit(**obj):
@@ -182,22 +212,67 @@ def cuda_median_ms(fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device time per call of ``fn``: the durations of the CUDA kernels it
-    launches, summed under torch.profiler (CUPTI) over ``calls`` calls.
-    Unlike ``cuda_median_ms`` it leaves out the host's time between the
-    launches, which the events of a single small call include."""
+def _capture(fn, calls: int, cpu: bool = False) -> tuple:
+    """One torch.profiler (CUPTI) capture of ``calls`` calls of ``fn``
+    between two short spin kernels (``torch.cuda._sleep``), which the
+    profiler's habit of now and then losing the first or the last kernel of
+    a capture takes instead of ``fn``'s -> (``fn``'s CUDA events, the spin
+    kernels caught, wall ms of the calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        torch.cuda._sleep(GUARD_CYCLES)
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        torch.cuda._sleep(GUARD_CYCLES)
         torch.cuda.synchronize()
-    return sum(ev.device_time for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / calls
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kept = [ev for ev in evs if GUARD_KERNEL not in ev.name]
+    return kept, len(evs) - len(kept), wall_ms
+
+
+def cuda_events(fn, calls: int, kernels=None) -> list:
+    """The CUDA kernel events of ``calls`` calls of ``fn`` (``_capture``),
+    after a warm-up call. The profiler now and then drops some of a
+    capture's kernels, so only a complete capture counts: one with a whole
+    number of kernels per call and, for each ``name: n`` of ``kernels``
+    (the CUDA launches of a wrapper, by a piece of the kernels' names),
+    exactly ``calls * n`` kernels of that name. ``fn`` is captured until
+    two complete captures hold the same number of kernels (at most
+    ``CAPTURES`` captures), and that capture is returned; the run fails
+    when none does."""
+    import torch
+    kernels = kernels or {}
+    fn()
+    torch.cuda.synchronize()
+    complete, counts = set(), []
+    for _ in range(CAPTURES):
+        evs, guards, _ = _capture(fn, calls)
+        counts.append((len(evs), guards))
+        if not evs or len(evs) % calls or any(
+                sum(name in ev.name for ev in evs) != calls * n
+                for name, n in kernels.items()):
+            continue
+        if len(evs) in complete:
+            return evs
+        complete.add(len(evs))
+    fail(f"no two complete profiler captures of {calls} calls agree "
+         f"((kernels, spin kernels) a capture: {counts}; expected per "
+         f"call: {kernels})")
+
+
+def device_ms(fn, calls: int = 10, kernels=None) -> float:
+    """Device time per call of ``fn``: the durations of the CUDA kernels it
+    launches in a complete profiler capture of ``calls`` calls
+    (``cuda_events``; ``kernels`` as there), summed and divided by the
+    calls. Unlike ``cuda_median_ms`` it leaves out the host's time between
+    the launches, which the events of a single small call include."""
+    evs = cuda_events(fn, calls, kernels)
+    return sum(ev.device_time for ev in evs) / 1e3 / calls
 
 
 def kernel_name(mangled: str) -> str:
@@ -247,27 +322,23 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def pass_device_ms(fn, calls: int = 10) -> dict:
-    """Device time per call of each of K5/K6's three passes (profiler),
-    and the CUDA kernels per call: {tile, weights, reduce, other,
-    kernels_per_call}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys([k for k, _ in BWD_PASSES] + ["other"], 0.0)
-    n = 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = next((k for k, sub in BWD_PASSES if sub in ev.name), "other")
-        out[key] += ev.device_time / 1e3 / calls
-        n += key != "other"
-    out["kernels_per_call"] = n / calls
+def pass_device_ms(fn, kernels: dict, calls: int = 10,
+                   passes=BWD_PASSES) -> dict:
+    """Device time per call of each of a kernel's passes (profiler, a
+    complete capture as ``cuda_events`` takes it, with ``kernels`` the
+    wrapper's launches; K5/K6's three passes by default, K8's with
+    ``TP_BWD_PASSES``), the rest of the call's kernels, and the pass
+    kernels per call: {tile, weights, reduce, other, kernels_per_call}."""
+    evs = cuda_events(fn, calls, kernels)
+    keys = [k for k, _ in passes]
+    sums = dict.fromkeys(keys + ["other"], 0.0)
+    n_pass = 0
+    for ev in evs:
+        key = next((k for k, sub in passes if sub in ev.name), "other")
+        sums[key] += ev.device_time / 1e3
+        n_pass += key != "other"
+    out = {k: v / calls for k, v in sums.items()}
+    out["kernels_per_call"] = n_pass / calls
     return out
 
 
@@ -335,30 +406,32 @@ def edge_bwd_cost(args, outs, d, E, op_dtype):
 
 
 def profile_call(fn, top: int = 10) -> dict:
-    """One profiled call of ``fn`` after a warm-up call: device time by
-    kernel name, the device's busy time against the wall time, and the
-    number of device kernels."""
+    """One profiled call of ``fn`` after a warm-up call (``_capture``):
+    device time by kernel name, the device's busy time against the wall
+    time, and the number of device kernels. The call is profiled until two
+    captures hold the same number of kernels (at most ``CAPTURES``; the
+    profiler drops kernels now and then, ``cuda_events``), and the second
+    is returned."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = []
+    for _ in range(CAPTURES):
+        evs, _, wall_ms = _capture(fn, 1, cpu=True)
+        if evs and len(evs) in counts:
+            break
+        counts.append(len(evs))
+    else:
+        fail(f"no two profiler captures of one call agree (kernels a "
+             f"capture: {counts})")
     kern = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kern[ev.name] = kern.get(ev.name, 0.0) + ev.device_time / 1e3
+    for ev in evs:
+        kern[ev.name] = kern.get(ev.name, 0.0) + ev.device_time / 1e3
     busy = sum(kern.values())
     ranked = sorted(kern.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall_ms) if wall_ms else None,
-            "device_kernels": sum(1 for ev in prof.events()
-                                  if ev.device_type
-                                  == torch.autograd.DeviceType.CUDA),
+            "device_kernels": len(evs),
             "top_kernels_ms": [[name[:80], ms] for name, ms in ranked]}
 
 
@@ -606,6 +679,45 @@ def plain_kernels():
 
 
 @contextlib.contextmanager
+def plain_cartnet_forward():
+    """Route the CartNet forward's kernel calls (K1, K2) to the plain
+    versions."""
+    from cartnet_tpu_torch.models import cartnet as model_mod
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    kept = (model_mod.edge_phase_fwd, model_mod.sigma_segsum)
+    model_mod.edge_phase_fwd, model_mod.sigma_segsum = (
+        ek.edge_phase_fwd_plain, sigma_fwd_plain)
+    try:
+        yield
+    finally:
+        model_mod.edge_phase_fwd, model_mod.sigma_segsum = kept
+
+
+def forward_vs_plain(card, model, batch, plain, expect, tol, **tags) -> None:
+    """One eval forward through the kernels (its launch counts must be
+    ``expect``) against the same forward through the plain versions
+    (``plain``, a context): finite predictions within ``tol`` normalized."""
+    import torch
+    model.eval()
+    with torch.inference_mode():
+        launch_counts(reset=True)
+        pk, mask = model(batch)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        with plain():
+            pp, _ = model(batch)
+    m = mask.bool()
+    abs_err, rel = normalized_err(pk[m], pp[m])
+    finite = bool(torch.isfinite(pk[m]).all())
+    emit(phase="widths_forward", card=card, **tags, launches=got,
+         expected_launches=expect, max_abs_err=abs_err, max_rel_err=rel,
+         tol=tol, finite=finite)
+    if got != expect or not finite or not rel <= tol:
+        fail(f"forward {tags}: launches {got} (expected {expect}), finite "
+             f"{finite}, rel err {rel}")
+
+
+@contextlib.contextmanager
 def merged_path(on: bool = True):
     """Set CARTNET_MERGED (the CartNet train layer reads it at each
     forward) for the enclosed phase and restore it after."""
@@ -714,10 +826,13 @@ def train_vs_plain(card, cfg, model, batch, tol, plain=None) -> None:
                 cfg32.model, device=batch.z.device, seed=0), sd0, batch)
         k_ref = grad_errors(pnames, k_grads, r_grads)
         p_ref = grad_errors(pnames, p_grads, r_grads)
-        ratio = {n: (k_ref[n] - tol) / max(p_ref[n], 1e-30) for n in pnames}
-        worst = max(ratio, key=ratio.get)
+        # each gradient's distance over its limit; the gate fails above 1
+        share = {n: k_ref[n] / (2 * p_ref[n] + tol) for n in pnames}
+        worst = max(share, key=share.get)
         line.update(grads_vs_f32_kernels=k_ref[worst],
                     grads_vs_f32_plain=p_ref[worst], grads_vs_f32_worst=worst,
+                    grads_vs_f32_limit=2 * p_ref[worst] + tol,
+                    grads_vs_f32_share_of_limit=share[worst],
                     grads_vs_f32_max_kernels=max(k_ref.values()),
                     grads_vs_f32_max_plain=max(p_ref.values()))
         bad += [n for n in pnames if k_ref[n] > 2 * p_ref[n] + tol]
@@ -825,6 +940,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
     _build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
@@ -833,6 +949,33 @@ def main() -> int:
         log = (_build.BUILD_DIR / f"{src}.log")
         ptxas[src] = ptxas_report(log.read_text()) if log.exists() else []
     emit(phase="build", card=card, seconds=round(build_s, 3), ptxas=ptxas)
+    # the CPU tests' mirrors of the shared-memory plans against the CUDA
+    # sources' own (K1 per edge dtype; K7 per dtype and layer at the warps
+    # the wrapper picks; K8 per pass and layer), at every padded width
+    plans, bad_plans = [], []
+    for wp in range(ek.GRANULE, ek.MAX_WIDTH + 1, ek.GRANULE):
+        for is_bf in (1, 0):
+            plans.append(("K1", wp, is_bf, ek._lib().edge_phase_fwd_smem(
+                wp, is_bf), ek.fwd_smem_plan(wp, bool(is_bf))["total"]))
+            for l2 in (0, 1):
+                w = k7.fwd_warps(20992, wp, bool(l2), n_sm) if is_bf else 4
+                plans.append((f"K7 l{l2 + 1} warps {w}", wp, is_bf,
+                              k7._lib().tp_contract_fwd_smem(wp, is_bf, l2,
+                                                             w),
+                              k7.fwd_smem_bytes(wp, bool(is_bf), bool(l2),
+                                                w)))
+                plan = k7.bwd_smem_plan(wp, bool(l2))
+                for kind, key in ((0, "tile"), (1, "weights")) if is_bf \
+                        else ((2, "tile_f32"), (3, "weights_f32")):
+                    plans.append((f"K8 l{l2 + 1} {key}", wp, is_bf,
+                                  k7._lib_bwd().tp_contract_bwd_smem(
+                                      wp, kind, l2), plan[key]))
+    bad_plans = [p for p in plans if p[3] != p[4] or p[3] > 232448]
+    emit(phase="smem_plans", card=card, checked=len(plans),
+         mismatched=bad_plans)
+    if bad_plans:
+        fail(f"shared-memory plans differ from their Python mirrors or "
+             f"exceed a block: {bad_plans}")
 
     # main-path data: 8 ADP-scale crystals, RCM, 2 batches of 4
     d = 256
@@ -1219,14 +1362,18 @@ def main() -> int:
                        dev_batches[0], F32_STEP_TOL)
     merged_vs_default(card, tcfg, tmodel, dev_batches[0])
 
-    # 6b. widths: the CartNet edge kernels beyond d = 256 (K1 in its
+    # 6b. widths: the CartNet edge kernels at d = 32, 64, 96 (zero-padded to
+    # their 128-column granule inside the wrappers) and 384, 512: K1 in its
     # training layout, K2, K4, K5, K6 against their plain versions with
-    # bitwise repeats; K5/K6's passes timed), then one CartNet micro-step
-    # per width, dtype and backward path through the kernels against the
-    # plain versions, with its launch counts
+    # bitwise repeats (K5/K6's passes timed past 256); then one CartNet
+    # forward and one micro-step per backward path through the kernels
+    # against the plain versions, with their launch counts. Then the
+    # eComformer at d = 64, 384, 512: K7 and K8 (l1, l2) against their plain
+    # versions with repeats (K8's passes timed at 512), one forward and one
+    # micro-step, likewise.
     sums = ("dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a", "db1a",
             "dscale", "dshift")
-    for wd in WIDTHS:
+    for wd in CARTNET_WIDTHS:
         for wdt, wname in ((bf, "bf16"), (f32, "f32")):
             case = f"d{wd}_{wname}"
             tol_of = (lambda o: CHECK_TOL["bf16"]) if wdt == bf else (
@@ -1242,15 +1389,22 @@ def main() -> int:
             check_outputs(card, "edge_phase_fwd", case,
                           ("gate", "sender", "saved", "s1_w", "M2_w"), got,
                           again, want, elem_tol)
+            # device ms per call of each kernel at this width (training
+            # layouts), padded copies included
+            times = {"edge_phase_fwd": device_ms(
+                lambda a=kargs: ek.edge_phase_fwd(*a, *idx, **kw),
+                kernels=LAUNCHES["edge_phase_fwd"])}
             sargs = sigma_inputs(b0, wdt, wdt, wd, gen, dev)
-            got, again = (sk.sigma_segsum(*sargs, b0.edge_dst, b0.edge_mask,
-                                          b0.dst_rowptr, N)
-                          for _ in range(2))
+            sfn = lambda a=sargs: sk.sigma_segsum(
+                *a, b0.edge_dst, b0.edge_mask, b0.dst_rowptr, N)
+            got, again = sfn(), sfn()
             want = sk.sigma_segsum_plain(*sargs, b0.edge_dst, b0.edge_mask,
                                          N)
             torch.cuda.synchronize()
             check_outputs(card, "sigma_segsum_fwd", case, ("e_out", "aggr"),
                           got, again, want, elem_tol)
+            times["sigma_segsum_fwd"] = device_ms(
+                sfn, kernels=LAUNCHES["sigma_segsum_fwd"])
             eargs, s4args = backward_inputs(b0, wdt, wd, gen, dev)
             margs, _ = merged_inputs(b0, wdt, wd, gen, dev)
             passes = {}
@@ -1265,13 +1419,18 @@ def main() -> int:
                 torch.cuda.synchronize()
                 check_outputs(card, kname, case, names, got, again, want,
                               tol_of)
-                if kname != "sigma_segsum_bwd":
-                    passes[kname] = pass_device_ms(lambda f=fn, a=a: f(*a))
+                times[kname] = device_ms(lambda f=fn, a=a: f(*a),
+                                         kernels=LAUNCHES[kname])
+                if kname != "sigma_segsum_bwd" and wd > d:
+                    passes[kname] = pass_device_ms(lambda f=fn, a=a: f(*a),
+                                                   LAUNCHES[kname])
             # the CPU tests' mirror of the tile pass's shared-memory plan
-            smem = ek._lib_bwd().edge_phase_bwd_smem(wd, int(wdt == bf))
-            plan = ek.bwd_smem_plan(wd, wdt == bf)
+            wp = ek.padded_width(wd)
+            smem = ek._lib_bwd().edge_phase_bwd_smem(wp, int(wdt == bf))
+            plan = ek.bwd_smem_plan(wp, wdt == bf)
             emit(phase="widths_time", card=card, case=case, d=wd,
-                 passes_device_ms=passes, tile_smem=smem, smem_plan=plan)
+                 padded_to=wp, device_ms=times, passes_device_ms=passes,
+                 tile_smem=smem, smem_plan=plan)
             if smem != plan["tile"]:
                 fail(f"{case}: the tile pass takes {smem} bytes of shared "
                      f"memory, bwd_smem_plan says {plan['tile']}")
@@ -1284,21 +1443,95 @@ def main() -> int:
                           optim=OptimConfig(max_epoch=1,
                                             batch_accumulation=TRAIN_ACCUM))
             wmodel = model_mod.CartNet(wcfg.model, device=dev, seed=0)
+            ftol = PRED_TOL if wdt == bf else F32_STEP_TOL
+            want_f = dict.fromkeys(KERNELS, 0)
+            want_f.update(edge_phase_fwd=4, sigma_segsum_fwd=4)
+            forward_vs_plain(card, wmodel, b0, plain_cartnet_forward, want_f,
+                             ftol, net="cartnet", case=case, d=wd)
             for merged in (False, True):
                 with merged_path(merged):
                     launch_counts(reset=True)
-                    train_vs_plain(card, wcfg, wmodel, dev_batches[0],
-                                   PRED_TOL if wdt == bf else F32_STEP_TOL)
+                    train_vs_plain(card, wcfg, wmodel, dev_batches[0], ftol)
                     wl = launch_counts()
                 want_l = dict.fromkeys(KERNELS, 0)
                 want_l.update(MERGED_MICRO if merged
                               else dict.fromkeys(CARTNET_KERNELS, 4))
-                emit(phase="widths_train", card=card, case=case, d=wd,
-                     merged=merged, launches=wl, expected_launches=want_l)
+                emit(phase="widths_train", card=card, model="cartnet",
+                     case=case, d=wd, merged=merged, launches=wl,
+                     expected_launches=want_l)
                 if wl != want_l:
                     fail(f"widths {case} merged={merged}: launches {wl}, "
                          f"expected {want_l}")
             del wmodel
+    for wd in ECO_WIDTHS:
+        for wdt, wname in ((bf, "bf16"), (f32, "f32")):
+            case = f"d{wd}_{wname}"
+            # K7 as the forward feeds it (bf16 h/W with f32 a; f32), K8 on
+            # operands of one dtype with cotangents zero on pad rows
+            targs = tp_args(b0, wdt, f32, wd, gen, dev)
+            tol = CHECK_TOL["sum" if wdt == f32 else "bf16"]
+            times = {}
+            for l2, names, a in zip((False, True), (("c0", "c1", "c2"),
+                                                    ("out",)),
+                                    tp_calls(targs)):
+                fn = k7.tp_contract_l2 if l2 else k7.tp_contract_l1
+                got, again, want = ([o] if l2 else list(o) for o in (
+                    fn(*a), fn(*a), tp_plain(l2)(*a)))
+                torch.cuda.synchronize()
+                check_outputs(card, "tp_contract_fwd",
+                              f"{'l2' if l2 else 'l1'}_{case}", names, got,
+                              again, want, lambda _: tol)
+                times[f"tp_contract_fwd_{'l2' if l2 else 'l1'}"] = device_ms(
+                    lambda f=fn, a=a: f(*a),
+                    kernels=LAUNCHES["tp_contract_fwd"])
+            targs = tp_args(b0, wdt, wdt, wd, gen, dev)
+            passes = {}
+            for l2 in (False, True):
+                a = tp_bwd_args(targs, l2, b0.edge_mask, gen)
+                got, again = (tp_bwd_flat(k7.tp_contract_bwd(*a))
+                              for _ in range(2))
+                want = tp_bwd_flat(k7.tp_contract_bwd_plain(*a))
+                torch.cuda.synchronize()
+                tol_of = (lambda o: CHECK_TOL["bf16"]) if wdt == bf else (
+                    lambda o: CHECK_TOL["f32" if o.startswith("da")
+                                        else "sum"])
+                check_outputs(card, "tp_contract_bwd",
+                              f"{'l2' if l2 else 'l1'}_{case}",
+                              TP_BWD_OUT[l2], got, again, want, tol_of)
+                k8_launches = launches_of("tp_contract_bwd", wdt == bf)
+                times[f"tp_contract_bwd_{'l2' if l2 else 'l1'}"] = device_ms(
+                    lambda a=a: k7.tp_contract_bwd(*a), kernels=k8_launches)
+                if wd > d and wdt == bf:
+                    passes["l2" if l2 else "l1"] = pass_device_ms(
+                        lambda a=a: k7.tp_contract_bwd(*a), k8_launches,
+                        passes=TP_BWD_PASSES)
+            emit(phase="widths_time", card=card, net="ecomformer",
+                 case=case, d=wd, device_ms=times, passes_device_ms=passes)
+            del targs
+            ecfg_w = Config(model=ModelConfig(name="ecomformer", dim_in=wd,
+                                              cholesky=True,
+                                              compute_dtype=wdt),
+                            optim=OptimConfig(max_epoch=1,
+                                              batch_accumulation=TRAIN_ACCUM))
+            ewmodel = create_model(ecfg_w.model, dev, 0)
+            ftol = PRED_TOL if wdt == bf else F32_STEP_TOL
+            want_f = dict.fromkeys(KERNELS, 0)
+            want_f.update(ECO_FWD)
+            forward_vs_plain(card, ewmodel, b0, plain_ecomformer_kernels,
+                             want_f, ftol, net="ecomformer", case=case,
+                             d=wd)
+            launch_counts(reset=True)
+            train_vs_plain(card, ecfg_w, ewmodel, dev_batches[0], ftol,
+                           plain_ecomformer_kernels)
+            wl = launch_counts()
+            want_l = dict.fromkeys(KERNELS, 0)
+            want_l.update(ECO_MICRO)
+            emit(phase="widths_train", card=card, model="ecomformer",
+                 case=case, d=wd, launches=wl, expected_launches=want_l)
+            if wl != want_l:
+                fail(f"eComformer widths {case}: launches {wl}, expected "
+                     f"{want_l}")
+            del ewmodel
 
     # 6c. the CLI's default head: --dataset synthetic without --cholesky
     # trains the scalar head on scalar targets (the JAX CLI's rule), through
@@ -1471,13 +1704,16 @@ def main() -> int:
     def time_row(kname, case, fk, fp, t_bound, by, calls, **others):
         """Kernel and plain times (plain before and after), and those of
         ``others`` (name_ms -> fn), at warm L2: CUDA events around one
-        call, and the device time alone (``device_ms``)."""
+        call, and the device time alone (``device_ms``; the kernel's
+        captures hold each of its launches, ``launches_of``)."""
         plain1 = cuda_median_ms(fp)
         kern = cuda_median_ms(fk)
         plain2 = cuda_median_ms(fp)
         row = dict(ms=kern, plain_ms=statistics.fmean([plain1, plain2]),
                    bound_ms=t_bound, bound_by=by, calls=calls,
-                   device_ms=device_ms(fk), plain_device_ms=device_ms(fp))
+                   device_ms=device_ms(fk, kernels=launches_of(
+                       kname, "f32" not in case)),
+                   plain_device_ms=device_ms(fp))
         for k, fn in others.items():
             row[k] = cuda_median_ms(fn)
             row[k.replace("_ms", "_device_ms")] = device_ms(fn)
@@ -1486,6 +1722,16 @@ def main() -> int:
              **row, share_of_bound=t_bound / kern if kern else None,
              device_share_of_bound=t_bound / row["device_ms"]
              if row["device_ms"] else None)
+
+    def k1_products(args):
+        """cuBLAS's three products of K1 alone on operands of its shapes
+        and edge dtype: e @ We, h_g @ W1g, h_a @ W1a (a yardstick; no
+        single call computes K1)."""
+        e, we, w1g, w1a = args[2], args[3], args[5], args[7]
+        hg, ha = (torch.randn(E, d, generator=gen).to(e.dtype).to(dev)
+                  for _ in range(2))
+        return lambda: (torch.matmul(e, we), torch.matmul(hg, w1g),
+                        torch.matmul(ha, w1a))
 
     for case, (tdt, edt, calls) in cases.items():
         args = timing_inputs[("edge", case)]
@@ -1496,7 +1742,7 @@ def main() -> int:
         time_row("edge_phase_fwd", case,
                  lambda a=args: ek.edge_phase_fwd(*a, *idx),
                  lambda a=args: ek.edge_phase_fwd_plain(*a, *idx),
-                 t_bound, by, calls)
+                 t_bound, by, calls, products_ms=k1_products(args))
         args = timing_inputs[("sigma", case)]
         extra = (b0.edge_mask, b0.dst_rowptr)
         fk = lambda a=args: sk.sigma_segsum(*a, b0.edge_dst, b0.edge_mask,
@@ -1515,7 +1761,7 @@ def main() -> int:
     time_row("edge_phase_fwd", "train_bf16",
              lambda: ek.edge_phase_fwd(*args, *idx, **kw),
              lambda: ek.edge_phase_fwd_plain(*args, *idx, **kw), t_bound, by,
-             4)
+             4, products_ms=k1_products(args))
     rows_t["sigma_segsum_fwd"]["train_bf16"] = dict(
         rows_t["sigma_segsum_fwd"]["layer0_bf16"], calls=4)
     for case, (dt, calls) in train_cases.items():
@@ -1526,7 +1772,7 @@ def main() -> int:
                  lambda a=eargs: ek.edge_phase_bwd(*a),
                  lambda a=eargs: edge_bwd_plain(*a), t_bound, by, calls)
         rows_t["edge_phase_bwd"][case]["passes_device_ms"] = pass_device_ms(
-            lambda a=eargs: ek.edge_phase_bwd(*a))
+            lambda a=eargs: ek.edge_phase_bwd(*a), LAUNCHES["edge_phase_bwd"])
         sargs = timing_inputs[("sigma_bwd", case)]
         t_bound, by = sigma_bwd_cost(sargs, sk.sigma_segsum_bwd(*sargs), E, d)
         time_row("sigma_segsum_bwd", case,
@@ -1541,7 +1787,8 @@ def main() -> int:
                  lambda a=margs: ek.merged_bwd(*a),
                  lambda a=margs: merged_bwd_plain(*a), t_bound, by, calls)
         rows_t["edge_phase_merged_bwd"][case]["passes_device_ms"] = \
-            pass_device_ms(lambda a=margs: ek.merged_bwd(*a))
+            pass_device_ms(lambda a=margs: ek.merged_bwd(*a),
+                           LAUNCHES["edge_phase_merged_bwd"])
         emit(phase="time_passes", card=card, case=case, passes_device_ms={
             k: rows_t[k][case]["passes_device_ms"]
             for k in ("edge_phase_bwd", "edge_phase_merged_bwd")})
@@ -1639,10 +1886,18 @@ def main() -> int:
                 torch.matmul(dwall.t(), h)
                 torch.matmul(h, wt.t())
 
-            time_row("tp_contract_bwd", f"{'l2' if l2 else 'l1'}_{case}",
+            kcase = f"{'l2' if l2 else 'l1'}_{case}"
+            time_row("tp_contract_bwd", kcase,
                      lambda a=a: k7.tp_contract_bwd(*a),
                      lambda a=a: k7.tp_contract_bwd_plain(*a), t_bound, by,
-                     calls, library_ms=cublas)
+                     calls, products_ms=cublas)
+            rows_t["tp_contract_bwd"][kcase]["passes_device_ms"] = \
+                pass_device_ms(lambda a=a: k7.tp_contract_bwd(*a),
+                               launches_of("tp_contract_bwd", dt == bf),
+                               passes=TP_BWD_PASSES)
+            emit(phase="time_passes", card=card, kernel="tp_contract_bwd",
+                 case=kcase, passes_device_ms=rows_t["tp_contract_bwd"][
+                     kcase]["passes_device_ms"])
             del dwall
     emit(phase="forward", card=card, batch_ms_kernels=fwd_ms,
          batch_ms_plain=fwd_plain_ms, runs=20)
@@ -1733,7 +1988,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"],
-            "passes_device_ms": r.get("passes_device_ms")})
+            "passes_device_ms": r.get("passes_device_ms"),
+            "products_ms": r.get("products_ms"),
+            "products_device_ms": r.get("products_device_ms")})
     for kname, src, replaces, case in (
             ("segment_sum_csr", "cartnet_tpu_torch/csrc/segment_sum_csr.cu",
              "cartnet_tpu/ops/pallas/segment_kernels.py:38", "f32_128"),
@@ -1754,7 +2011,10 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r.get("library_device_ms"),
-            "gemm_ms": r.get("gemm_ms")})
+            "gemm_ms": r.get("gemm_ms"),
+            "products_ms": r.get("products_ms"),
+            "products_device_ms": r.get("products_device_ms"),
+            "passes_device_ms": r.get("passes_device_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
