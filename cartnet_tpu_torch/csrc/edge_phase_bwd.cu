@@ -90,9 +90,24 @@
 // 3 stages (24 KB): the stage count is what gives way (15 stages at
 // d = 256, 9 at d = 384).
 //
-// f32 keeps the FMA design (no TF32, so no tensor cores): a tile pass of
-// 32-edge blocks that stage weight chunks through shared memory, an
-// output-tiled (64 x 128) weight pass over 4 edge ranges, the same reduce.
+// f32 design (no TF32, so no tensor cores): the f32 FMA rate of the CUDA
+// cores (67 TFLOP/s) bounds it, 0.33 ms for the 22 GFLOP above. Every
+// product runs as SIMT GEMM tiles of 64 x 128 (simt_gemm.cuh: 128 threads,
+// an 8 x 8 register micro-tile each fed by float4 loads from k-major
+// shared slabs, the next k-slab's loads in flight during the FMAs, four
+// blocks an SM):
+//   1. tile pass, one block per 64-edge tile (one moment window): dg (and
+//      merged, ds) one column a thread with its bias sums, written to
+//      device memory; dh in 128-column tiles (A = dg or ds, B = W1g^T or
+//      W1a^T) whose epilogue applies silu' on the registers and writes
+//      dpre_c with db's column sums; then de = deres + dpre_c @ We^T with
+//      A read back from the block's own dpre_c rows (L2-resident), so no
+//      [64, 2d] f32 tile has to fit in shared memory at any d <= 512. The
+//      weights are the same for every tile and stay in L2.
+//   2. weight pass, 64 x 128 tiles of dWe | dW1g | dW1a (A = e or h =
+//      pre sig recomputed from the residual, B = dpre_c, dg or ds) over
+//      KSPLIT edge ranges that fill the SMs' block slots.
+//   3. the reduce pass above.
 // Elementwise steps use explicitly rounded operations so nvcc contracts
 // nothing into an FMA that the plain PyTorch version does not have.
 
@@ -105,13 +120,15 @@
 // TMA, mbarriers, wgmma descriptors and products, the TMA ring, the tensor
 // maps (shared with K1 and K8)
 #include "hopper_common.cuh"
+// the f32 passes' SIMT products (shared with K8)
+#include "simt_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 
-constexpr int NTHREADS = 256;     // f32 passes and the reduce pass: 8 warps
+constexpr int NTHREADS = 256;     // the reduce pass: 8 warps
 constexpr int MOM = 64;           // edges per moment window (the forward's)
 constexpr int MAXF = 4;           // pass 3: 2d <= MAXF * NTHREADS
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
@@ -121,10 +138,6 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-__host__ __device__ constexpr size_t align128(size_t n) {
-  return (n + 127) / 128 * 128;
 }
 
 template <typename T>
@@ -166,238 +179,164 @@ struct Args {
 };
 
 // ===================================================== f32: CUDA cores (FMA)
+// Every product is a run of simt_gemm.cuh's 64 x 128 tiles (128 threads,
+// 8 x 8 register micro-tiles, double-buffered k-slabs of 8).
 
-constexpr int TE1 = 32;        // edges per tile-pass block
-constexpr int PAD = 4;         // row padding (16 bytes)
-constexpr int KW = 16;         // weight rows staged per step (pass 1)
-constexpr int KE = 32;         // edges staged per step (pass 2)
-constexpr int CN = 128;        // output columns per chunk (pass 1)
-constexpr int LDC = CN + 4;    // f32 chunk stride
-constexpr int KSPLIT_F32 = 4;  // edge ranges of the weight pass
-constexpr int WR = 64, WC = 128;  // weight-pass output tile
-
-// shared-memory layout of the f32 tile pass (bytes)
-struct Layout1 {
-  size_t a, p, w, c, m, total;
-  __host__ __device__ explicit Layout1(int d) {
-    a = 0;
-    p = a + align128(sizeof(float) * TE1 * (d + PAD));
-    w = p + align128(sizeof(float) * TE1 * (2 * d + PAD));
-    c = w + align128(sizeof(float) * KW * (CN + PAD));  // [KW][CN + PAD]
-    m = c + align128(sizeof(float) * TE1 * LDC);
-    total = m + sizeof(float) * TE1;
-  }
-};
-
-// column of a thread's j-th output inside a 128-wide tile: two groups of
-// four adjacent columns, 64 apart, so the float4 reads of a warp are dense
-__device__ __forceinline__ int col_of(int tx, int j) {
-  return (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-}
-
-// c_s[r][j] = sum_k A[r][k] * W[c0 + j][k], r < TE1, j < CN. A: rows in
-// shared memory (stride lda); W: row-major [*, ldw] in device memory.
-// 16 x 16 threads, each 2 rows x 8 columns of the 32 x 128 chunk; W chunks
-// are staged transposed as [k][j].
-__device__ __forceinline__ void gemm_nt(const float* A, int lda,
-                                        const float* __restrict__ W, int ldw,
-                                        int K, int c0, float* w_s,
-                                        float* c_s) {
-  constexpr int LDW = CN + PAD, TM = TE1 / 16;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[TM][8] = {};
-  for (int k0 = 0; k0 < K; k0 += KW) {
-    for (int i = tid; i < KW * CN; i += NTHREADS) {
-      const int kk = i % KW, j = i / KW;
-      w_s[kk * LDW + j] = W[(size_t)(c0 + j) * ldw + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KW; kk += 4) {
-      float4 a4[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a4[i] = *reinterpret_cast<const float4*>(
-            &A[(ty * TM + i) * lda + k0 + kk]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(&w_s[(kk + q) * LDW + tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            &w_s[(kk + q) * LDW + 64 + tx * 4]);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float av = q == 0 ? a4[i].x
-                         : q == 1 ? a4[i].y
-                         : q == 2 ? a4[i].z
-                                  : a4[i].w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      c_s[(ty * TM + i) * LDC + col_of(tx, j)] = acc[i][j];
-  __syncthreads();
-}
-
-// column sums over the tile's rows of a [TE1][ld] tile -> out[0:n)
-__device__ __forceinline__ void column_sums(const float* s, int ld, int n,
-                                            float* out) {
-  for (int c = threadIdx.x; c < n; c += NTHREADS) {
-    float acc = 0.f;
-    for (int r = 0; r < TE1; ++r) acc = __fadd_rn(acc, s[r * ld + c]);
-    out[c] = acc;
-  }
-}
+static_assert(simt::BM == MOM, "an f32 tile is one moment window");
+// blocks an SM the f32 passes are compiled for (__launch_bounds__: 170
+// registers a thread, none spilled at three)
+constexpr int TILE_BLOCKS_F32 = 3, WEIGHT_BLOCKS_F32 = 3;
 
 // ------------------------------------------------------- f32 pass 1: tile
+// One block per 64-edge tile: (1) dg with the window-moment cotangents
+// folded in (merged: the gate's cotangent from the sigma backward, which
+// also gives ds), one column a thread over the rows in order, written for
+// the products and the weight pass, with db1g / db1a's column sums; (2)
+// dh = [dg @ W1g^T | ds @ W1a^T] in 128-column tiles, each tile's
+// epilogue dpre = dh (sig + h (1 - sig)) -> dpre_out and db's column sums;
+// (3) de = deres + dpre @ We^T, A read back from dpre_out (this block's own
+// rows, in L2). A barrier orders each step's stores before the next
+// step's loads, as they are this block's.
 template <bool MERGED>
-__global__ void __launch_bounds__(NTHREADS)
-    edge_bwd_tile_fma(Args<float> p) {
-  extern __shared__ __align__(128) unsigned char smem_f32[];
-  const int d = p.d, d2 = 2 * d, d4 = 4 * d;
-  const int lda = d + PAD, ldp = d2 + PAD;
-  const Layout1 L(d);
-  float* a_s = reinterpret_cast<float*>(smem_f32 + L.a);  // dg, then ds
-  float* p_s = reinterpret_cast<float*>(smem_f32 + L.p);  // dpre_c
-  float* w_s = reinterpret_cast<float*>(smem_f32 + L.w);
-  float* c_s = reinterpret_cast<float*>(smem_f32 + L.c);  // [TE1][LDC]
-  float* m_s = reinterpret_cast<float*>(smem_f32 + L.m);
-  const int tid = threadIdx.x;
-  const size_t e0 = (size_t)blockIdx.x * TE1;
-  float* bpart = p.bias_part + (size_t)blockIdx.x * d4;
+__global__ void __launch_bounds__(simt::THREADS, TILE_BLOCKS_F32)
+    edge_bwd_tile_f32(const __grid_constant__ Args<float> p) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int d = p.d, d2 = 2 * d;
+  const size_t e0 = (size_t)blockIdx.x * simt::BM;
+  float* bpart = p.bias_part + (size_t)blockIdx.x * 4 * d;
 
-  if (tid < TE1) m_s[tid] = p.emask[e0 + tid] ? 1.f : 0.f;
-  __syncthreads();
-  // dg with the window-moment cotangents folded in; merged, the gate's
-  // cotangent comes from the sigma backward, which also gives ds
-  for (int i = tid; i < TE1 * d; i += NTHREADS) {
-    const int r = i / d, c = i % d;
-    const size_t o = (e0 + r) * d + c;
-    const size_t w = ((e0 + r) / MOM) * d + c;
-    const float g = p.gate[o];
-    const float corr = __fadd_rn(
-        p.ds1w[w], __fmul_rn(__fmul_rn(2.f, p.dm2w[w]),
-                             __fadd_rn(g, -p.meanw[w])));
-    float dgate;
-    if constexpr (MERGED) {
-      const float dvals =
-          m_s[r] != 0.f ? p.daggr[(size_t)p.dst[e0 + r] * d + c] : 0.f;
-      const float sig0 =
-          sigmoid_f(__fadd_rn(__fmul_rn(g, p.scale[c]), p.shift[c]));
-      const float env = p.env[e0 + r];
-      const float dsig = __fadd_rn(p.deres[o], __fmul_rn(dvals, p.sender[o]));
-      const float da = __fmul_rn(__fmul_rn(__fmul_rn(dsig, env), sig0),
-                                 __fadd_rn(1.f, -sig0));
-      p.ds_out[o] = __fmul_rn(__fmul_rn(dvals, sig0), env);
-      dgate = __fmul_rn(da, p.scale[c]);
-    } else {
-      dgate = p.dgate[o];
+  for (int c = threadIdx.x; c < d; c += simt::THREADS) {
+    const size_t w = (size_t)blockIdx.x * d + c;  // the tile's window
+    const float mean = p.meanw[w], s1 = p.ds1w[w];
+    const float m2 = __fmul_rn(2.f, p.dm2w[w]);
+    const float sc = MERGED ? p.scale[c] : 0.f;
+    const float sh = MERGED ? p.shift[c] : 0.f;
+    float sum_g = 0.f, sum_s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < simt::BM; ++r) {
+      const size_t e = e0 + r, o = e * d + c;
+      const float m = p.emask[e] ? 1.f : 0.f;
+      const float g = p.gate[o];
+      const float corr = __fadd_rn(s1, __fmul_rn(m2, __fadd_rn(g, -mean)));
+      float dgate, ds;
+      if constexpr (MERGED) {
+        const float dvals =
+            m != 0.f ? p.daggr[(size_t)p.dst[e] * d + c] : 0.f;
+        const float sig0 = sigmoid_f(__fadd_rn(__fmul_rn(g, sc), sh));
+        const float env = p.env[e];
+        const float dsig =
+            __fadd_rn(p.deres[o], __fmul_rn(dvals, p.sender[o]));
+        const float da = __fmul_rn(__fmul_rn(__fmul_rn(dsig, env), sig0),
+                                   __fadd_rn(1.f, -sig0));
+        ds = __fmul_rn(__fmul_rn(dvals, sig0), env);
+        p.ds_out[o] = ds;
+        dgate = __fmul_rn(da, sc);
+      } else {
+        ds = p.dsender[o];
+        dgate = p.dgate[o];
+      }
+      const float v = __fadd_rn(dgate, __fmul_rn(m, corr));
+      p.dg_out[o] = v;
+      sum_g = __fadd_rn(sum_g, v);
+      sum_s = __fadd_rn(sum_s, ds);
     }
-    const float v = __fadd_rn(dgate, __fmul_rn(m_s[r], corr));
-    a_s[r * lda + c] = v;
-    p.dg_out[o] = v;
+    bpart[d2 + c] = sum_g;      // db1g
+    bpart[d2 + d + c] = sum_s;  // db1a
   }
   __syncthreads();
-  column_sums(a_s, lda, d, bpart + d2);  // db1g
 
-  for (int half = 0; half < 2; ++half) {
-    if (half == 1) {  // ds replaces dg in the A tile
-      __syncthreads();  // also makes this block's ds_out writes visible
-      const float* ds = MERGED ? p.ds_out : p.dsender;
-      for (int i = tid; i < TE1 * d; i += NTHREADS) {
-        const int r = i / d, c = i % d;
-        a_s[r * lda + c] = ds[(e0 + r) * d + c];
+  const float* ds_src = MERGED ? p.ds_out : p.dsender;
+  for (int pc0 = 0; pc0 < d2; pc0 += simt::BN) {  // dh, then dpre
+    const bool agg = pc0 >= d;
+    const int n0 = agg ? pc0 - d : pc0;
+    float acc[8][8];
+    simt::zero(acc);
+    simt::RowsT<simt::BM> fa{(agg ? ds_src : p.dg_out) + e0 * d, (size_t)d,
+                             0};
+    simt::RowsT<simt::BN> fb{(agg ? p.w1a : p.w1g) + (size_t)n0 * d,
+                             (size_t)d, 0};
+    simt::mainloop(acc, d / simt::BK, fa, fb, smem);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const size_t e = e0 + simt::row_of(i);
+      const float* srow = p.saved + e * (MERGED ? d2 : 2 * d2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pc = pc0 + simt::col_of(4 * hh);
+        const float4 pr4 = *reinterpret_cast<const float4*>(srow + pc);
+        const float pr[4] = {pr4.x, pr4.y, pr4.z, pr4.w};
+        float sg[4];
+        if constexpr (MERGED) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sg[q] = sigmoid_f(pr[q]);
+        } else {
+          const float4 s4 = *reinterpret_cast<const float4*>(srow + d2 + pc);
+          sg[0] = s4.x; sg[1] = s4.y; sg[2] = s4.z; sg[3] = s4.w;
+        }
+        float* a = acc[i] + 4 * hh;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float h32 = __fmul_rn(pr[q], sg[q]);
+          a[q] = __fmul_rn(a[q], __fadd_rn(sg[q], __fmul_rn(
+                                                      h32, __fadd_rn(1.f, -sg[q]))));
+        }
+        *reinterpret_cast<float4*>(p.dpre_out + e * d2 + pc) =
+            make_float4(a[0], a[1], a[2], a[3]);
       }
-      __syncthreads();
-      column_sums(a_s, lda, d, bpart + d2 + d);  // db1a
     }
-    const float* w1 = half ? p.w1a : p.w1g;
-    for (int c0 = 0; c0 < d; c0 += CN) {
-      gemm_nt(a_s, lda, w1, d, d, c0, w_s, c_s);  // dh chunk
-      for (int i = tid; i < TE1 * CN; i += NTHREADS) {
-        const int r = i / CN, cl = i % CN, pc = half * d + c0 + cl;
-        const float* srow = p.saved + (e0 + r) * (MERGED ? d2 : d4);
-        const float pre = srow[pc];
-        const float sg = MERGED ? sigmoid_f(pre) : srow[d2 + pc];
-        const float h32 = __fmul_rn(pre, sg);
-        const float dpre = __fmul_rn(
-            c_s[r * LDC + cl],
-            __fadd_rn(sg, __fmul_rn(h32, __fadd_rn(1.f, -sg))));
-        c_s[r * LDC + cl] = dpre;
-        p_s[r * ldp + pc] = dpre;
-        p.dpre_out[(e0 + r) * d2 + pc] = dpre;
-      }
-      __syncthreads();
-      if (tid < CN) {  // db: column sums of dpre
-        float s = 0.f;
-        for (int r = 0; r < TE1; ++r) s = __fadd_rn(s, c_s[r * LDC + tid]);
-        bpart[half * d + c0 + tid] = s;
-      }
-      // the next gemm_nt rewrites c_s only after its own barriers
-    }
+    simt::column_sums(acc, smem,
+                      [&](int c, float s) { bpart[pc0 + c] = s; });  // db
+    __syncthreads();
   }
-  __syncthreads();
-  for (int c0 = 0; c0 < d; c0 += CN) {  // de = deres + dpre_c @ We^T
-    gemm_nt(p_s, ldp, p.we, d2, d2, c0, w_s, c_s);
-    for (int i = tid; i < TE1 * CN; i += NTHREADS) {
-      const int r = i / CN, cl = i % CN;
-      const size_t o = (e0 + r) * d + c0 + cl;
-      p.de[o] = __fadd_rn(p.deres[o], c_s[r * LDC + cl]);
-    }
+
+  for (int n0 = 0; n0 < d; n0 += simt::BN) {  // de = deres + dpre_c @ We^T
+    float acc[8][8];
+    simt::zero(acc);
+    simt::RowsT<simt::BM> fa{p.dpre_out + e0 * d2, (size_t)d2, 0};
+    simt::RowsT<simt::BN> fb{p.we + (size_t)n0 * d2, (size_t)d2, 0};
+    simt::mainloop(acc, d2 / simt::BK, fa, fb, smem);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const size_t o = (e0 + simt::row_of(i)) * d + n0 +
+                         simt::col_of(4 * hh);
+        const float4 r4 = *reinterpret_cast<const float4*>(p.deres + o);
+        const float* a = acc[i] + 4 * hh;
+        *reinterpret_cast<float4*>(p.de + o) =
+            make_float4(__fadd_rn(r4.x, a[0]), __fadd_rn(r4.y, a[1]),
+                        __fadd_rn(r4.z, a[2]), __fadd_rn(r4.w, a[3]));
+      }
   }
 }
 
 // ---------------------------------------------------- f32 pass 2: weights
-// stage rows [c, c + KE) of the A source (64 columns from col) into
-// at_s[r][k]: e itself (hoff < 0) or h = pre * sig recomputed from the
-// saved residual (hoff = 0 gate half, d aggregate half); merged, sig is
-// recomputed from pre as well
+// A of a dW1g / dW1a tile: h = pre sig recomputed from the saved residual
+// ([pre | sig] rows of 4d; merged, pre rows of 2d and sig from pre), rows
+// k = edges from ebeg, 64 columns from col, stored as simt::ColsD<64> does
 template <bool MERGED>
-__device__ __forceinline__ void stage_a(const Args<float>& p, int hoff,
-                                        size_t c, int col, float* at_s,
-                                        int ld) {
-  constexpr int V = 4;  // 16-byte vectors
-  const int d = p.d;
-  for (int i = threadIdx.x; i < KE * WR / V; i += NTHREADS) {
-    const int r = i / (WR / V), k = V * (i % (WR / V));
-    float4 out;
-    if (hoff < 0) {
-      out = *reinterpret_cast<const float4*>(&p.e[(c + r) * d + col + k]);
-    } else if (MERGED) {
-      const float4 pr = *reinterpret_cast<const float4*>(
-          p.saved + (c + r) * 2 * d + hoff + col + k);
-      out = make_float4(__fmul_rn(pr.x, sigmoid_f(pr.x)),
-                        __fmul_rn(pr.y, sigmoid_f(pr.y)),
-                        __fmul_rn(pr.z, sigmoid_f(pr.z)),
-                        __fmul_rn(pr.w, sigmoid_f(pr.w)));
-    } else {
-      const float* srow = p.saved + (c + r) * 4 * d + hoff + col + k;
-      const float4 pr = *reinterpret_cast<const float4*>(srow);
-      const float4 sr = *reinterpret_cast<const float4*>(srow + 2 * d);
-      out = make_float4(__fmul_rn(pr.x, sr.x), __fmul_rn(pr.y, sr.y),
-                        __fmul_rn(pr.z, sr.z), __fmul_rn(pr.w, sr.w));
-    }
-    *reinterpret_cast<float4*>(&at_s[r * ld + k]) = out;
+struct HCols {
+  using Regs = float4[1];
+  const float* saved;
+  int d2, col, ebeg;
+  __device__ __forceinline__ void fetch(int kt, Regs& v) const {
+    const int idx = threadIdx.x;
+    const float* row = saved + (size_t)(ebeg + kt * simt::BK + idx / 16) *
+                                   (MERGED ? d2 : 2 * d2) +
+                       col + 4 * (idx % 16);
+    const float4 pr = *reinterpret_cast<const float4*>(row);
+    const float4 sg =
+        MERGED ? make_float4(sigmoid_f(pr.x), sigmoid_f(pr.y),
+                             sigmoid_f(pr.z), sigmoid_f(pr.w))
+               : *reinterpret_cast<const float4*>(row + d2);
+    v[0] = make_float4(__fmul_rn(pr.x, sg.x), __fmul_rn(pr.y, sg.y),
+                       __fmul_rn(pr.z, sg.z), __fmul_rn(pr.w, sg.w));
   }
-}
-
-__device__ __forceinline__ void stage_b(const float* src, int lds, size_t c,
-                                        int col, float* b_s, int ld) {
-  constexpr int V = 4;
-  for (int i = threadIdx.x; i < KE * WC / V; i += NTHREADS) {
-    const int r = i / (WC / V), k = V * (i % (WC / V));
-    *reinterpret_cast<float4*>(&b_s[r * ld + k]) =
-        *reinterpret_cast<const float4*>(&src[(c + r) * lds + col + k]);
+  __device__ __forceinline__ void store(const Regs& v, float* S) const {
+    simt::ColsD<simt::BM>{nullptr, 0, 0}.store(v, S);
   }
-}
+};
 
 // which weight-gradient tile (rows x cols) this block owns
 struct WTile {
@@ -421,50 +360,43 @@ __device__ __forceinline__ WTile weight_tile(int t, int d, int rows,
   return w;
 }
 
-// 16 x 16 threads, each 4 rows x 8 columns of the 64 x 128 tile
+// block (tile, split): the KSPLIT partial of one 64 x 128 tile of dWe
+// (A = e) | dW1g | dW1a (A = h) over one edge range, B = dpre_c | dg | ds
 template <bool MERGED>
-__global__ void __launch_bounds__(NTHREADS)
-    edge_bwd_weights_fma(Args<float> p, int per_split) {
-  constexpr int LDA = WR + PAD, LDB = WC + PAD;
-  __shared__ __align__(128) float at_s[KE * LDA];
-  __shared__ __align__(128) float b_s[KE * LDB];
-  const int d = p.d, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const WTile w = weight_tile(blockIdx.x, d, WR, WC);
-  const size_t ebeg = (size_t)blockIdx.y * per_split;
-  const size_t eend = ebeg + per_split < (size_t)p.E ? ebeg + per_split
-                                                     : (size_t)p.E;
-  float* out = p.w_part + (size_t)blockIdx.y * 4 * d * d + w.off +
-               (size_t)w.rt * WR * w.ld_out + w.ct * WC;
-  const int hoff = w.mat == 0 ? -1 : (w.mat == 1 ? 0 : d);
+__global__ void __launch_bounds__(simt::THREADS, WEIGHT_BLOCKS_F32)
+    edge_bwd_weights_f32(const __grid_constant__ Args<float> p,
+                         int per_split) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int d = p.d;
+  const WTile w = weight_tile(blockIdx.x, d, simt::BM, simt::BN);
+  const int ebeg = blockIdx.y * per_split;
+  const int eend = ebeg + per_split < p.E ? ebeg + per_split : p.E;
+  const int nk = eend > ebeg ? (eend - ebeg) / simt::BK : 0;
   const float* bsrc = w.mat == 0 ? p.dpre_out
                     : w.mat == 1 ? p.dg_out : MERGED ? p.ds_out : p.dsender;
-  const int ldb_src = w.mat == 0 ? 2 * d : d;
-  float acc[4][8] = {};
-  for (size_t c = ebeg; c < eend; c += KE) {
-    stage_a<MERGED>(p, hoff, c, w.rt * WR, at_s, LDA);
-    stage_b(bsrc, ldb_src, c, w.ct * WC, b_s, LDB);
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < KE; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&at_s[r * LDA + ty * 4]);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(&b_s[r * LDB + tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&b_s[r * LDB + 64 + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  float acc[8][8];
+  simt::zero(acc);
+  simt::ColsD<simt::BN> fb{bsrc + w.ct * simt::BN,
+                           (size_t)(w.mat == 0 ? 2 * d : d), ebeg};
+  if (nk > 0 && w.mat == 0) {
+    simt::ColsD<simt::BM> fa{p.e + w.rt * simt::BM, (size_t)d, ebeg};
+    simt::mainloop(acc, nk, fa, fb, smem);
+  } else if (nk > 0) {
+    HCols<MERGED> fa{p.saved, 2 * d,
+                     (w.mat == 1 ? 0 : d) + w.rt * simt::BM, ebeg};
+    simt::mainloop(acc, nk, fa, fb, smem);
   }
+  float* out = p.w_part + (size_t)blockIdx.y * 4 * d * d + w.off +
+               (size_t)w.rt * simt::BM * w.ld_out + w.ct * simt::BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      out[(size_t)(ty * 4 + i) * w.ld_out + col_of(tx, j)] = acc[i][j];
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float4*>(out + (size_t)simt::row_of(i) * w.ld_out +
+                                 simt::col_of(4 * hh)) =
+          make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2],
+                      acc[i][4 * hh + 3]);
 }
 
 // ========================================== bf16: wgmma + TMA (tensor cores)
@@ -1057,14 +989,15 @@ __global__ void __launch_bounds__(NTHREADS)
 // ------------------------------------------------------------------- host
 
 int n_weight_tiles(int d, int is_bf16) {
-  return is_bf16 ? 4 * d * d / (WT * WT) : (d / WR) * (4 * d / WC);
+  return is_bf16 ? 4 * d * d / (WT * WT)
+                 : (d / simt::BM) * (4 * d / simt::BN);
 }
 
-// edge ranges of the weight pass: the bf16 grid (tiles x KSPLIT) fills the
-// SMs; f32 keeps 4
+// edge ranges of the weight pass: tiles x KSPLIT blocks fill the SMs (bf16:
+// one block an SM; f32: WEIGHT_BLOCKS_F32)
 int ksplit_of(int E, int d, int is_bf16) {
-  if (!is_bf16) return KSPLIT_F32;
-  int k = num_sms() / n_weight_tiles(d, 1);
+  int k = (is_bf16 ? 1 : WEIGHT_BLOCKS_F32) * num_sms() /
+          n_weight_tiles(d, is_bf16);
   if (k > E / TE) k = E / TE;
   return k < 1 ? 1 : k;
 }
@@ -1135,20 +1068,24 @@ cudaError_t launch_reduce(const Args<T>& p, int n_tiles, cudaStream_t stream) {
 template <bool MERGED>
 cudaError_t launch_f32(const Ptrs& q, int E, int N, int d,
                        cudaStream_t stream) {
-  const Args<float> p = make_args<float>(q, E, N, d, TE1);
-  const size_t smem = Layout1(d).total;
+  const Args<float> p = make_args<float>(q, E, N, d, TE);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_bwd_tile_fma<MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      edge_bwd_tile_f32<MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)simt::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(edge_bwd_weights_f32<MERGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)simt::SMEM);
   if (err != cudaSuccess) return err;
-  const int n_tiles = E / TE1;
-  edge_bwd_tile_fma<MERGED><<<n_tiles, NTHREADS, smem, stream>>>(p);
+  const int n_tiles = E / TE;
+  edge_bwd_tile_f32<MERGED><<<n_tiles, simt::THREADS, simt::SMEM, stream>>>(
+      p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int per_split = (E / KE + p.ksplit - 1) / p.ksplit * KE;
-  edge_bwd_weights_fma<MERGED>
-      <<<dim3(n_weight_tiles(d, 0), p.ksplit), NTHREADS, 0, stream>>>(
-          p, per_split);
+  const int per_split = (n_tiles + p.ksplit - 1) / p.ksplit * TE;
+  edge_bwd_weights_f32<MERGED>
+      <<<dim3(n_weight_tiles(d, 0), p.ksplit), simt::THREADS, simt::SMEM,
+         stream>>>(p, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(p, n_tiles, stream);
@@ -1254,13 +1191,12 @@ extern "C" int edge_phase_merged_bwd(
 
 // floats of scratch that edge_phase_bwd needs in ``work``
 extern "C" long long edge_phase_bwd_workspace(int E, int d, int is_bf16) {
-  const int te = is_bf16 ? TE : TE1;
-  return (long long)(E / te) * 4 * d +
+  return (long long)(E / TE) * 4 * d +
          (long long)ksplit_of(E, d, is_bf16) * 4 * d * d;
 }
 
-// dynamic shared memory (bytes) of the tile pass
+// dynamic shared memory (bytes) of the tile pass (f32: the weight pass's
+// too)
 extern "C" long long edge_phase_bwd_smem(int d, int is_bf16) {
-  return is_bf16 ? (long long)TileLayout(d).total
-                 : (long long)Layout1(d).total;
+  return is_bf16 ? (long long)TileLayout(d).total : (long long)simt::SMEM;
 }

@@ -70,10 +70,28 @@
 //      0.18 ms device at d = 256 on an NVIDIA H100 80GB HBM3 at 700 W.)
 //  (c) reduce: the KSPLIT partials of dwt and db in split order.
 //
-// f32 design: the same two passes on the CUDA cores (FMA), with 32-edge
-// tiles in pass (a) (the h tile read from device memory where it does not
-// fit beside the wt chunk, d = 512) and 32-edge steps in pass (b); two
-// launches.
+// f32 design (no TF32: FMA on the CUDA cores, bound by their 67 TFLOP/s,
+// 2.47 ms for the 165 GFLOP at E = 20992, d = 256): the three products as
+// SIMT GEMM tiles of 64 x 128 (simt_gemm.cuh: 128 threads, an 8 x 8
+// register micro-tile each, k-slabs of 8 double-buffered through shared
+// memory with the next slab's loads in flight during the FMAs, four
+// blocks an SM), three launches:
+//  (a) tile pass, two kinds of block in one grid: dh tiles (64 edges x 128
+//      columns of dh over K = 5120, A = dwall computed from dc and a as it
+//      is staged, B = wt), then w_all tiles (64 edges x two chunks over
+//      K = d, A = h, B = wt^T) whose epilogue forms da; the long dh tiles
+//      come first in the grid so the short ones fill its last wave. Each
+//      tile's width is fixed, so every d up to 512 runs the same registers.
+//      L2 and L1's path 0 write da; L1's path 1 and 2 terms of each a column
+//      go to two [E, 64] f32 scratch tables.
+//  (b) weight pass, dwt and db: tiles of one chunk (64 rows) x 128 columns
+//      of dwt over KSPLIT edge ranges that fill the SMs' block slots (A =
+//      dwall^T computed, B = h); the blocks of the first column tile also
+//      sum db, each thread over its edges in order, then the 8 edge lanes.
+//  (c) reduce: dwt and db over the ranges in range order, and L1's da as
+//      path 0 + path 1 + path 2, in path order.
+// Elementwise steps use explicitly rounded operations (__fmul_rn,
+// __fadd_rn), so nvcc contracts nothing the plain version rounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +100,7 @@
 #include <cstdint>
 
 #include "hopper_common.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
@@ -93,9 +112,7 @@ constexpr int CW = 64;              // wt rows (w_all columns) per chunk
 constexpr int NCHUNK = NUMEL / CW;  // 80
 constexpr int CH_P1 = 4096 / CW;    // first chunk of path 1 (64)
 constexpr int CH_P2 = 4608 / CW;    // first chunk of path 2 (72)
-constexpr int NTHREADS = 256;       // f32 passes and the reduce: 8 warps
-constexpr int TEF = 32;             // f32: edges per tile (both passes)
-constexpr int KB = 128;             // f32 pass (b): d columns per block
+constexpr int NTHREADS = 256;       // the reduce passes: 8 warps
 constexpr long long SMEM_LIMIT = 232448;  // bytes a block may use
 
 // a table: L1 a [64]; L2 a0 | a1 | a2 [80]. dc table: L1 dc0 | dc1 | dc2
@@ -105,21 +122,6 @@ template <bool L2> __host__ __device__ constexpr int a_width() {
 }
 template <bool L2> __host__ __device__ constexpr int dc_width() {
   return L2 ? 64 : 80;
-}
-
-// Column c (0..63) of chunk ch: the a-table column (u) and dc-table column
-// (v) whose product is dwall[e, ch*CW + c].
-template <bool L2>
-__device__ __forceinline__ void chunk_cols(int ch, int c, int& acol,
-                                           int& dcol) {
-  if (L2 || ch < CH_P1) {  // V = 64: u = ch, v = c
-    acol = ch;
-    dcol = c;
-  } else {  // L1 V = 8: u = u0 + c / 8, v = c % 8
-    const bool p1 = ch < CH_P2;
-    acol = (ch - (p1 ? CH_P1 : CH_P2)) * 8 + (c >> 3);
-    dcol = (p1 ? 64 : 72) + (c & 7);
-  }
 }
 
 template <bool L2, typename T>
@@ -954,217 +956,278 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // ------------------------------------------------------ f32: CUDA cores
 
-template <bool L2, int D>
-size_t smem_tile_f32(bool full_h) {
-  return sizeof(float) *
-         ((full_h ? (size_t)TEF * (D + 4) : 0) + (size_t)CW * (D + 4) +
-          TEF * (a_width<L2>() + dc_width<L2>()) + TEF * (CW + 1) +
-          TEF * a_width<L2>());
+// blocks an SM the f32 passes are compiled for (__launch_bounds__: 128
+// registers a thread at four)
+constexpr int TILE_BLOCKS_F32 = 4, WEIGHT_BLOCKS_F32 = 4;
+
+struct F32Args {
+  const float *h, *a0, *a1, *a2, *wt, *bias, *dc0, *dc1, *dc2;
+  float *dh, *da0, *da1, *da2;
+  float* da_part;  // L1: [2][E][64], da's path 1 and path 2 terms
+  float* w_part;   // [ksplit][5120 d]
+  float* db_part;  // [ksplit][5120]
+  int E, d;
+};
+
+// dwall[e, c .. c + 3] = dc[e, v] * a[e, u] (c % 4 == 0: one u, four v)
+template <bool L2>
+__device__ __forceinline__ float4 dwall4(const F32Args& p, size_t e, int c) {
+  const int ch = c / CW, cc = c % CW;
+  float4 dv;
+  float av;
+  if (L2 || ch < CH_P1) {  // V = 64: u = ch, v = cc
+    dv = *reinterpret_cast<const float4*>(p.dc0 + e * 64 + cc);
+    av = a_at<L2>(p.a0, p.a1, p.a2, e, ch);
+  } else {  // L1 V = 8: u = u0 + cc / 8, v = cc % 8
+    const bool p1 = ch < CH_P2;
+    dv = *reinterpret_cast<const float4*>((p1 ? p.dc1 : p.dc2) + e * 8 +
+                                          (cc & 7));
+    av = p.a0[e * 64 + (ch - (p1 ? CH_P1 : CH_P2)) * 8 + (cc >> 3)];
+  }
+  return make_float4(__fmul_rn(dv.x, av), __fmul_rn(dv.y, av),
+                     __fmul_rn(dv.z, av), __fmul_rn(dv.w, av));
 }
 
-// (a) dh and da for one 32-edge tile; the h tile is staged in shared
-// memory where it fits (full_h), else read from device memory
-template <bool L2, int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    tp_bwd_tile_fma(const float* __restrict__ h, const float* __restrict__ a0,
-                    const float* __restrict__ a1,
-                    const float* __restrict__ a2,
-                    const float* __restrict__ wt,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ dc0,
-                    const float* __restrict__ dc1,
-                    const float* __restrict__ dc2, float* __restrict__ dh,
-                    float* __restrict__ da0, float* __restrict__ da1,
-                    float* __restrict__ da2, int full_h) {
-  extern __shared__ float4 smem4[];
-  constexpr int LD = D + 4;
-  constexpr int AW = a_width<L2>(), DW = dc_width<L2>();
-  constexpr int QC = D / 64;  // dh columns per thread
-  float* h_s = reinterpret_cast<float*>(smem4);   // [TEF][LD] (full_h)
-  float* w_s = h_s + (full_h ? TEF * LD : 0);      // [CW][LD]
-  float* a_s = w_s + CW * LD;                      // [TEF][AW]
-  float* dc_s = a_s + TEF * AW;                    // [TEF][DW]
-  float* dw_s = dc_s + TEF * DW;                   // [TEF][CW + 1]
-  float* da_s = dw_s + TEF * (CW + 1);             // [TEF][AW]
-  const int tid = threadIdx.x;
-  const int r = tid >> 3, sub = tid & 7;       // chunk work: row, column
-  const int kc = tid & 63, rq = (tid >> 6) * 8;  // dh work: columns, rows
-  const size_t e0 = (size_t)blockIdx.x * TEF;
-  const float* hrow = full_h ? h_s + r * LD : h + (e0 + r) * D;
-
-  if (full_h)
-    for (int i = tid; i < TEF * D / 4; i += NTHREADS) {
-      const int rr = i / (D / 4), c = 4 * (i % (D / 4));
-      *reinterpret_cast<float4*>(h_s + rr * LD + c) =
-          *reinterpret_cast<const float4*>(h + (e0 + rr) * D + c);
-    }
-  for (int i = tid; i < TEF * AW; i += NTHREADS) {
-    a_s[i] = a_at<L2>(a0, a1, a2, e0 + i / AW, i % AW);
-    da_s[i] = 0.f;
+// A of a dh tile: dwall rows e0 .. e0 + 63 (k = dwall's column), computed
+// from dc and a, stored transposed as simt::RowsT<64> stores
+template <bool L2>
+struct DwallRows {
+  using Regs = float4[1];
+  const F32Args* p;
+  size_t e0;
+  __device__ __forceinline__ void fetch(int kt, Regs& v) const {
+    const int idx = threadIdx.x;
+    v[0] = dwall4<L2>(*p, e0 + (idx >> 1), kt * simt::BK + 4 * (idx & 1));
   }
-  for (int i = tid; i < TEF * DW; i += NTHREADS)
-    dc_s[i] = dc_at<L2>(dc0, dc1, dc2, e0 + i / DW, i % DW);
+  __device__ __forceinline__ void store(const Regs& v, float* S) const {
+    simt::RowsT<simt::BM>{nullptr, 0, 0}.store(v, S);
+  }
+};
 
-  float acc[8][QC];
+// A of a weight tile: dwall^T, rows k = edges from ebeg, columns c0 .. c0 +
+// 63 (one chunk), stored as simt::ColsD<64> stores. A thread's four
+// columns are fixed (4 (idx % 16) ..), so are their dc columns and their a
+// column: two pointers walk down them, one slab (8 edges) a fetch, which
+// the mainloop calls once per slab in order, with the row strides of the
+// chunk's dc and a tables (DC_LD, A_LD) compiled in. The four columns also
+// sum into dbs over the thread's edges (ebeg + 8 s + idx / 16, in slab
+// order).
+template <int DC_LD, int A_LD>
+struct DwallCols {
+  using Regs = float4[1];
+  const float *dcp, *ap;  // the next slab's dc and a values of the thread
+  float dbs[4];
+  __device__ __forceinline__ void fetch(int, Regs& v) {
+    const float4 dv = *reinterpret_cast<const float4*>(dcp);
+    const float av = *ap;
+    dcp += simt::BK * DC_LD;
+    ap += simt::BK * A_LD;
+    v[0] = make_float4(__fmul_rn(dv.x, av), __fmul_rn(dv.y, av),
+                       __fmul_rn(dv.z, av), __fmul_rn(dv.w, av));
+    dbs[0] = __fadd_rn(dbs[0], v[0].x);
+    dbs[1] = __fadd_rn(dbs[1], v[0].y);
+    dbs[2] = __fadd_rn(dbs[2], v[0].z);
+    dbs[3] = __fadd_rn(dbs[3], v[0].w);
+  }
+  __device__ __forceinline__ void store(const Regs& v, float* S) const {
+    simt::ColsD<CW>{nullptr, 0, 0}.store(v, S);
+  }
+};
+
+// a weight tile's products over nk slabs from edge ebeg (chunk ch, B = h
+// columns from 128 ct) into acc, and the thread's db sums into dbs: the
+// fetcher of the chunk's tables (V = 64 with a0, or L2's a1 / a2; L1's
+// V = 8)
+template <bool L2>
+__device__ __forceinline__ void weight_products(const F32Args& p, int ebeg,
+                                                int ch, int ct, int nk,
+                                                float (&acc)[8][8],
+                                                float (&dbs)[4],
+                                                float* smem) {
+  const int cc = 4 * (threadIdx.x % 16);
+  const size_t e = (size_t)ebeg + threadIdx.x / 16;
+  simt::ColsD<simt::BN> fb{p.h + ct * simt::BN, (size_t)p.d, ebeg};
+  auto run = [&](auto fa) {
+    simt::mainloop(acc, nk, fa, fb, smem);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dbs[q] = fa.dbs[q];
+  };
+  if (!L2 && ch >= CH_P1) {  // L1 V = 8: dc[v = cc % 8 ..], a[u0 + cc / 8]
+    const bool p1 = ch < CH_P2;
+    run(DwallCols<8, 64>{
+        (p1 ? p.dc1 : p.dc2) + e * 8 + (cc & 7),
+        p.a0 + e * 64 + (ch - (p1 ? CH_P1 : CH_P2)) * 8 + (cc >> 3), {}});
+  } else if (!L2 || ch < CH_P1) {  // V = 64: dc[v = cc ..], a0[u = ch]
+    run(DwallCols<64, 64>{p.dc0 + e * 64 + cc, p.a0 + e * 64 + ch, {}});
+  } else {  // L2's paths 1 and 2: a1 / a2 [E, 8], u = ch - 64 | 72
+    run(DwallCols<64, 8>{p.dc0 + e * 64 + cc,
+                         ch < CH_P2 ? p.a1 + e * 8 + ch - CH_P1
+                                    : p.a2 + e * 8 + ch - CH_P2,
+                         {}});
+  }
+}
+
+// da terms of a w_all tile (rows e0.., chunks 2 nt and 2 nt + 1: the
+// thread's columns 4 tx + q of each): w = acc + b, p = dc_v w, summed over
+// v in a fixed order (the thread's four columns in order, then a shuffle
+// tree over the lanes of one u: 16 for V = 64, 2 for L1's V = 8). L2 and
+// L1's path 0 write da directly; L1's paths 1 and 2 write their terms to
+// da_part, which the reduce adds to path 0's in path order.
+template <bool L2>
+__device__ __forceinline__ void da_epilogue_f32(const F32Args& p,
+                                                const float (&acc)[8][8],
+                                                size_t e0, int nt) {
+  const int tx = threadIdx.x % 16;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ch = 2 * nt + hh;
+    const bool v64 = L2 || ch < CH_P1;  // the same for both chunks
+    const bool p1 = ch < CH_P2;
+    const float4 b4 =
+        *reinterpret_cast<const float4*>(p.bias + ch * CW + 4 * tx);
+    const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const size_t e = e0 + simt::row_of(i);
+      const float4 d4 =
+          v64 ? *reinterpret_cast<const float4*>(p.dc0 + e * 64 + 4 * tx)
+              : *reinterpret_cast<const float4*>((p1 ? p.dc1 : p.dc2) +
+                                                 e * 8 + 4 * (tx & 1));
+      const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        s = __fadd_rn(s, __fmul_rn(dq[q], __fadd_rn(acc[i][4 * hh + q],
+                                                    bq[q])));
+      if (v64) {
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+        if (tx == 0) {
+          if (!L2 || ch < CH_P1)
+            p.da0[e * 64 + ch] = s;
+          else
+            (p1 ? p.da1 : p.da2)[e * 8 + ch - (p1 ? CH_P1 : CH_P2)] = s;
+        }
+      } else {
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+        if ((tx & 1) == 0)
+          p.da_part[(p1 ? 0 : (size_t)p.E * 64) + e * 64 +
+                    (ch - (p1 ? CH_P1 : CH_P2)) * 8 + tx / 2] = s;
+      }
+    }
+  }
+}
+
+// (a) tile pass: blocks [0, n_dh) are dh tiles (64 edges x 128 columns of
+// dh, K = the 5120 columns of dwall, A computed from dc and a, B = wt),
+// the rest w_all tiles (64 edges x two chunks, K = d, A = h, B = wt^T) with
+// the da epilogue; the long dh tiles come first, so the short ones fill
+// the last wave
+template <bool L2>
+__global__ void __launch_bounds__(simt::THREADS, TILE_BLOCKS_F32)
+    tp_bwd_tile_f32(const __grid_constant__ F32Args p, int n_dh) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  const int d = p.d, nct = d / simt::BN;
+  float acc[8][8];
+  simt::zero(acc);
+  int b = blockIdx.x;
+  if (b < n_dh) {
+    const size_t e0 = (size_t)(b / nct) * simt::BM;
+    const int n0 = (b % nct) * simt::BN;
+    DwallRows<L2> fa{&p, e0};
+    simt::ColsD<simt::BN> fb{p.wt + n0, (size_t)d, 0};
+    simt::mainloop(acc, NUMEL / simt::BK, fa, fb, smem);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float4*>(p.dh + (e0 + simt::row_of(i)) * d + n0 +
+                                   simt::col_of(4 * hh)) =
+            make_float4(acc[i][4 * hh], acc[i][4 * hh + 1],
+                        acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
+    return;
+  }
+  b -= n_dh;
+  constexpr int NT = NUMEL / simt::BN;  // w_all column tiles (chunk pairs)
+  const size_t e0 = (size_t)(b / NT) * simt::BM;
+  const int nt = b % NT;
+  simt::RowsT<simt::BM> fa{p.h + e0 * d, (size_t)d, 0};
+  simt::RowsT<simt::BN> fb{p.wt + (size_t)nt * simt::BN * d, (size_t)d, 0};
+  simt::mainloop(acc, d / simt::BK, fa, fb, smem);
+  da_epilogue_f32<L2>(p, acc, e0, nt);
+}
+
+// (b) weight pass: block (chunk ch, column tile ct) x split: the KSPLIT
+// partial of dwt rows [64 ch, 64 ch + 64) x columns [128 ct, 128 ct + 128)
+// over one edge range (A = dwall^T computed, B = h), and of db (ct = 0)
+template <bool L2>
+__global__ void __launch_bounds__(simt::THREADS, WEIGHT_BLOCKS_F32)
+    tp_bwd_weights_f32(const __grid_constant__ F32Args p, int per_split) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  const int d = p.d, nct = d / simt::BN;
+  const int ch = blockIdx.x / nct, ct = blockIdx.x % nct;
+  const int ebeg = blockIdx.y * per_split;
+  const int eend = ebeg + per_split < p.E ? ebeg + per_split : p.E;
+  const int nk = eend > ebeg ? (eend - ebeg) / simt::BK : 0;
+  float acc[8][8], dbs[4] = {0.f, 0.f, 0.f, 0.f};
+  simt::zero(acc);
+  if (nk > 0) weight_products<L2>(p, ebeg, ch, ct, nk, acc, dbs, smem);
+  float* out = p.w_part + (size_t)blockIdx.y * NUMEL * d +
+               (size_t)(ch * CW) * d + ct * simt::BN;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int q = 0; q < QC; ++q) acc[i][q] = 0.f;
-
-  for (int ch = 0; ch < NCHUNK; ++ch) {
-    __syncthreads();  // the previous chunk is done with w_s and dw_s
-    for (int i = tid; i < CW * D / 4; i += NTHREADS) {
-      const int n = i / (D / 4), c = 4 * (i % (D / 4));
-      *reinterpret_cast<float4*>(w_s + n * LD + c) =
-          *reinterpret_cast<const float4*>(wt + (size_t)(ch * CW + n) * D +
-                                           c);
-    }
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float4*>(out + (size_t)simt::row_of(i) * d +
+                                 simt::col_of(4 * hh)) =
+          make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2],
+                      acc[i][4 * hh + 3]);
+  if (ct == 0) {  // db: the 8 edge lanes' sums in order
+    const int idx = threadIdx.x;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      smem[(idx / 16) * CW + 4 * (idx % 16) + q] = dbs[q];
     __syncthreads();
-    // w_all chunk: row r, columns sub + 8j
-    float f[8];
+    if (idx < CW) {
+      float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = 0.f;
-    for (int k = 0; k < D; k += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(hrow + k);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(w_s + (sub + 8 * j) * LD + k);
-        f[j] = fmaf(x.x, w.x, f[j]);
-        f[j] = fmaf(x.y, w.y, f[j]);
-        f[j] = fmaf(x.z, w.z, f[j]);
-        f[j] = fmaf(x.w, w.w, f[j]);
-      }
+      for (int k = 0; k < 8; ++k) s = __fadd_rn(s, smem[k * CW + idx]);
+      p.db_part[(size_t)blockIdx.y * NUMEL + ch * CW + idx] = s;
     }
-    const float* arow = a_s + r * AW;
-    const float* drow = dc_s + r * DW;
-    float s8[8];
-    float s64 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = sub + 8 * j;
-      int acol, dcol;
-      chunk_cols<L2>(ch, c, acol, dcol);
-      const float w = __fadd_rn(f[j], bias[ch * CW + c]);
-      const float pr = __fmul_rn(drow[dcol], w);
-      s64 = __fadd_rn(s64, pr);
-      s8[j] = pr;
-      dw_s[r * (CW + 1) + c] = __fmul_rn(drow[dcol], arow[acol]);
-    }
-    // sums over v across the 8 lanes of a row (fixed xor order)
-    if (L2 || ch < CH_P1) {  // V = 64: u = ch
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-        s64 = __fadd_rn(s64, __shfl_xor_sync(0xffffffffu, s64, o));
-      if (sub == 0) da_s[r * AW + ch] = __fadd_rn(da_s[r * AW + ch], s64);
-    } else {  // L1 V = 8: column sub + 8j is u = u0 + j, v = sub
-      const int u0 = (ch - (ch < CH_P2 ? CH_P1 : CH_P2)) * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int o = 1; o < 8; o <<= 1)
-          s8[j] = __fadd_rn(s8[j], __shfl_xor_sync(0xffffffffu, s8[j], o));
-      }
-      if (sub == 0)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          da_s[r * AW + u0 + j] = __fadd_rn(da_s[r * AW + u0 + j], s8[j]);
-    }
-    __syncthreads();  // dw_s is complete
-    // dh rows rq .. rq + 7, columns kc + 64q
-    for (int c = 0; c < CW; ++c) {
-      float wv[QC];
-#pragma unroll
-      for (int q = 0; q < QC; ++q) wv[q] = w_s[c * LD + kc + 64 * q];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float x = dw_s[(rq + i) * (CW + 1) + c];
-#pragma unroll
-        for (int q = 0; q < QC; ++q) acc[i][q] = fmaf(x, wv[q], acc[i][q]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < QC; ++q)
-      dh[(e0 + rq + i) * D + kc + 64 * q] = acc[i][q];
-  for (int i = tid; i < TEF * AW; i += NTHREADS) {
-    const int rr = i / AW, c = i % AW;
-    if (!L2 || c < 64)
-      da0[(e0 + rr) * 64 + c] = da_s[i];
-    else if (c < 72)
-      da1[(e0 + rr) * 8 + c - 64] = da_s[i];
-    else
-      da2[(e0 + rr) * 8 + c - 72] = da_s[i];
   }
 }
 
-constexpr size_t smem_weight_f32() {
-  return sizeof(float) * ((size_t)TEF * KB + (size_t)TEF * CW);
-}
-
-// (b) dwt rows [ch*CW, ch*CW + 64) x columns [kb*KB, kb*KB + 128) and db
-template <bool L2, int D>
+// (c) reduce: the KSPLIT partials of dwt and db in split order; L1's da
+// as path 0 + path 1 + path 2, in path order
+template <bool L2>
 __global__ void __launch_bounds__(NTHREADS)
-    tp_bwd_weight_fma(const float* __restrict__ h,
-                      const float* __restrict__ a0,
-                      const float* __restrict__ a1,
-                      const float* __restrict__ a2,
-                      const float* __restrict__ dc0,
-                      const float* __restrict__ dc1,
-                      const float* __restrict__ dc2, float* __restrict__ dwt,
-                      float* __restrict__ db, int E) {
-  extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // [TEF][KB]
-  float* w_s = h_s + TEF * KB;                    // [TEF][CW]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ch = blockIdx.x, kb = blockIdx.y;
-  const bool with_db = kb == 0 && tid < CW;
-  float acc[8][4];  // rows warp*8 + i of the chunk, columns 4*lane + q
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  float dbs = 0.f;
-
-  for (size_t e0 = 0; e0 < (size_t)E; e0 += TEF) {
-    __syncthreads();  // the previous step is done with h_s and w_s
-    for (int i = tid; i < TEF * KB / 4; i += NTHREADS) {
-      const int r = i / (KB / 4), c = 4 * (i % (KB / 4));
-      *reinterpret_cast<float4*>(h_s + r * KB + c) =
-          *reinterpret_cast<const float4*>(h + (e0 + r) * D + kb * KB + c);
-    }
-    for (int i = tid; i < TEF * CW; i += NTHREADS) {
-      const int r = i / CW, c = i % CW;
-      int acol, dcol;
-      chunk_cols<L2>(ch, c, acol, dcol);
-      w_s[i] = __fmul_rn(dc_at<L2>(dc0, dc1, dc2, e0 + r, dcol),
-                         a_at<L2>(a0, a1, a2, e0 + r, acol));
-    }
-    __syncthreads();
-    for (int r = 0; r < TEF; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(h_s + r * KB +
-                                                        4 * lane);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float w = w_s[r * CW + warp * 8 + i];
-        acc[i][0] = fmaf(w, x.x, acc[i][0]);
-        acc[i][1] = fmaf(w, x.y, acc[i][1]);
-        acc[i][2] = fmaf(w, x.z, acc[i][2]);
-        acc[i][3] = fmaf(w, x.w, acc[i][3]);
-      }
-    }
-    if (with_db)
-      for (int r = 0; r < TEF; ++r) dbs = __fadd_rn(dbs, w_s[r * CW + tid]);
+    tp_bwd_reduce_f32(const __grid_constant__ F32Args p,
+                      float* __restrict__ dwt, float* __restrict__ db,
+                      int ksplit) {
+  const size_t n_w = (size_t)NUMEL * p.d;
+  size_t i = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
+  if (i < n_w) {
+    float s = 0.f;
+    for (int k = 0; k < ksplit; ++k)
+      s = __fadd_rn(s, p.w_part[(size_t)k * n_w + i]);
+    dwt[i] = s;
+    return;
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    *reinterpret_cast<float4*>(dwt + (size_t)(ch * CW + warp * 8 + i) * D +
-                               kb * KB + 4 * lane) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  if (with_db) db[ch * CW + tid] = dbs;
+  i -= n_w;
+  if (i < NUMEL) {
+    float s = 0.f;
+    for (int k = 0; k < ksplit; ++k)
+      s = __fadd_rn(s, p.db_part[(size_t)k * NUMEL + i]);
+    db[i] = s;
+    return;
+  }
+  i -= NUMEL;
+  if (!L2 && i < (size_t)p.E * 64)
+    p.da0[i] = __fadd_rn(__fadd_rn(p.da0[i], p.da_part[i]),
+                         p.da_part[(size_t)p.E * 64 + i]);
 }
 
 // --------------------------------------------------------------- host
@@ -1231,23 +1294,36 @@ cudaError_t run_bf16(const TcArgs& p, float* dwt, float* db, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <bool L2, int D>
-cudaError_t run_f32(const void* h, const void* a0, const void* a1,
-                    const void* a2, const void* wt, const void* bias,
-                    const void* dc0, const void* dc1, const void* dc2,
-                    void* dh, void* da0, void* da1, void* da2, void* dwt,
-                    void* db, int E, cudaStream_t s) {
-  using T = const float*;
-  const bool full_h = smem_tile_f32<L2, D>(true) <= (size_t)SMEM_LIMIT;
-  cudaError_t err = launch(tp_bwd_tile_fma<L2, D>, dim3(E / TEF), NTHREADS,
-                           smem_tile_f32<L2, D>(full_h), s, (T)h, (T)a0,
-                           (T)a1, (T)a2, (T)wt, (T)bias, (T)dc0, (T)dc1,
-                           (T)dc2, (float*)dh, (float*)da0, (float*)da1,
-                           (float*)da2, (int)full_h);
+// edge ranges of the f32 weight pass: as many as fill the SMs' block
+// slots (WEIGHT_BLOCKS_F32 an SM) with tiles x KSPLIT blocks
+int ksplit_f32(int E, int d) {
+  const int tiles = NCHUNK * (d / simt::BN);
+  int k = WEIGHT_BLOCKS_F32 * num_sms() / tiles;
+  if (k > E / simt::BM) k = E / simt::BM;
+  return k < 1 ? 1 : k;
+}
+
+template <bool L2>
+cudaError_t run_f32(const F32Args& q, void* dwt, void* db, cudaStream_t s) {
+  F32Args p = q;
+  const int E = p.E, d = p.d, ksplit = ksplit_f32(E, d);
+  p.db_part = p.w_part + (size_t)ksplit * NUMEL * d;
+  p.da_part = p.db_part + (size_t)ksplit * NUMEL;
+  const int n_rows = E / simt::BM;
+  const int n_dh = n_rows * (d / simt::BN);
+  cudaError_t err = launch(tp_bwd_tile_f32<L2>,
+                           dim3(n_dh + n_rows * (NUMEL / simt::BN)),
+                           simt::THREADS, simt::SMEM, s, p, n_dh);
   if (err != cudaSuccess) return err;
-  return launch(tp_bwd_weight_fma<L2, D>, dim3(NCHUNK, D / KB), NTHREADS,
-                smem_weight_f32(), s, (T)h, (T)a0, (T)a1, (T)a2, (T)dc0,
-                (T)dc1, (T)dc2, (float*)dwt, (float*)db, E);
+  const int per_split = (n_rows + ksplit - 1) / ksplit * simt::BM;
+  err = launch(tp_bwd_weights_f32<L2>, dim3(NCHUNK * (d / simt::BN), ksplit),
+               simt::THREADS, simt::SMEM, s, p, per_split);
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)NUMEL * d + NUMEL + (L2 ? 0 : (size_t)E * 64);
+  tp_bwd_reduce_f32<L2><<<(unsigned)((n + NTHREADS - 1) / NTHREADS),
+                          NTHREADS, 0, s>>>(p, (float*)dwt, (float*)db,
+                                            ksplit);
+  return cudaGetLastError();
 }
 
 template <bool L2>
@@ -1270,20 +1346,12 @@ cudaError_t run(const void* h, const void* a0, const void* a1,
       default: return run_bf16<L2, 4>(p, (float*)dwt, (float*)db, s);
     }
   }
-  switch (d) {
-    case 128:
-      return run_f32<L2, 128>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
-                              da0, da1, da2, dwt, db, E, s);
-    case 256:
-      return run_f32<L2, 256>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
-                              da0, da1, da2, dwt, db, E, s);
-    case 384:
-      return run_f32<L2, 384>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
-                              da0, da1, da2, dwt, db, E, s);
-    default:
-      return run_f32<L2, 512>(h, a0, a1, a2, wt, bias, dc0, dc1, dc2, dh,
-                              da0, da1, da2, dwt, db, E, s);
-  }
+  using T = const float*;
+  const F32Args p{(T)h,  (T)a0, (T)a1, (T)a2, (T)wt, (T)bias,
+                  (T)dc0, (T)dc1, (T)dc2, (float*)dh, (float*)da0,
+                  (float*)da1, (float*)da2, nullptr, (float*)work, nullptr,
+                  E, d};
+  return run_f32<L2>(p, dwt, db, s);
 }
 
 bool width_ok(int d) { return d == 128 || d == 256 || d == 384 || d == 512; }
@@ -1292,43 +1360,27 @@ bool width_ok(int d) { return d == 128 || d == 256 || d == 384 || d == 512; }
 
 // Shared memory (bytes) of the block of each pass: kind 0 the bf16 tile
 // pass (TileLayout, whose stages must hold a chunk's d / 64 slabs), 1 the
-// bf16 weight pass, 2 the f32 tile pass, 3 the f32 weight pass; 0 for an
-// unsupported d.
+// bf16 weight pass, 2 the f32 tile pass, 3 the f32 weight pass (both the
+// double-buffered A and B slabs of simt_gemm.cuh); 0 for an unsupported d.
 extern "C" long long tp_contract_bwd_smem(int d, int kind, int l2) {
+  (void)l2;
   if (!width_ok(d)) return 0;
   switch (kind) {
     case 0:
       return (long long)(d <= 256 ? SplitLayout(d).total
                                   : TileLayout(d).total);
     case 1: return (long long)WEIGHT_SMEM;
-    case 3: return (long long)smem_weight_f32();
-    default: break;
+    default: return (long long)simt::SMEM;
   }
-  size_t full, part;
-  switch (d) {
-    case 128:
-      full = l2 ? smem_tile_f32<true, 128>(true) : smem_tile_f32<false, 128>(true);
-      part = l2 ? smem_tile_f32<true, 128>(false) : smem_tile_f32<false, 128>(false);
-      break;
-    case 256:
-      full = l2 ? smem_tile_f32<true, 256>(true) : smem_tile_f32<false, 256>(true);
-      part = l2 ? smem_tile_f32<true, 256>(false) : smem_tile_f32<false, 256>(false);
-      break;
-    case 384:
-      full = l2 ? smem_tile_f32<true, 384>(true) : smem_tile_f32<false, 384>(true);
-      part = l2 ? smem_tile_f32<true, 384>(false) : smem_tile_f32<false, 384>(false);
-      break;
-    default:
-      full = l2 ? smem_tile_f32<true, 512>(true) : smem_tile_f32<false, 512>(true);
-      part = l2 ? smem_tile_f32<true, 512>(false) : smem_tile_f32<false, 512>(false);
-  }
-  return (long long)(full <= (size_t)SMEM_LIMIT ? full : part);
 }
 
-// floats of scratch the bf16 path needs in ``work`` (the weight pass's
-// partials); 0 in f32
+// floats of scratch the call needs in ``work``: the weight pass's KSPLIT
+// partials of dwt and db, and in f32 L1's path 1 and 2 terms of da
 extern "C" long long tp_contract_bwd_workspace(int E, int d, int is_bf16) {
-  if (!is_bf16 || !width_ok(d)) return 0;
+  if (!width_ok(d)) return 0;
+  if (!is_bf16)
+    return (long long)ksplit_f32(E, d) * NUMEL * ((long long)d + 1) +
+           2LL * E * 64;
   return (long long)ksplit_of(E, d) * NUMEL * ((long long)d + 1);
 }
 
@@ -1337,8 +1389,8 @@ extern "C" long long tp_contract_bwd_workspace(int E, int d, int is_bf16) {
 // [E, 64], dc0/dc1/dc2 [E,64]/[E,8]/[E,8], da0 [E, 64]; a1/a2/da1/da2 unused
 // (null). l2 = 1: a0/a1/a2 and da0/da1/da2 [E,64]/[E,8]/[E,8], dc0 [E, 64],
 // dc1/dc2 unused. dh [E, d]; dwt [5120, d] and db [5120] f32; work:
-// tp_contract_bwd_workspace floats. bf16: three launches on the stream
-// (tile pass, weight pass, reduce); f32: two. Returns cudaGetLastError()
+// tp_contract_bwd_workspace floats. Three launches on the stream (tile
+// pass, weight pass, reduce). Returns cudaGetLastError()
 // after them (cudaErrorInvalidValue when a tensor map cannot be made).
 extern "C" int tp_contract_bwd(const void* h, const void* a0, const void* a1,
                                const void* a2, const void* wt,

@@ -42,7 +42,8 @@ The backward (port of ``edge_phase_bwd_call`` -> ``_bwd_kernel``, driven by
 ``_ep_bwd``) is ``edge_phase_bwd``: on a CUDA tensor it launches
 ``csrc/edge_phase_bwd.cu`` (three launches per call: a tile pass, a
 weight-gradient pass, a fixed-order reduce pass; no atomics; in bf16 the
-first two run on wgmma fed by TMA) or raises; on a
+first two run on wgmma fed by TMA, in f32 as SIMT GEMM tiles on the CUDA
+cores) or raises; on a
 CPU tensor it runs ``edge_phase_bwd_plain``. It needs node tables and edges
 in one dtype, as training has them. ``EdgePhase`` is the autograd Function:
 forward K1 with the saved residual and the moments, backward K5.
@@ -180,10 +181,6 @@ def padded_width(d: int) -> int:
     return _pad.round_up(d, GRANULE)
 
 
-def _a128(n: int) -> int:
-    return -(-n // 128) * 128
-
-
 def fwd_smem_plan(d: int, edge_bf16: bool) -> dict:
     """K1's dynamic shared memory per block, for the CPU tests (mirrors
     edge_phase_fwd.cu, whose ``edge_phase_fwd_smem`` the wrapper asks on
@@ -220,17 +217,17 @@ def bwd_smem_plan(d: int, bf16: bool) -> dict:
     on the card; ``chip_smoke.py`` holds the two equal): bf16,
     the tile pass's TMA ring (8 KB stages, as many as fit up to 16), dg/ds
     [64, d] and dpre_c [64, 2d] tiles, 4 KB of sums, barriers and 1 KB of
-    alignment slack, and the weight pass's 4 stages of 32 KB; f32, the FMA
-    passes' tiles."""
+    alignment slack, and the weight pass's 4 stages of 32 KB; f32, both
+    passes' two k-slabs of 8 rows of the 64-row A tile and the 128-column
+    B tile, rows padded by 4 floats (csrc/simt_gemm.cuh), at every
+    width."""
     if bf16:
         fixed = 1024 + 384 * d + 4096 + 16 * 16
         stages = min(16, max(0, (_SMEM_LIMIT - fixed) // 8192))
         return {"tile": 1024 + stages * 8192 + 384 * d + 4096 + 16 * stages,
                 "weights": 1024 + 4 * 4 * 8192 + 16 * 4, "stages": stages}
-    te = 32
-    return {"tile": (_a128(4 * te * (d + 4)) + _a128(4 * te * (2 * d + 4))
-                     + _a128(4 * 16 * 132) + _a128(4 * te * 132) + 4 * te),
-            "weights": 4 * 32 * (68 + 132), "stages": 0}
+    simt = 4 * 2 * 8 * ((64 + 4) + (128 + 4))
+    return {"tile": simt, "weights": simt, "stages": 0}
 
 
 def _lib():

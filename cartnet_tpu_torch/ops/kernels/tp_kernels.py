@@ -37,11 +37,13 @@ the outputs it recomputes w_all and returns
 (L1: the one a sums its three paths in f32 and rounds once; L2: one dc
 [E, 64] feeds all three paths). On a CUDA tensor it launches
 ``csrc/tp_contract_bwd.cu`` or raises; on a CPU tensor it runs
-``tp_contract_bwd_plain``. One call is three CUDA launches in bf16 (a
+``tp_contract_bwd_plain``. One call is three CUDA launches: in bf16 a
 persistent wgmma + TMA edge-tile pass for dh and da, an output-tiled wgmma
 pass for dwt and db over KSPLIT edge ranges, a fixed-order reduce of the
-ranges) and two in f32 (the FMA passes); ``bwd_launches`` counts calls. No
-float atomics, nothing of size [E, 5120] in device memory. The kernel takes
+ranges; in f32 the same three passes as SIMT GEMM tiles on the CUDA cores
+(the tile pass's dh and w_all tiles in one grid, the reduce also adding
+L1's three path terms of da in path order); ``bwd_launches`` counts calls.
+No float atomics, nothing of size [E, 5120] in device memory. The kernel takes
 d % 128 == 0 (``BWD_GRANULE``: two warpgroups each own d/2 columns of dh
 in 64-column slabs); other widths up to 512 are zero-padded inside the
 wrapper (h's and wt's padded columns are zero, so w_all, da and the real
@@ -281,8 +283,9 @@ def bwd_smem_plan(d: int, l2: bool) -> dict:
     da table; then as many 8 KB wt ring slabs as fit up to 16 (``chunks``
     chunks of d/64 must), barriers and 1 KB of alignment slack. The bf16
     weight pass: 4 stages of two h slabs, two A slabs per warpgroup
-    (double-buffered) and the db sums. The f32 passes' tiles (the
-    tile pass reads h from device memory where its tile does not fit)."""
+    (double-buffered) and the db sums. The f32 passes (csrc/simt_gemm.cuh):
+    two k-slabs of 8 rows of the 64-row A tile and of the 128-column B
+    tile, rows padded by 4 floats, at every width."""
     tables = 2 * 64 * 80 * 2 + 64 * 80 * 4
     split = d <= 256
     head = d * 128 + tables + (64 * 80 * 4 + 5120 * 2 if split
@@ -290,15 +293,12 @@ def bwd_smem_plan(d: int, l2: bool) -> dict:
     ring = -(-head // 1024) * 1024
     stages = min(16, max(0, (_SMEM_LIMIT - 1024 - ring - 16 * 16 - 16)
                          // 8192))
-    a_w = 80 if l2 else 64
-    f32 = lambda h_rows: 4 * (h_rows * (d + 4) + 64 * (d + 4) + 32 * 144
-                              + 32 * 65 + 32 * a_w)
+    simt = 4 * 2 * 8 * ((64 + 4) + (128 + 4))
     return {"tile": 1024 + ring + stages * 8192 + 16 * stages + 16,
             "stages": stages, "chunks": 2 if split else 1,
             "weights": 1024 + 4 * 2 * 8192 + 4 * 8192 + 2 * 16 * 64 * 4
             + 16 * 4,
-            "tile_f32": f32(32) if f32(32) <= _SMEM_LIMIT else f32(0),
-            "weights_f32": 4 * (32 * 128 + 32 * 64)}
+            "tile_f32": simt, "weights_f32": simt}
 
 
 def tp_contract_bwd(paths, h, a_list, wt, b, dc_list):
