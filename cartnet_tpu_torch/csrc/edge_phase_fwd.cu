@@ -13,11 +13,12 @@
 // against ~35-60 MB of unavoidable traffic (e in, gate/sender out), so at
 // the tensor-core rate the card is bound by memory for f32 node tables and
 // by the matmuls for bf16 ones, both near 11-17 us at the published rates
-// of an NVIDIA H100 SXM at its 700 W limit. One launch
-// per call; every sum in a fixed order, so results repeat bitwise; the
-// elementwise steps use explicitly rounded adds/multiplies so nothing is
-// contracted into an FMA that the plain PyTorch version does not have.
-// d % 128 == 0 and d <= 512 (the wrapper zero-pads other widths).
+// of an NVIDIA H100 SXM at its 700 W limit; f32 edges run on the CUDA
+// cores' FMA rate (67 TFLOP/s: 0.164 ms). Every sum in a fixed order, so
+// results repeat bitwise; the elementwise steps use explicitly rounded
+// adds/multiplies so nothing is contracted into an FMA that the plain
+// PyTorch version does not have. d % 128 == 0 and d <= 512 (the wrapper
+// zero-pads other widths).
 //
 // bf16 edges (serving layer 0 and layers 1-3, the training layouts, the
 // eComformer convs), wgmma + TMA: a persistent grid (one block per SM)
@@ -42,11 +43,20 @@
 // the warpgroup's 4 warps in order). No f32 tile makes a round trip through
 // shared memory; [E, 2d] pre/h never reach device memory.
 //
-// f32 edges (the all-f32 configuration) keep the FMA design: one block per
-// 64-edge tile, a register-tiled GEMM on the CUDA cores (full f32, no
-// TF32) over weight chunks staged by the threads, the e tile staged where
-// it fits (up to d = 384; else the phase-1 product reads e from device
-// memory), one half of pre at a time in a [64, d] shared-memory tile.
+// f32 edges (the all-f32 configuration; full f32, no TF32), two launches of
+// the 64 x 128 SIMT GEMM tiles of simt_gemm.cuh (128 threads, 8 x 8 register
+// micro-tiles, double-buffered k-slabs), four blocks an SM:
+//  (1) pre tiles, 2 (E / 64) (d / 128) blocks: e @ We over K = d with the
+//      gather + silu epilogue; h = pre sig goes to device memory in f32
+//      ([E, 2d] scratch, 43 MB at d = 256), the saved residual beside it;
+//  (2) output tiles, as many blocks: h_g @ W1g and h_a @ W1a from that
+//      scratch, the bias epilogue, and on each gate tile (one 64-edge
+//      window) the masked Welford partials in two fixed-order column sums.
+// A block owns one output tile, so each pass spreads its E / 64 windows
+// over 2 d / 128 blocks and fills the SMs' block slots evenly (one block
+// per 64-edge tile, doing both phases in turn, left 328 blocks of serial
+// work in the slots at E = 20992). The round trip of h through device
+// memory (twice 43 MB, mostly in L2) buys that parallelism.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,14 +67,14 @@
 // TMA, mbarriers, wgmma descriptors and products, the TMA ring, the tensor
 // maps (shared with K5/K6 and K8)
 #include "hopper_common.cuh"
+// the f32 SIMT GEMM tile (shared with K5/K6's, K7's and K8's f32 passes)
+#include "simt_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TE = 64;         // edges per block
-constexpr int NTHREADS = 256;  // 8 warps
-constexpr int CN = 128;        // output columns per chunk
+constexpr int TE = 64;  // edges per tile (the moments' window)
 constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -102,191 +112,161 @@ struct Args {
   float* m2w;
   int d;
   int save_sig;  // saved row: [pre | sig] (1) or pre alone (0)
-  int stage_e;   // f32 edges: the e tile is staged in shared memory
 };
-
-// phase-1 epilogue of one element: pre = xi[dst] + xj[src] + acc + b,
-// h = silu(pre) rounded to ET (returned), optional residual [pre | sig] or
-// pre alone
-template <typename TT, typename ET>
-__device__ __forceinline__ float phase1_element(const Args<TT, ET>& p,
-                                                size_t e0, int r, int c,
-                                                int dst_r, int src_r,
-                                                float acc) {
-  const int d2 = 2 * p.d;
-  const float pre = __fadd_rn(
-      __fadd_rn(__fadd_rn(to_f(p.xi[(size_t)dst_r * d2 + c]),
-                          to_f(p.xj[(size_t)src_r * d2 + c])),
-                acc),
-      to_f(p.b[c]));
-  const float sg = 1.f / (1.f + expf(-pre));
-  if (p.saved != nullptr) {
-    TT* row = p.saved + (e0 + r) * (size_t)(p.save_sig ? 2 * d2 : d2);
-    row[c] = from_f<TT>(pre);
-    if (p.save_sig) row[d2 + c] = from_f<TT>(sg);
-  }
-  return round_to<ET>(__fmul_rn(pre, sg));
-}
-
-// column-wise masked Welford partials of the TE x CN rounded gate block in
-// g_s (row stride ldg; shared or device memory): s1 = sum(m g),
-// M2 = sum((m (g - s1/n))^2)
-template <typename G>
-__device__ __forceinline__ void window_moments(const G* g_s, int ldg,
-                                               const float* m_s, float* s1w,
-                                               float* m2w, size_t out0) {
-  const int tid = threadIdx.x;
-  if (tid >= CN) return;
-  float n = 0.f, s1 = 0.f;
-  for (int r = 0; r < TE; ++r) {
-    n = __fadd_rn(n, m_s[r]);
-    s1 = __fadd_rn(s1, __fmul_rn(to_f(g_s[r * ldg + tid]), m_s[r]));
-  }
-  const float mean = s1 / fmaxf(n, 1.f);
-  float m2 = 0.f;
-  for (int r = 0; r < TE; ++r) {
-    const float df =
-        __fmul_rn(__fadd_rn(to_f(g_s[r * ldg + tid]), -mean), m_s[r]);
-    m2 = __fadd_rn(m2, __fmul_rn(df, df));
-  }
-  s1w[out0 + tid] = s1;
-  m2w[out0 + tid] = m2;
-}
 
 // --------------------------------------------------- f32 edges: CUDA cores
 
-constexpr int KC = 16;  // weight rows staged per step
-constexpr int TM = 4;   // rows per thread
-constexpr int TN = 8;   // columns per thread (16 x 16 threads -> 64 x 128)
+constexpr int F32_BLOCKS = 4;  // blocks an SM the f32 passes are compiled for
+static_assert(simt::BM == TE, "an f32 tile is one moment window");
 
-// column of this thread's j-th output inside a CN-wide chunk: two groups of
-// four adjacent columns, 64 apart, so the float4 reads of a warp are dense
-__device__ __forceinline__ int col_of(int tx, int j) {
-  return (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+template <typename T> struct Pair;
+template <> struct Pair<float> {
+  using type = float2;
+  static __device__ __forceinline__ float2 f(float2 v) { return v; }
+  static __device__ __forceinline__ float2 make(float x, float y) {
+    return make_float2(x, y);
+  }
+};
+template <> struct Pair<bf16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ float2 f(__nv_bfloat162 v) {
+    return __bfloat1622float2(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat162 make(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
+  }
+};
+
+// four adjacent elements of T at p (8-byte aligned for float, 4 for bf16)
+// as f32, and stored from f32 (rounded to T)
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
+  using P = Pair<T>;
+  const float2 lo = P::f(reinterpret_cast<const typename P::type*>(p)[0]);
+  const float2 hi = P::f(reinterpret_cast<const typename P::type*>(p)[1]);
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&v)[4]) {
+  using P = Pair<T>;
+  reinterpret_cast<typename P::type*>(p)[0] = P::make(v[0], v[1]);
+  reinterpret_cast<typename P::type*>(p)[1] = P::make(v[2], v[3]);
 }
 
-// acc += A[rows of this thread, 0:K] @ W[0:K, c0:c0+CN]; A: f32 rows in
-// shared memory (stride lda, 16-byte aligned); W: row-major [K, ldw]
-__device__ __forceinline__ void gemm_fma(const float* A, int lda,
-                                         const float* __restrict__ W,
-                                         int ldw, int K, int c0, float* w_s,
-                                         float acc[TM][TN]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    for (int i = tid; i < KC * CN; i += NTHREADS) {
-      const int kk = i / CN, cc = i % CN;
-      w_s[kk * CN + cc] = W[(size_t)(k0 + kk) * ldw + c0 + cc];
-    }
-    __syncthreads();
+// Pass 1, pre tile: 64 edges x 128 columns of pre [E, 2d] over K = d (A =
+// e rows, B = We's columns; simt_gemm.cuh). Epilogue per element: pre =
+// xi[dst] + xj[src] + acc + b, sig = 1 / (1 + exp(-pre)) in IEEE f32,
+// h = pre sig -> hw [E, 2d] f32 (device memory, for pass 2), and the
+// optional residual [pre | sig] or pre alone in the table dtype.
+template <typename TT>
+__global__ void __launch_bounds__(simt::THREADS, F32_BLOCKS)
+    edge_fwd_pre_f32(const __grid_constant__ Args<TT, float> p,
+                     float* __restrict__ hw) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  const int d = p.d, d2 = 2 * d, nct = d2 / simt::BN;
+  const size_t e0 = (size_t)(blockIdx.x / nct) * simt::BM;
+  const int c0 = (blockIdx.x % nct) * simt::BN;
+  float acc[8][8];
+  simt::zero(acc);
+  simt::RowsT<simt::BM> fa{p.e + e0 * d, (size_t)d, 0};
+  simt::ColsD<simt::BN> fb{p.we + c0, (size_t)d2, 0};
+  simt::mainloop(acc, d / simt::BK, fa, fb, smem);
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 4) {
-      float4 a4[TM];
+  for (int i = 0; i < 8; ++i) {
+    const size_t e = e0 + simt::row_of(i);
+    const TT* xi = p.xi + (size_t)p.dst[e] * d2;
+    const TT* xj = p.xj + (size_t)p.src[e] * d2;
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a4[i] = *reinterpret_cast<const float4*>(
-            &A[(ty * TM + i) * lda + k0 + kk]);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = c0 + simt::col_of(4 * hh);  // 4 columns from c
+      float vi[4], vj[4], pre[4], sg[4], h[4];
+      load4(xi + c, vi);
+      load4(xj + c, vj);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(&w_s[(kk + q) * CN + tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            &w_s[(kk + q) * CN + 64 + tx * 4]);
-        const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float av = q == 0 ? a4[i].x
-                         : q == 1 ? a4[i].y
-                         : q == 2 ? a4[i].z
-                                  : a4[i].w;
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-        }
+        pre[q] = __fadd_rn(__fadd_rn(__fadd_rn(vi[q], vj[q]),
+                                     acc[i][4 * hh + q]),
+                           p.b[c + q]);
+        sg[q] = 1.f / (1.f + expf(-pre[q]));
+        h[q] = __fmul_rn(pre[q], sg[q]);
+      }
+      *reinterpret_cast<float4*>(hw + e * d2 + c) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      if (p.saved != nullptr) {
+        TT* row = p.saved + e * (size_t)(p.save_sig ? 2 * d2 : d2);
+        store4(row + c, pre);
+        if (p.save_sig) store4(row + d2 + c, sg);
       }
     }
-    __syncthreads();
   }
 }
 
-// shared memory of the FMA kernel (bytes): [e tile,] h half tile, weight
-// chunk, ids and mask
-__host__ __device__ inline size_t fma_smem(int d, bool stage_e) {
-  return sizeof(float) * ((stage_e ? (size_t)TE * (d + 4) : 0) +
-                          (size_t)TE * (d + 4) + KC * CN + 3 * TE);
-}
-
+// Pass 2, output tile: 64 edges x 128 columns of gate (half 0: h_g @ W1g)
+// or sender (half 1: h_a @ W1a) over K = d (A = hw's half, B = W1's
+// columns); out = acc + b1 rounded to the table dtype. A gate tile with
+// moments is one 64-edge window: the masked Welford partials of the
+// rounded gate over its 64 rows, each a fixed-order column sum
+// (simt::column_sums): s1 = sum m g, then M2 = sum (m (g - s1 / n))^2.
 template <typename TT>
-__global__ void __launch_bounds__(NTHREADS)
-    edge_phase_fwd_fma(Args<TT, float> p) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int d = p.d, d2 = 2 * d, ldh = d + 4;
-  const int te = p.stage_e ? TE * (d + 4) : 0;
-  float* a_s = smem;              // [TE][d + 4]  e tile (if staged)
-  float* h_s = a_s + te;          // [TE][ldh]    h = silu(pre), one half
-  float* w_s = h_s + TE * ldh;    // [KC][CN]     weight chunk
-  int* dst_s = reinterpret_cast<int*>(w_s + KC * CN);
-  int* src_s = dst_s + TE;
-  float* m_s = reinterpret_cast<float*>(src_s + TE);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t e0 = (size_t)blockIdx.x * TE;
-  // the phase-1 A operand: the staged tile or e's rows in device memory
-  const float* A = p.stage_e ? a_s : p.e + e0 * d;
-  const int lda = p.stage_e ? d + 4 : d;
-
-  if (tid < TE) {
-    dst_s[tid] = p.dst[e0 + tid];
-    src_s[tid] = p.src[e0 + tid];
-    m_s[tid] = p.emask[e0 + tid] ? 1.f : 0.f;
+__global__ void __launch_bounds__(simt::THREADS, F32_BLOCKS)
+    edge_fwd_out_f32(const __grid_constant__ Args<TT, float> p,
+                     const float* __restrict__ hw) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  const int d = p.d, nct = d / simt::BN;
+  const int ct = blockIdx.x % nct, half = (blockIdx.x / nct) % 2;
+  const int tile = blockIdx.x / (2 * nct), c0 = ct * simt::BN;
+  const size_t e0 = (size_t)tile * simt::BM;
+  const float* b1 = half ? p.b1a : p.b1g;
+  TT* out = half ? p.sender : p.gate;
+  float acc[8][8];
+  simt::zero(acc);
+  simt::RowsT<simt::BM> fa{hw + e0 * 2 * d + half * d, 2 * (size_t)d, 0};
+  simt::ColsD<simt::BN> fb{(half ? p.w1a : p.w1g) + c0, (size_t)d, 0};
+  simt::mainloop(acc, d / simt::BK, fa, fb, smem);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const size_t e = e0 + simt::row_of(i);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = c0 + simt::col_of(4 * hh);
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)  // the stored value, as f32
+        o[q] = acc[i][4 * hh + q] =
+            round_to<TT>(__fadd_rn(acc[i][4 * hh + q], b1[c + q]));
+      store4(out + e * d + c, o);
+    }
   }
-  if (p.stage_e)
-    for (int i = tid; i < TE * d; i += NTHREADS) {
-      const int r = i / d, c = i % d;
-      a_s[r * lda + c] = p.e[(e0 + r) * d + c];
-    }
-  __syncthreads();
-
-  for (int half = 0; half < 2; ++half) {
-    for (int c0 = 0; c0 < d; c0 += CN) {  // phase 1, this half of pre
-      float acc[TM][TN] = {};
-      gemm_fma(A, lda, p.we, d2, d, half * d + c0, w_s, acc);
+  if (half != 0 || p.s1w == nullptr) return;
+  float* red = smem;                     // [8][BN] column partials
+  float* mean_s = smem + 8 * simt::BN;  // [BN]
+  const float n = (float)__syncthreads_count(
+      threadIdx.x < simt::BM && p.emask[e0 + threadIdx.x] != 0);
+  float m[8];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = ty * TM + i;
+  for (int i = 0; i < 8; ++i) {
+    m[i] = p.emask[e0 + simt::row_of(i)] ? 1.f : 0.f;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int c = c0 + col_of(tx, j);
-          h_s[r * ldh + c] = phase1_element(p, e0, r, half * d + c, dst_s[r],
-                                            src_s[r], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-
-    const float* w1 = half ? p.w1a : p.w1g;  // phase 2, this half's product
-    const float* b1 = half ? p.b1a : p.b1g;
-    TT* out = half ? p.sender : p.gate;
-    const bool mom = half == 0 && p.s1w != nullptr;
-    for (int c0 = 0; c0 < d; c0 += CN) {
-      float acc[TM][TN] = {};
-      gemm_fma(h_s, ldh, w1, d, d, c0, w_s, acc);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = ty * TM + i;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int cl = col_of(tx, j);
-          out[(e0 + r) * d + c0 + cl] =
-              from_f<TT>(__fadd_rn(acc[i][j], b1[c0 + cl]));
-        }
-      }
-      if (mom) {  // from the rounded gate this block just wrote
-        __syncthreads();
-        window_moments(out + e0 * d + c0, d, m_s, p.s1w, p.m2w,
-                       (size_t)blockIdx.x * d + c0);
-      }
-    }
-    __syncthreads();  // h_s is rewritten by the next half
+    for (int j = 0; j < 8; ++j) acc[i][j] = __fmul_rn(acc[i][j], m[i]);
   }
+  const size_t w0 = (size_t)tile * d + c0;
+  simt::column_sums(acc, red, [&](int c, float s) {
+    p.s1w[w0 + c] = s;
+    mean_s[c] = s / fmaxf(n, 1.f);
+  });
+  __syncthreads();  // mean_s written, red read
+  // m in {0, 1}: (g m - mean) m is (g - mean) m
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float df =
+          __fmul_rn(__fadd_rn(acc[i][j], -mean_s[simt::col_of(j)]), m[i]);
+      acc[i][j] = __fmul_rn(df, df);
+    }
+  simt::column_sums(acc, red, [&](int c, float s) { p.m2w[w0 + c] = s; });
 }
 
 // --------------------------------------------- bf16 edges: wgmma + TMA
@@ -324,24 +304,6 @@ struct TcLayout {
 __device__ __forceinline__ float fast_sigmoid(float x) {
   return __fdividef(1.f, __fadd_rn(1.f, __expf(-x)));
 }
-
-template <typename T> struct Pair;
-template <> struct Pair<float> {
-  using type = float2;
-  static __device__ __forceinline__ float2 f(float2 v) { return v; }
-  static __device__ __forceinline__ float2 make(float x, float y) {
-    return make_float2(x, y);
-  }
-};
-template <> struct Pair<bf16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ float2 f(__nv_bfloat162 v) {
-    return __bfloat1622float2(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat162 make(float x, float y) {
-    return __floats2bfloat162_rn(x, y);
-  }
-};
 
 // the gathered node-table pairs of one pre chunk at a thread's accumulator
 // elements, and the bias pairs, loaded before the chunk's products so that
@@ -603,44 +565,61 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
-template <typename TT, typename ET>
-cudaError_t launch(const Args<TT, ET>& p, int E, cudaStream_t stream) {
+template <typename TT>
+cudaError_t launch_tc(const Args<TT, bf16>& p, int E, cudaStream_t stream) {
   const int d = p.d;
-  if constexpr (sizeof(ET) == 2) {
-    CUtensorMap e_m, we_m, w1g_m, w1a_m;
-    if (!make_map(&e_m, p.e, d, E) || !make_map(&we_m, p.we, 2 * d, d) ||
-        !make_map(&w1g_m, p.w1g, d, d) || !make_map(&w1a_m, p.w1a, d, d))
-      return cudaErrorInvalidValue;
-    const TcLayout L(d);
-    if (L.stages < 2 || L.total > SMEM_LIMIT)
-      return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(
-        edge_phase_fwd_tc<TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L.total);
-    if (err != cudaSuccess) return err;
-    const int n_tiles = E / TE, nsm = num_sms();
-    edge_phase_fwd_tc<TT><<<n_tiles < nsm ? n_tiles : nsm, TC_THREADS,
-                            L.total, stream>>>(p, n_tiles, e_m, we_m, w1g_m,
-                                               w1a_m);
-  } else {
-    const size_t smem = fma_smem(d, p.stage_e != 0);
-    cudaError_t err = cudaFuncSetAttribute(
-        edge_phase_fwd_fma<TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    edge_phase_fwd_fma<TT><<<E / TE, NTHREADS, smem, stream>>>(p);
-  }
+  CUtensorMap e_m, we_m, w1g_m, w1a_m;
+  if (!make_map(&e_m, p.e, d, E) || !make_map(&we_m, p.we, 2 * d, d) ||
+      !make_map(&w1g_m, p.w1g, d, d) || !make_map(&w1a_m, p.w1a, d, d))
+    return cudaErrorInvalidValue;
+  const TcLayout L(d);
+  if (L.stages < 2 || L.total > SMEM_LIMIT)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_phase_fwd_tc<TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = E / TE, nsm = num_sms();
+  edge_phase_fwd_tc<TT><<<n_tiles < nsm ? n_tiles : nsm, TC_THREADS,
+                          L.total, stream>>>(p, n_tiles, e_m, we_m, w1g_m,
+                                             w1a_m);
   return cudaGetLastError();
+}
+
+// one f32 pass: blocks of simt::THREADS threads and simt::SMEM bytes
+template <typename K, typename... A>
+cudaError_t launch(K kern, int blocks, cudaStream_t s, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)simt::SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, simt::THREADS, simt::SMEM, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// f32 edges: pass 1 (pre tiles, h to hw), then pass 2 (gate and sender
+// tiles from hw); 2 (E / 64) (d / 128) blocks each
+template <typename TT>
+cudaError_t launch_f32(const Args<TT, float>& p, float* hw, int E,
+                       cudaStream_t s) {
+  const int blocks = E / simt::BM * 2 * (p.d / simt::BN);
+  cudaError_t err = launch(edge_fwd_pre_f32<TT>, blocks, s, p, hw);
+  if (err != cudaSuccess) return err;
+  return launch(edge_fwd_out_f32<TT>, blocks, s, p, (const float*)hw);
 }
 
 }  // namespace
 
 // dynamic shared memory (bytes) of the kernel's block: the wgmma kernel's
-// (bf16 edges) or the FMA kernel's, for the wrapper's plan check
+// (bf16 edges) or the SIMT tile's of both f32 passes, for the wrapper's
+// plan check
 extern "C" long long edge_phase_fwd_smem(int d, int edge_bf16) {
-  if (edge_bf16) return (long long)TcLayout(d).total;
-  const size_t full = fma_smem(d, true);
-  return (long long)(full <= SMEM_LIMIT ? full : fma_smem(d, false));
+  return (long long)(edge_bf16 ? TcLayout(d).total : simt::SMEM);
+}
+
+// floats of scratch the call needs in ``work``: h [E, 2d] f32 between the
+// two f32 passes (none for bf16 edges)
+extern "C" long long edge_phase_fwd_workspace(int E, int d, int edge_bf16) {
+  return edge_bf16 ? 0 : 2LL * E * d;
 }
 
 namespace {
@@ -650,51 +629,53 @@ cudaError_t run(const void* xi, const void* xj, const void* e, const void* we,
                 const void* b, const void* w1g, const void* b1g,
                 const void* w1a, const void* b1a, const void* dst,
                 const void* src, const void* emask, void* gate, void* sender,
-                void* saved, void* s1w, void* m2w, int E, int d,
+                void* saved, void* s1w, void* m2w, void* work, int E, int d,
                 int save_sig, cudaStream_t stream) {
-  const int stage_e = fma_smem(d, true) <= (size_t)SMEM_LIMIT;
   const Args<TT, ET> p{(const TT*)xi,  (const TT*)xj,  (const ET*)e,
                        (const ET*)we,  (const ET*)b,   (const ET*)w1g,
                        (const ET*)b1g, (const ET*)w1a, (const ET*)b1a,
                        (const int*)dst, (const int*)src,
                        (const uint8_t*)emask, (TT*)gate, (TT*)sender,
-                       (TT*)saved, (float*)s1w, (float*)m2w, d, save_sig,
-                       stage_e};
-  return launch(p, E, stream);
+                       (TT*)saved, (float*)s1w, (float*)m2w, d, save_sig};
+  if constexpr (sizeof(ET) == 2)
+    return launch_tc(p, E, stream);
+  else
+    return launch_f32(p, (float*)work, E, stream);
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes). E % 64 == 0, d % 128 == 0, d <= 512;
-// e and the weights 16-byte aligned (TMA); xi/xj 8-byte aligned, since
-// the wgmma kernel reads them as pairs of elements (float2 at most). The
-// wrapper checks both.
+// e and the weights 16-byte aligned (TMA and the f32 tiles' float4 loads);
+// xi/xj 8-byte aligned, since both paths read them as pairs of elements
+// (float2 at most). The wrapper checks both.
 // table_bf16 / edge_bf16 select bf16 (1) or f32 (0) node tables / edge
 // activations and weights; save_sig selects the saved residual's layout
-// ([pre | sig] [E, 4d] or pre [E, 2d]). Returns cudaGetLastError() after the
-// launch.
+// ([pre | sig] [E, 4d] or pre [E, 2d]); work: edge_phase_fwd_workspace
+// floats. One launch for bf16 edges, two for f32 edges. Returns
+// cudaGetLastError() after the launches.
 extern "C" int edge_phase_fwd(const void* xi, const void* xj, const void* e,
                               const void* we, const void* b, const void* w1g,
                               const void* b1g, const void* w1a,
                               const void* b1a, const void* dst,
                               const void* src, const void* emask, void* gate,
                               void* sender, void* saved, void* s1w, void* m2w,
-                              int E, int d, int table_bf16, int edge_bf16,
-                              int save_sig, void* stream) {
+                              void* work, int E, int d, int table_bf16,
+                              int edge_bf16, int save_sig, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (table_bf16 && edge_bf16)
     return run<bf16, bf16>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                           emask, gate, sender, saved, s1w, m2w, E, d,
+                           emask, gate, sender, saved, s1w, m2w, work, E, d,
                            save_sig, s);
   if (edge_bf16)
     return run<float, bf16>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                            emask, gate, sender, saved, s1w, m2w, E, d,
+                            emask, gate, sender, saved, s1w, m2w, work, E, d,
                             save_sig, s);
   if (table_bf16)
     return run<bf16, float>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                            emask, gate, sender, saved, s1w, m2w, E, d,
+                            emask, gate, sender, saved, s1w, m2w, work, E, d,
                             save_sig, s);
   return run<float, float>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                           emask, gate, sender, saved, s1w, m2w, E, d,
+                           emask, gate, sender, saved, s1w, m2w, work, E, d,
                            save_sig, s);
 }

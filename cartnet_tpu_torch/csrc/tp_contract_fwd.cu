@@ -18,11 +18,12 @@
 //
 // What bounds it: the weight-generation GEMM, 2*E*d*5120 flops (55 GFLOP at
 // E = 20992, d = 256) against ~20 MB of inputs and outputs, so the tensor
-// cores (bf16) or the f32 FMA rate bound it. Nothing of size [E, 5120] or
+// cores (bf16) or the f32 FMA rate (0.82 ms at the 67 TFLOP/s of an NVIDIA
+// H100 SXM at its 700 W limit) bound it. Nothing of size [E, 5120] or
 // [E, U, V] reaches device memory.
 //
-// Design: one block per tile of edges; h's tile stays in shared memory and
-// wt streams through in chunks of 64 columns. bf16: the tile is 16 edges per
+// bf16 design: one block per tile of edges; h's tile stays in shared memory
+// and wt streams through in chunks of 64 columns. The tile is 16 edges per
 // warp, 4 to 12 warps, sized by the caller so that the tiles fill the SMs in
 // one wave (one block per SM: at E = 20992 on 132 SMs, 10 warps, 132
 // blocks of 160 edges, where 128-edge tiles took two waves, the second a
@@ -31,15 +32,32 @@
 // 16 rows of the chunk; a 64-column chunk is one u of a V = 64 path or eight
 // u of a V = 8 path, so every thread contracts its own accumulator fragment
 // in registers (the TPU's R_rep / R_sum 0/1 matmuls are not needed). Each
-// row's arithmetic is independent of the tile it sits in. f32: blocks of
-// 128 edges, a register-tiled FMA GEMM on the CUDA cores writes the chunk to
-// shared memory and each thread contracts the (edge, v) outputs it owns;
-// past d = 256 the h tile no longer fits beside the chunk tiles, and h is
-// staged KC columns at a time beside the weight chunk (a K loop over d).
-// bf16 at d = 512 fits with at most 5 warps per block (the wrapper picks
-// the largest warp count that fits).
-// Sums run in a fixed order (ascending u), so results are bitwise
-// repeatable; the epilogue uses explicitly rounded adds/multiplies.
+// row's arithmetic is independent of the tile it sits in. bf16 at d = 512
+// fits with at most 5 warps per block (the wrapper picks the largest warp
+// count that fits).
+//
+// f32 design (no TF32: FMA on the CUDA cores, bound by their 67 TFLOP/s):
+// w_all as the 64 x 128 SIMT GEMM tiles of simt_gemm.cuh (A = h rows, B =
+// wt rows, K = d; K8's f32 w_all tiles read the same way), four blocks an
+// SM, with the contraction as each tile's epilogue, two launches:
+//  (a) tile pass: a block takes one 64-edge tile and a group of F32_GROUP
+//      column tiles (8 chunks) in order, so 328 x 10 blocks at E = 20992
+//      fill the SMs' 528 block slots evenly (one block per edge tile
+//      walking all 40 column tiles would leave 328 blocks of serial work
+//      in those slots). A thread's columns in a tile's two chunks share
+//      v = 4 tx + q, so its 8 rows x 4 v output sums run over ascending u
+//      in shared memory that only it touches (no barrier; the tile keeps
+//      its 128-register budget). L1's V = 8 chunks sum every eighth u per
+//      thread, then over the lanes of one v in a fixed shuffle tree; their
+//      groups (tiles 32-35, 36-39) write out1 and out2 directly. Each group
+//      of V = 64 tiles writes a partial [E, 64] table.
+//  (b) reduce: out0 = the partial tables in group order (8 for L1, 10 for
+//      L2; 43 MB of f32 traffic at E = 20992, mostly in L2).
+// The tile's width is fixed, so every d up to 512 runs the same registers
+// and d only lengthens the k loop.
+// Sums run in a fixed order (ascending u, then the fixed trees), so results
+// are bitwise repeatable; the epilogues use explicitly rounded
+// adds/multiplies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,20 +65,19 @@
 #include <cstddef>
 #include <cstdint>
 
+// the f32 SIMT GEMM tile (shared with K5/K6's and K8's f32 passes)
+#include "simt_gemm.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TE = 128;               // f32 path: edges per block
-constexpr int NTHREADS = 256;         // f32 path: 8 warps
 constexpr int MAX_WARPS = 12;         // bf16 path: 16 edges per warp
 constexpr int CW = 64;                // wt rows (output columns) per chunk
 constexpr int NUMEL = 5120;
 constexpr int NCHUNK = NUMEL / CW;    // 80
 constexpr int CH_P1 = 4096 / CW;      // first chunk of path 1 (64)
 constexpr int CH_P2 = 4608 / CW;      // first chunk of path 2 (72)
-constexpr int KC = 16;                // wt columns staged per FMA step
-constexpr int CS = CW + 4;            // f32 chunk tile stride
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -299,147 +316,155 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
 
 // ------------------------------------------------ f32: CUDA cores
 
+// The f32 tile pass: 64 x 128 SIMT tiles (simt_gemm.cuh) of w_all = h wt^T
+// (A = h rows, B = wt rows, K = d), each tile two 64-column chunks whose
+// contraction is the tile's epilogue. A block walks F32_GROUP column tiles
+// of one 64-edge tile in order; tile nt holds chunks 2 nt and 2 nt + 1, and
+// a thread's columns in both are the same v = 4 tx + q (simt::col_of).
+constexpr int F32_BLOCKS = 4;         // blocks an SM (__launch_bounds__)
+constexpr int NT = NUMEL / simt::BN;  // column tiles (chunk pairs): 40
+constexpr int NT_P1 = CH_P1 / 2;      // first tile of L1's path 1 (32)
+constexpr int NT_P2 = CH_P2 / 2;      // first tile of L1's path 2 (36)
+constexpr int F32_GROUP = 4;          // column tiles a block walks
+static_assert(NT % F32_GROUP == 0 &&
+                  NT_P1 / F32_GROUP == (NT_P2 - 1) / F32_GROUP &&
+                  NT_P2 / F32_GROUP == (NT - 1) / F32_GROUP,
+              "each of L1's V = 8 paths lies in one group");
+constexpr int NG = NT / F32_GROUP;    // groups an edge tile
+constexpr int OUT_SUMS = 32;          // a thread's output sums: 8 rows x 4
+// dynamic shared memory of the tile pass: the SIMT tile's slabs, then the
+// output sums [OUT_SUMS][THREADS] (each thread owns a column of them)
+constexpr size_t F32_SMEM = simt::SMEM + sizeof(float) * OUT_SUMS *
+                                             simt::THREADS;
+
+// the partial tables of out0 the tile pass writes, one a group that holds
+// V = 64 tiles (L2: all 40 tiles; L1: path 0's 32); with one, out0 itself
+__host__ __device__ constexpr int n_parts(bool l2) {
+  return ((l2 ? NT : NT_P1) + F32_GROUP - 1) / F32_GROUP;
+}
+
+struct F32Args {
+  const float *h, *a0, *a1, *a2, *wt, *bias;
+  float *out0, *out1, *out2;
+  float* part;  // [n_parts][E][64] partial sums of out0
+  int E, d;
+};
+
+// a[e, u] of V = 64 chunk ch (u = ch): L1 a [E, 64]; L2 a0 | a1 | a2
 template <bool L2>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    tp_fwd_fma(const float* __restrict__ h, const float* __restrict__ a0,
-               const float* __restrict__ a1, const float* __restrict__ a2,
-               const float* __restrict__ wt, const float* __restrict__ bias,
-               float* __restrict__ out0, float* __restrict__ out1,
-               float* __restrict__ out2, int E, int d, int full_h) {
-  extern __shared__ float4 smem4[];
-  constexpr int AS = a_stride<L2, float>();
-  // h_s holds the whole h tile where it fits (full_h), else the KC columns
-  // of the current step, staged beside each weight chunk (a K loop over d)
-  const int ldh = full_h ? d + 4 : KC + 4;
-  float* h_s = reinterpret_cast<float*>(smem4);  // [TE][ldh]
-  float* w_s = h_s + TE * ldh;                    // [KC][CW]
-  float* c_s = w_s + KC * CW;                     // [TE][CS]
-  float* a_s = c_s + TE * CS;                     // [TE][AS]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t e0 = (size_t)blockIdx.x * TE;
+__device__ __forceinline__ float a_of(const F32Args& p, size_t e, int ch) {
+  if (!L2 || ch < CH_P1) return p.a0[e * 64 + ch];
+  return ch < CH_P2 ? p.a1[e * 8 + ch - CH_P1] : p.a2[e * 8 + ch - CH_P2];
+}
 
-  if (full_h)
-    for (int i = tid; i < TE * d / 4; i += NTHREADS) {
-      const int r = i / (d / 4), c = 4 * (i % (d / 4));
-      *reinterpret_cast<float4*>(&h_s[r * ldh + c]) =
-          *reinterpret_cast<const float4*>(&h[(e0 + r) * d + c]);
-    }
-  stage_a<L2, float>(a0, a1, a2, e0, TE, E, a_s);
-  __syncthreads();
-
-  // outputs owned in the contraction: V = 64 at (tid/64 + 4i, tid%64);
-  // L1's V = 8 paths at (tid/8 + 32i, tid%8)
-  float o64[TE * 64 / NTHREADS];
-  float o8a[TE * 8 / NTHREADS], o8b[TE * 8 / NTHREADS];
+// Contraction of tile nt into the thread's sums o (o[k THREADS], k = 4 i +
+// q: row row_of(i), v = 4 tx + q), chunk 2 nt, then 2 nt + 1:
+// o += round(acc + b) round(a), the Pallas kernel's rounding points (none
+// in f32, but no contraction into an FMA either). V = 64: u = ch; L1's V =
+// 8 chunks: column 4 tx + q is (u = u0 + tx / 2, v = 4 (tx & 1) + q), so a
+// thread sums every eighth u of its path over the chunks, in chunk order.
+template <bool L2>
+__device__ __forceinline__ void contract(const F32Args& p,
+                                         const float (&acc)[8][8], size_t e0,
+                                         int nt, float* o) {
+  const int tx = threadIdx.x % 16;
+  const bool v8 = !L2 && nt >= NT_P1;
+  float bq[8];
 #pragma unroll
-  for (int i = 0; i < TE * 64 / NTHREADS; ++i) o64[i] = 0.f;
+  for (int j = 0; j < 8; ++j) bq[j] = p.bias[nt * simt::BN + simt::col_of(j)];
+  // L1's V = 8: a's column of chunk 2 nt (chunk 2 nt + 1: 8 further)
+  const int u8 = (2 * nt - (nt < NT_P2 ? CH_P1 : CH_P2)) * 8 + tx / 2;
 #pragma unroll
-  for (int i = 0; i < TE * 8 / NTHREADS; ++i) o8a[i] = o8b[i] = 0.f;
-
-  for (int ch = 0; ch < NCHUNK; ++ch) {
-    // chunk GEMM: rows ty*8 + i, columns 4tx + j
-    float acc[8][4];
+  for (int i = 0; i < 8; ++i) {
+    const size_t e = e0 + simt::row_of(i);
+    const float a_lo = v8 ? p.a0[e * 64 + u8] : a_of<L2>(p, e, 2 * nt);
+    const float a_hi = v8 ? p.a0[e * 64 + u8 + 8]
+                          : a_of<L2>(p, e, 2 * nt + 1);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      for (int i = tid; i < KC * CW; i += NTHREADS) {
-        const int n = i / KC, kk = i % KC;
-        w_s[kk * CW + n] = wt[(size_t)(ch * CW + n) * d + k0 + kk];
-      }
-      if (!full_h)
-        for (int i = tid; i < TE * KC / 4; i += NTHREADS) {
-          const int r = i / (KC / 4), c = 4 * (i % (KC / 4));
-          *reinterpret_cast<float4*>(&h_s[r * ldh + c]) =
-              *reinterpret_cast<const float4*>(&h[(e0 + r) * d + k0 + c]);
-        }
-      __syncthreads();
-      const int hk = full_h ? k0 : 0;  // h_s column of step k0
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 4) {
-        float4 a4[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          a4[i] = *reinterpret_cast<const float4*>(
-              &h_s[(ty * 8 + i) * ldh + hk + kk]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 b4 =
-              *reinterpret_cast<const float4*>(&w_s[(kk + q) * CW + 4 * tx]);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float av = q == 0 ? a4[i].x
-                           : q == 1 ? a4[i].y
-                           : q == 2 ? a4[i].z
-                                    : a4[i].w;
-            acc[i][0] = fmaf(av, b4.x, acc[i][0]);
-            acc[i][1] = fmaf(av, b4.y, acc[i][1]);
-            acc[i][2] = fmaf(av, b4.z, acc[i][2]);
-            acc[i][3] = fmaf(av, b4.w, acc[i][3]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<float4*>(&c_s[(ty * 8 + i) * CS + 4 * tx]) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __syncthreads();
-
-    const float* bc = bias + ch * CW;
-    if (!L2 && ch >= CH_P1) {  // V = 8: chunk column 8uu + v, u = u0 + uu
-      const int u0 = (ch - (ch < CH_P2 ? CH_P1 : CH_P2)) * 8, v = tid % 8;
-#pragma unroll
-      for (int i = 0; i < TE * 8 / NTHREADS; ++i) {
-        const int r = tid / 8 + 32 * i;
-        float s = 0.f;
-#pragma unroll
-        for (int uu = 0; uu < 8; ++uu)
-          s = __fadd_rn(s, __fmul_rn(__fadd_rn(c_s[r * CS + 8 * uu + v],
-                                               bc[8 * uu + v]),
-                                     a_s[r * AS + u0 + uu]));
-        if (ch < CH_P2)
-          o8a[i] = __fadd_rn(o8a[i], s);
-        else
-          o8b[i] = __fadd_rn(o8b[i], s);
-      }
-    } else {  // V = 64: u = ch (L1) / a column ch (L2)
-      const int v = tid % 64;
-      const float bv = bc[v];
-#pragma unroll
-      for (int i = 0; i < TE * 64 / NTHREADS; ++i) {
-        const int r = tid / 64 + 4 * i;
-        o64[i] = __fadd_rn(o64[i],
-                           __fmul_rn(__fadd_rn(c_s[r * CS + v], bv),
-                                     a_s[r * AS + ch]));
-      }
-    }
-    // c_s is rewritten only after the next chunk's GEMM barriers
-  }
-
-#pragma unroll
-  for (int i = 0; i < TE * 64 / NTHREADS; ++i)
-    out0[(e0 + tid / 64 + 4 * i) * 64 + tid % 64] = o64[i];
-  if (!L2) {
-#pragma unroll
-    for (int i = 0; i < TE * 8 / NTHREADS; ++i) {
-      const size_t o = (e0 + tid / 8 + 32 * i) * 8 + tid % 8;
-      out1[o] = o8a[i];
-      out2[o] = o8b[i];
+    for (int q = 0; q < 4; ++q) {
+      float s = o[(4 * i + q) * simt::THREADS];
+      s = __fadd_rn(s, __fmul_rn(__fadd_rn(acc[i][q], bq[q]), a_lo));
+      s = __fadd_rn(s, __fmul_rn(__fadd_rn(acc[i][4 + q], bq[4 + q]), a_hi));
+      o[(4 * i + q) * simt::THREADS] = s;
     }
   }
 }
 
-constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
+// The end of a path in the block: V = 64 sums go to out0 (one group) or
+// to the group's partial table; L1's V = 8 sums are added over the eight
+// lanes of one v (tx ^ 2, ^ 4, ^ 8: a fixed tree, the same bits in each
+// lane) and written by tx = 0, 1 to out1 (path 1) or out2 (path 2). The
+// sums are zeroed for the next path.
+template <bool L2>
+__device__ __forceinline__ void flush(const F32Args& p, size_t e0, int nt,
+                                      int g, float* o) {
+  const int tx = threadIdx.x % 16;
+  const bool v8 = !L2 && nt >= NT_P1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const size_t e = e0 + simt::row_of(i);
+    float s[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s[q] = o[(4 * i + q) * simt::THREADS];
+      o[(4 * i + q) * simt::THREADS] = 0.f;
+      if (v8) {
+#pragma unroll
+        for (int m = 2; m < 16; m <<= 1)
+          s[q] = __fadd_rn(s[q], __shfl_xor_sync(0xffffffffu, s[q], m));
+      }
+    }
+    const float4 v = make_float4(s[0], s[1], s[2], s[3]);
+    if (v8) {
+      if (tx < 2)
+        *reinterpret_cast<float4*>((nt < NT_P2 ? p.out1 : p.out2) + e * 8 +
+                                   4 * tx) = v;
+    } else {
+      float* dst = n_parts(L2) > 1 ? p.part + ((size_t)g * p.E + e) * 64
+                                   : p.out0 + e * 64;
+      *reinterpret_cast<float4*>(dst + 4 * tx) = v;
+    }
+  }
+}
 
-// f32 shared memory (bytes) with the whole h tile staged (full_h) or KC
-// columns of it per step
-size_t smem_f32(int d, bool l2, bool full_h) {
-  const int as = l2 ? a_stride<true, float>() : a_stride<false, float>();
-  return sizeof(float) * ((size_t)TE * (full_h ? d + 4 : KC + 4) + KC * CW +
-                          TE * CS + (size_t)TE * as);
+// tile pass: block = (64-edge tile, group g of F32_GROUP column tiles)
+template <bool L2>
+__global__ void __launch_bounds__(simt::THREADS, F32_BLOCKS)
+    tp_fwd_tile_f32(const __grid_constant__ F32Args p) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  float* o = smem + simt::SMEM / sizeof(float) + threadIdx.x;
+  const int d = p.d, g = blockIdx.x % NG;
+  const size_t e0 = (size_t)(blockIdx.x / NG) * simt::BM;
+#pragma unroll
+  for (int k = 0; k < OUT_SUMS; ++k) o[k * simt::THREADS] = 0.f;
+  simt::RowsT<simt::BM> fa{p.h + e0 * d, (size_t)d, 0};
+  for (int nt = g * F32_GROUP; nt < (g + 1) * F32_GROUP; ++nt) {
+    float acc[8][8];
+    simt::zero(acc);
+    simt::RowsT<simt::BN> fb{p.wt + (size_t)nt * simt::BN * d, (size_t)d, 0};
+    simt::mainloop(acc, d / simt::BK, fa, fb, smem);
+    contract<L2>(p, acc, e0, nt, o);
+    const int next = nt + 1;
+    if (next == (g + 1) * F32_GROUP ||
+        (!L2 && (next == NT_P1 || next == NT_P2)))
+      flush<L2>(p, e0, nt, g, o);
+  }
+}
+
+// reduce: out0 = the partial tables summed in group order (float4 a thread)
+__global__ void __launch_bounds__(256)
+    tp_fwd_reduce_f32(const float4* __restrict__ part,
+                      float4* __restrict__ out0, int n4, int np) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  float4 s = part[i];
+  for (int k = 1; k < np; ++k) {
+    const float4 v = part[(size_t)k * n4 + i];
+    s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y),
+                    __fadd_rn(s.z, v.z), __fadd_rn(s.w, v.w));
+  }
+  out0[i] = s;
 }
 
 // dynamic shared memory of one block (bytes); warps: the bf16 tile
@@ -449,8 +474,7 @@ size_t smem_bytes(int d, bool is_bf16, bool l2, int warps) {
            ((size_t)(16 * warps + 2 * CW) * (d + 8) +
             (size_t)16 * warps *
                 (l2 ? a_stride<true, bf16>() : a_stride<false, bf16>()));
-  const size_t full = smem_f32(d, l2, true);
-  return full <= SMEM_LIMIT ? full : smem_f32(d, l2, false);
+  return F32_SMEM;
 }
 
 template <typename K, typename... Args>
@@ -464,27 +488,46 @@ cudaError_t launch(K kern, int blocks, int threads, size_t smem,
 }
 
 template <bool L2>
+cudaError_t run_f32(const F32Args& p, cudaStream_t s) {
+  cudaError_t err = launch(tp_fwd_tile_f32<L2>, p.E / simt::BM * NG,
+                           simt::THREADS, F32_SMEM, s, p);
+  if (err != cudaSuccess || n_parts(L2) == 1) return err;
+  const int n4 = p.E * 16;
+  tp_fwd_reduce_f32<<<(n4 + 255) / 256, 256, 0, s>>>(
+      reinterpret_cast<const float4*>(p.part),
+      reinterpret_cast<float4*>(p.out0), n4, n_parts(L2));
+  return cudaGetLastError();
+}
+
+template <bool L2, typename AT>
+cudaError_t run_bf16(const void* h, const void* a0, const void* a1,
+                     const void* a2, const void* wt, const void* bias,
+                     void* out0, void* out1, void* out2, int E, int d,
+                     int warps, cudaStream_t s) {
+  const int te = 16 * warps, blocks = (E + te - 1) / te;
+  return launch(tp_fwd_mma<L2, AT>, blocks, 32 * warps,
+                smem_bytes(d, true, L2, warps), s, (const bf16*)h,
+                (const AT*)a0, (const AT*)a1, (const AT*)a2, (const bf16*)wt,
+                (const bf16*)bias, (bf16*)out0, (bf16*)out1, (bf16*)out2, E,
+                d);
+}
+
+template <bool L2>
 cudaError_t run(const void* h, const void* a0, const void* a1,
                 const void* a2, const void* wt, const void* bias, void* out0,
-                void* out1, void* out2, int E, int d, int is_bf16, int a_f32,
-                int warps, cudaStream_t s) {
-  const size_t smem = smem_bytes(d, is_bf16, L2, warps);
-  if (!is_bf16)
-    return launch(tp_fwd_fma<L2>, E / TE, NTHREADS, smem, s,
-                  (const float*)h, (const float*)a0, (const float*)a1,
-                  (const float*)a2, (const float*)wt, (const float*)bias,
-                  (float*)out0, (float*)out1, (float*)out2, E, d,
-                  (int)(smem_f32(d, L2, true) <= SMEM_LIMIT));
-  const int te = 16 * warps, blocks = (E + te - 1) / te;
-  if (a_f32)
-    return launch(tp_fwd_mma<L2, float>, blocks, 32 * warps, smem, s,
-                  (const bf16*)h, (const float*)a0, (const float*)a1,
-                  (const float*)a2, (const bf16*)wt, (const bf16*)bias,
-                  (bf16*)out0, (bf16*)out1, (bf16*)out2, E, d);
-  return launch(tp_fwd_mma<L2, bf16>, blocks, 32 * warps, smem, s,
-                (const bf16*)h, (const bf16*)a0, (const bf16*)a1,
-                (const bf16*)a2, (const bf16*)wt, (const bf16*)bias,
-                (bf16*)out0, (bf16*)out1, (bf16*)out2, E, d);
+                void* out1, void* out2, void* work, int E, int d, int is_bf16,
+                int a_f32, int warps, cudaStream_t s) {
+  if (is_bf16 && a_f32)
+    return run_bf16<L2, float>(h, a0, a1, a2, wt, bias, out0, out1, out2, E,
+                               d, warps, s);
+  if (is_bf16)
+    return run_bf16<L2, bf16>(h, a0, a1, a2, wt, bias, out0, out1, out2, E,
+                              d, warps, s);
+  using T = const float*;
+  return run_f32<L2>(F32Args{(T)h, (T)a0, (T)a1, (T)a2, (T)wt, (T)bias,
+                             (float*)out0, (float*)out1, (float*)out2,
+                             (float*)work, E, d},
+                     s);
 }
 
 }  // namespace
@@ -495,24 +538,33 @@ extern "C" long long tp_contract_fwd_smem(int d, int is_bf16, int l2,
   return (long long)smem_bytes(d, is_bf16 != 0, l2 != 0, warps);
 }
 
-// C entry point (bound with ctypes). E % 128 == 0, d % 16 == 0 (the wrapper
+// floats of scratch the call needs in ``work``: the f32 tile pass's partial
+// tables of out0 (none in bf16, or with one group)
+extern "C" long long tp_contract_fwd_workspace(int E, int is_bf16, int l2) {
+  const int np = n_parts(l2 != 0);
+  return is_bf16 || np == 1 ? 0 : (long long)np * E * 64;
+}
+
+// C entry point (bound with ctypes). E % 64 == 0, d % 16 == 0 (the wrapper
 // pads other widths), bf16 with a warp count whose smem_bytes fits; h [E, d],
 // wt [5120, d], bias [5120] and the outputs in one dtype (is_bf16), a in f32
-// (a_f32 = 1) or h's dtype. l2 = 0: a0 = a [E, 64], a1/a2 unused (null),
-// outputs out0 [E, 64], out1 [E, 8], out2 [E, 8]; l2 = 1: a0 [E, 64],
-// a1/a2 [E, 8], one output out0 [E, 64]. bf16: blocks of 16 * warps edges
-// (4 <= warps <= 12); f32: blocks of 128. Returns cudaGetLastError() after
-// the launch.
+// (a_f32 = 1) or h's dtype; h and wt 16-byte aligned. l2 = 0: a0 = a
+// [E, 64], a1/a2 unused (null), outputs out0 [E, 64], out1 [E, 8], out2
+// [E, 8]; l2 = 1: a0 [E, 64], a1/a2 [E, 8], one output out0 [E, 64]. work:
+// tp_contract_fwd_workspace floats. bf16: one launch, blocks of 16 * warps
+// edges (4 <= warps <= 12); f32: the tile pass and, with more than one
+// partial table, the reduce. Returns cudaGetLastError() after the launches.
 extern "C" int tp_contract_fwd(const void* h, const void* a0, const void* a1,
                                const void* a2, const void* wt,
                                const void* bias, void* out0, void* out1,
-                               void* out2, int E, int d, int is_bf16,
-                               int a_f32, int l2, int warps, void* stream) {
+                               void* out2, void* work, int E, int d,
+                               int is_bf16, int a_f32, int l2, int warps,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (E == 0) return cudaGetLastError();
   if (l2)
-    return run<true>(h, a0, a1, a2, wt, bias, out0, out1, out2, E, d, is_bf16,
-                     a_f32, warps, s);
-  return run<false>(h, a0, a1, a2, wt, bias, out0, out1, out2, E, d, is_bf16,
-                    a_f32, warps, s);
+    return run<true>(h, a0, a1, a2, wt, bias, out0, out1, out2, work, E, d,
+                     is_bf16, a_f32, warps, s);
+  return run<false>(h, a0, a1, a2, wt, bias, out0, out1, out2, work, E, d,
+                    is_bf16, a_f32, warps, s);
 }

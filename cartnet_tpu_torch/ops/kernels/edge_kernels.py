@@ -18,7 +18,11 @@ windows; any tile size merges exactly in the training slice.
 Node tables (xi, xj) come in bf16 or f32; e and the weights share the compute
 dtype. Every edge is computed, pads included (pads point at real rows).
 On a CUDA tensor ``edge_phase_fwd`` launches ``csrc/edge_phase_fwd.cu`` or
-raises; on a CPU tensor it runs ``edge_phase_fwd_plain``.
+raises; on a CPU tensor it runs ``edge_phase_fwd_plain``. bf16 edges: one
+CUDA launch a call (wgmma fed by TMA). f32 edges: two, SIMT GEMM tiles on
+the CUDA cores, one output tile a block: the pre tiles write h in f32 to a
+[E, 2d] scratch allocated here (``edge_phase_fwd_workspace``), the output
+tiles read it for gate and sender and the window moments.
 
 Widths: the wrappers of K1, K5 and K6 take every 1 <= d <= 512
 (``MAX_WIDTH``). The kernels tile d in 64-column wgmma/TMA slabs shared by
@@ -181,25 +185,27 @@ def padded_width(d: int) -> int:
     return _pad.round_up(d, GRANULE)
 
 
+# blocks an SM the f32-edge passes are compiled for (edge_phase_fwd.cu's
+# ``__launch_bounds__``)
+F32_BLOCKS = 4
+
+
 def fwd_smem_plan(d: int, edge_bf16: bool) -> dict:
     """K1's dynamic shared memory per block, for the CPU tests (mirrors
     edge_phase_fwd.cu, whose ``edge_phase_fwd_smem`` the wrapper asks on
     the card; ``chip_smoke.py`` holds the two equal): bf16 edges, the
     wgmma kernel's e and h tiles (d x 128 bytes each), 8 KB of moment sums,
     the tile's ids, then as many 8 KB TMA ring stages as fit up to 16,
-    barriers and 1 KB of alignment slack; f32 edges, the FMA kernel's f32 e
-    tile where it fits, the half-h tile, weight chunk, ids/mask."""
+    barriers and 1 KB of alignment slack; f32 edges, both passes' SIMT
+    tile at every width: two k-slabs of 8 rows of the 64-row A tile and the
+    128-column B tile, rows padded by 4 floats (csrc/simt_gemm.cuh)."""
     if edge_bf16:
         ring = _a1024(2 * d * 128 + 8192 + 4 * 3 * TILE_EDGES + 16)
         stages = min(16, max(0, (_SMEM_LIMIT - 1024 - ring - 16 * 16 - 16)
                              // 8192))
         return {"total": 1024 + ring + stages * 8192 + 16 * stages + 16,
                 "stages": stages}
-    t = TILE_EDGES
-    fma = lambda stage_e: 4 * ((t * (d + 4) if stage_e else 0)
-                               + t * (d + 4) + 16 * 128 + 3 * t)
-    return {"total": fma(True) if fma(True) <= _SMEM_LIMIT else fma(False),
-            "stages": 0}
+    return {"total": 4 * 2 * 8 * ((64 + 4) + (128 + 4)), "stages": 0}
 
 
 def _smem_bytes(d: int, edge_bf16: bool) -> int:
@@ -234,11 +240,13 @@ def _lib():
     lib = _build.load("edge_phase_fwd")
     fn = lib.edge_phase_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.edge_phase_fwd_smem.argtypes = [ctypes.c_int] * 2
-        lib.edge_phase_fwd_smem.restype = ctypes.c_longlong
+        lib.edge_phase_fwd_workspace.argtypes = [ctypes.c_int] * 3
+        for name in ("edge_phase_fwd_smem", "edge_phase_fwd_workspace"):
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 
@@ -271,10 +279,11 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
 
 def _launch_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
                 saved: bool, pre_only: bool, moments: bool) -> dict:
-    """One launch of csrc/edge_phase_fwd.cu at the padded width -> the
+    """One call of csrc/edge_phase_fwd.cu at the padded width -> the
     outputs by name (``FWD_OUT_PAD``)."""
-    # TMA reads e and the weights (16-byte aligned); the wgmma kernel reads
-    # the node tables as pairs of elements (float2 at most: 8 bytes)
+    # TMA and the f32 tiles' float4 loads read e and the weights (16-byte
+    # aligned); both paths read the node tables as pairs of elements
+    # (float2 at most: 8 bytes)
     if any(t.data_ptr() % 16 for t in (e, we, w1g, w1a)) or any(
             t.data_ptr() % 8 for t in (xi, xj)):
         raise ValueError("edge_phase_fwd needs e and the weights 16-byte "
@@ -295,12 +304,16 @@ def _launch_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
     s1w = torch.empty((nt, d), dtype=torch.float32, device=dev) \
         if moments else None
     m2w = torch.empty_like(s1w) if moments else None
+    n_work = lib.edge_phase_fwd_workspace(E, d, int(edge_bf16))
+    work = torch.empty(n_work, dtype=torch.float32, device=dev) \
+        if n_work else None
     ptr = lambda t: None if t is None else t.data_ptr()
     args = (xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
     err = lib.edge_phase_fwd(
         *(ptr(t) for t in args), ptr(gate), ptr(sender), ptr(res), ptr(s1w),
-        ptr(m2w), E, d, int(cdt == torch.bfloat16), int(edge_bf16),
-        int(not pre_only), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(m2w), ptr(work), E, d, int(cdt == torch.bfloat16),
+        int(edge_bf16), int(not pre_only),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "edge_phase_fwd")
     global launches
     launches += 1

@@ -16,15 +16,19 @@ kernel's points; in f32 nothing is rounded. W is passed as ``wt`` [5120, d],
 the nn.Linear layout of the fc's second layer. ``a`` may be f32 beside bf16
 ``h`` (the eComformer's bf16 forward feeds it so).
 
-On a CUDA tensor the entries launch ``csrc/tp_contract_fwd.cu`` (one launch
-per call; nothing of size [E, 5120] reaches device memory; bf16 tiles sized
-to fill the card's SMs in one wave, as far as shared memory allows: at
-d = 512 at most 5 warps a block) or raise; on a CPU tensor they run
-``tp_contract_plain``. The kernel takes d % 16 == 0 (``GRANULE``) natively;
-other widths 1 <= d <= 512 (``MAX_WIDTH``) are zero-padded inside the
-wrapper (h's and wt's padded columns are zero, so every product over d
-gains only zero terms and w_all is unchanged). f32 past d = 256 stages h
-in 16-column steps (a K loop over d).
+On a CUDA tensor the entries launch ``csrc/tp_contract_fwd.cu`` or raise;
+on a CPU tensor they run ``tp_contract_plain``. Nothing of size [E, 5120]
+reaches device memory. bf16: one CUDA launch a call, tiles sized to fill
+the card's SMs in one wave, as far as shared memory allows (at d = 512 at
+most 5 warps a block). f32: two CUDA launches a call, a tile pass of SIMT
+GEMM tiles on the CUDA cores with the contraction as their epilogue (a
+block takes one 64-edge tile and a group of column tiles, and writes a
+partial [E, 64] table of the V = 64 paths) and a reduce that adds the
+partial tables in group order; the scratch is allocated here
+(``tp_contract_fwd_workspace``). The kernel takes d % 16 == 0
+(``GRANULE``) natively; other widths 1 <= d <= 512 (``MAX_WIDTH``) are
+zero-padded inside the wrapper (h's and wt's padded columns are zero, so
+every product over d gains only zero terms and w_all is unchanged).
 
 The backward (port of ``_bwd_call`` -> ``_tp_bwd_kernel``, driven by
 ``_l1_bwd`` / ``_l2_bwd``) is ``tp_contract_bwd``: from the cotangents dc of
@@ -64,7 +68,7 @@ NUMEL = 5120
 # (U, V, column offset) per TP path; 64*64 + 64*8 + 64*8 = 5120
 PATHS_L1 = ((64, 64, 0), (64, 8, 4096), (64, 8, 4608))
 PATHS_L2 = ((64, 64, 0), (8, 64, 4096), (8, 64, 4608))
-TILE_EDGES = 128  # E must be a multiple of it (the f32 kernel's tile)
+TILE_EDGES = 64  # E must be a multiple of it (the f32 tile pass's edge tile)
 WARPS = (4, 12)  # the bf16 kernel's tile: 16 edges per warp, in this range
 GRANULE = 16  # K7's width granule (mma.sync k16): other widths are padded
 MAX_WIDTH = 512  # the widest d the TP kernels take
@@ -116,27 +120,33 @@ def _lib():
     lib = _build.load("tp_contract_fwd")
     fn = lib.tp_contract_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tp_contract_fwd_smem.argtypes = [ctypes.c_int] * 4
-        lib.tp_contract_fwd_smem.restype = ctypes.c_longlong
+        lib.tp_contract_fwd_workspace.argtypes = [ctypes.c_int] * 3
+        for name in ("tp_contract_fwd_smem", "tp_contract_fwd_workspace"):
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
+
+
+# the f32 tile pass's blocks an SM (``__launch_bounds__``) and its output
+# sums a thread (8 rows x 4 columns), as tp_contract_fwd.cu states them
+F32_BLOCKS, F32_OUT_SUMS = 4, 32
 
 
 def fwd_smem_bytes(d: int, is_bf16: bool, l2: bool, warps: int) -> int:
     """K7's dynamic shared memory per block (mirrors tp_contract_fwd.cu,
     whose ``tp_contract_fwd_smem`` gives it on the card): bf16, the h tile
     of 16 edges a warp and the double-buffered 64-row wt chunk (rows of
-    d + 8 bf16) and the a tile; f32, the 128-edge h tile where it fits,
-    else 16 of its columns a step (the K loop over d), the wt step, the
-    chunk tile and the a tile."""
-    a_w = 80 if l2 else 64
+    d + 8 bf16) and the a tile; f32, at every width, the SIMT tile's two
+    k-slabs of 8 rows of the 64-row A tile and the 128-column B tile (rows
+    padded by 4 floats, csrc/simt_gemm.cuh) and the threads' output sums
+    (``F32_OUT_SUMS`` floats for each of the tile's 128 threads)."""
     if is_bf16:
+        a_w = 80 if l2 else 64
         return 2 * ((16 * warps + 128) * (d + 8) + 16 * warps * (a_w + 2))
-    f32 = lambda hcols: 4 * (128 * hcols + 16 * 64 + 128 * 68
-                             + 128 * (a_w + 1))
-    return f32(d + 4) if f32(d + 4) <= _SMEM_LIMIT else f32(16 + 4)
+    return 4 * 2 * 8 * ((64 + 4) + (128 + 4)) + 4 * F32_OUT_SUMS * 128
 
 
 def fwd_warps(E: int, d: int, l2: bool, n_sm: int) -> int:
@@ -174,8 +184,13 @@ def _launch(h, a_list, wt, b, outs, l2: bool):
                          f"d={d}")
     ptrs = [a.data_ptr() for a in a_list] + [None] * (3 - len(a_list))
     optrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    n_work = lib.tp_contract_fwd_workspace(E, int(is_bf16), int(l2))
+    work = torch.empty(n_work, dtype=torch.float32, device=h.device) \
+        if n_work else None
     err = lib.tp_contract_fwd(h.data_ptr(), *ptrs, wt.data_ptr(),
-                              b.data_ptr(), *optrs, E, d, int(is_bf16),
+                              b.data_ptr(), *optrs,
+                              None if work is None else work.data_ptr(), E,
+                              d, int(is_bf16),
                               int(a_list[0].dtype == torch.float32), int(l2),
                               warps,
                               torch.cuda.current_stream(h.device).cuda_stream)

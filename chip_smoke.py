@@ -52,8 +52,9 @@ Phases, one JSON line each (every line names the card and its power limit):
               through K4 + K5)
   6b. widths  the CartNet edge kernels at d = 32, 64, 96, 384 and 512, bf16
               and f32: K1 (training layout), K2, K4, K5 and K6 against their
-              plain versions with bitwise repeats, K5's and K6's device time
-              per pass past 256 (K7/K8 likewise at d = 64, 384, 512); then one CartNet micro-step (4 layers) per width, dtype
+              plain versions with bitwise repeats, K1's f32, K5's and K6's
+              device time per pass past 256 (K7/K8 likewise at d = 64, 384,
+              512); then one CartNet micro-step (4 layers) per width, dtype
               and backward path (default: K1, K2, K4, K5 4 each; merged:
               K1, K2, K6 4 each) through the kernels against the plain
               versions, with its launch counts
@@ -78,12 +79,15 @@ Phases, one JSON line each (every line names the card and its power limit):
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
               work, K3's index_add_ time and the [E, d] x [d, 5120] GEMM
-              beside K7, cuBLAS's products beside K5, K6 and K8, K5's, K6's
-              and K8's device time per pass (tile, weights, reduce) in bf16
-              and f32, one CartNet layer's whole backward through the
-              default path and through the merged one, the forward times per
-              batch (CartNet, eComformer) and the train micro-step times
-              (CartNet default and merged in turns, eComformer; then the f32
+              beside K7, cuBLAS's products beside K1, K5, K6 and K8, the
+              device time per pass of K1's and K7's f32 passes (K1 also in
+              its f32 training layout) and of K5's, K6's and K8's passes
+              (tile, weights, reduce) in bf16 and f32, one CartNet layer's
+              whole backward through the default path and through the
+              merged one, the forward times per batch (CartNet,
+              eComformer; bf16, then f32 through the kernels against the
+              plain versions) and the train micro-step times (CartNet
+              default and merged in turns, eComformer; then the f32
               micro-steps of CartNet and the eComformer), and one profiled
               CartNet forward, eComformer forward and micro-step of each
               model, path and dtype (device time by kernel, idle share of
@@ -159,22 +163,38 @@ BWD_PASSES = (("tile", "edge_bwd_tile"), ("weights", "edge_bwd_weights"),
 # K8's passes (bf16 and f32: tile, weights, reduce)
 TP_BWD_PASSES = (("tile", "tp_bwd_tile"), ("weights", "tp_bwd_weight"),
                  ("reduce", "tp_bwd_reduce"))
+# K1's f32-edge passes (pre tiles, gate / sender tiles) and K7's f32 ones
+# (tile pass, reduce of its partial tables)
+K1_PASSES = (("pre", "edge_fwd_pre_f32"), ("out", "edge_fwd_out_f32"))
+K7_PASSES = (("tile", "tp_fwd_tile_f32"), ("reduce", "tp_fwd_reduce_f32"))
 # the CUDA kernels one call of each wrapper launches at its own width, in
-# bf16 and in f32, by a piece of the kernels' names
+# bf16 and in f32 (K1: its edge dtype; K7: h's), by a piece of the kernels'
+# names
+_SAME = lambda launches: {"bf16": launches, "f32": launches}
 LAUNCHES = {
-    "edge_phase_fwd": {"edge_phase_fwd_": 1},
-    "sigma_segsum_fwd": {"sigma_segsum_fwd_kernel": 1},
-    "sigma_segsum_bwd": {"sigma_bwd_edges": 1, "sigma_bwd_columns": 1},
-    "edge_phase_bwd": {sub: 1 for _, sub in BWD_PASSES},
-    "edge_phase_merged_bwd": {sub: 1 for _, sub in BWD_PASSES},
-    "segment_sum_csr": {"segment_sum_csr_kernel": 1},
-    "tp_contract_fwd": {"tp_fwd_": 1},
-    "tp_contract_bwd": {sub: 1 for _, sub in TP_BWD_PASSES},
+    "edge_phase_fwd": {"bf16": {"edge_phase_fwd_tc": 1},
+                       "f32": {sub: 1 for _, sub in K1_PASSES}},
+    "sigma_segsum_fwd": _SAME({"sigma_segsum_fwd_kernel": 1}),
+    "sigma_segsum_bwd": _SAME({"sigma_bwd_edges": 1,
+                               "sigma_bwd_columns": 1}),
+    "edge_phase_bwd": _SAME({sub: 1 for _, sub in BWD_PASSES}),
+    "edge_phase_merged_bwd": _SAME({sub: 1 for _, sub in BWD_PASSES}),
+    "segment_sum_csr": _SAME({"segment_sum_csr_kernel": 1}),
+    "tp_contract_fwd": {"bf16": {"tp_fwd_mma": 1},
+                        "f32": {sub: 1 for _, sub in K7_PASSES}},
+    "tp_contract_bwd": _SAME({sub: 1 for _, sub in TP_BWD_PASSES}),
 }
 # profiler captures of one timing at most (``cuda_events``), and the spin
 # kernels around each capture's calls (``_capture``): their name and length
 CAPTURES = 10
 GUARD_KERNEL, GUARD_CYCLES = "spin_kernel", 1000
+
+
+def launches_of(kname: str, dt) -> dict:
+    """``LAUNCHES`` of wrapper ``kname`` whose kernel runs in ``dt`` (K1:
+    the edge dtype; K7: h's dtype; a torch dtype)."""
+    return LAUNCHES[kname]["bf16" if str(dt).endswith("bfloat16")
+                           else "f32"]
 
 
 def emit(**obj):
@@ -1492,9 +1512,9 @@ def main() -> int:
                           again, want, elem_tol)
             # device ms per call of each kernel at this width (training
             # layouts), padded copies included
+            k1_fn = lambda a=kargs: ek.edge_phase_fwd(*a, *idx, **kw)
             times = {"edge_phase_fwd": device_ms(
-                lambda a=kargs: ek.edge_phase_fwd(*a, *idx, **kw),
-                kernels=LAUNCHES["edge_phase_fwd"])}
+                k1_fn, kernels=launches_of("edge_phase_fwd", wdt))}
             sargs = sigma_inputs(b0, wdt, wdt, wd, gen, dev)
             sfn = lambda a=sargs: sk.sigma_segsum(
                 *a, b0.edge_dst, b0.edge_mask, b0.dst_rowptr, N)
@@ -1505,10 +1525,14 @@ def main() -> int:
             check_outputs(card, "sigma_segsum_fwd", case, ("e_out", "aggr"),
                           got, again, want, elem_tol)
             times["sigma_segsum_fwd"] = device_ms(
-                sfn, kernels=LAUNCHES["sigma_segsum_fwd"])
+                sfn, kernels=launches_of("sigma_segsum_fwd", wdt))
             eargs, s4args = backward_inputs(b0, wdt, wd, gen, dev)
             margs, _ = merged_inputs(b0, wdt, wd, gen, dev)
             passes = {}
+            if wdt == f32 and wd > d:
+                passes["edge_phase_fwd"] = pass_device_ms(
+                    k1_fn, launches_of("edge_phase_fwd", wdt),
+                    passes=K1_PASSES)
             for kname, fn, plain, names, a in (
                     ("sigma_segsum_bwd", sk.sigma_segsum_bwd,
                      sk.sigma_segsum_bwd_plain, SIGMA_BWD_OUT, s4args),
@@ -1521,10 +1545,10 @@ def main() -> int:
                 check_outputs(card, kname, case, names, got, again, want,
                               tol_of)
                 times[kname] = device_ms(lambda f=fn, a=a: f(*a),
-                                         kernels=LAUNCHES[kname])
+                                         kernels=launches_of(kname, wdt))
                 if kname != "sigma_segsum_bwd" and wd > d:
                     passes[kname] = pass_device_ms(lambda f=fn, a=a: f(*a),
-                                                   LAUNCHES[kname])
+                                                   launches_of(kname, wdt))
             # the CPU tests' mirror of the tile pass's shared-memory plan
             wp = ek.padded_width(wd)
             smem = ek._lib_bwd().edge_phase_bwd_smem(wp, int(wdt == bf))
@@ -1571,7 +1595,7 @@ def main() -> int:
             # operands of one dtype with cotangents zero on pad rows
             targs = tp_args(b0, wdt, f32, wd, gen, dev)
             tol = CHECK_TOL["sum" if wdt == f32 else "bf16"]
-            times = {}
+            times, passes = {}, {}
             for l2, names, a in zip((False, True), (("c0", "c1", "c2"),
                                                     ("out",)),
                                     tp_calls(targs)):
@@ -1582,11 +1606,16 @@ def main() -> int:
                 check_outputs(card, "tp_contract_fwd",
                               f"{'l2' if l2 else 'l1'}_{case}", names, got,
                               again, want, lambda _: tol)
-                times[f"tp_contract_fwd_{'l2' if l2 else 'l1'}"] = device_ms(
+                k7_name = f"tp_contract_fwd_{'l2' if l2 else 'l1'}"
+                times[k7_name] = device_ms(
                     lambda f=fn, a=a: f(*a),
-                    kernels=LAUNCHES["tp_contract_fwd"])
+                    kernels=launches_of("tp_contract_fwd", wdt))
+                if wdt == f32 and wd > d:
+                    passes[k7_name] = pass_device_ms(
+                        lambda f=fn, a=a: f(*a),
+                        launches_of("tp_contract_fwd", wdt),
+                        passes=K7_PASSES)
             targs = tp_args(b0, wdt, wdt, wd, gen, dev)
-            passes = {}
             for l2 in (False, True):
                 a = tp_bwd_args(targs, l2, b0.edge_mask, gen)
                 got, again = (tp_bwd_flat(k7.tp_contract_bwd(*a))
@@ -1599,7 +1628,7 @@ def main() -> int:
                 check_outputs(card, "tp_contract_bwd",
                               f"{'l2' if l2 else 'l1'}_{case}",
                               TP_BWD_OUT[l2], got, again, want, tol_of)
-                k8_launches = LAUNCHES["tp_contract_bwd"]
+                k8_launches = launches_of("tp_contract_bwd", wdt)
                 times[f"tp_contract_bwd_{'l2' if l2 else 'l1'}"] = device_ms(
                     lambda a=a: k7.tp_contract_bwd(*a), kernels=k8_launches)
                 if wd > d:
@@ -1802,18 +1831,25 @@ def main() -> int:
     # 9. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}
 
-    def time_row(kname, case, fk, fp, t_bound, by, calls, **others):
+    def time_row(kname, case, fk, fp, t_bound, by, calls, dt, passes=None,
+                 **others):
         """Kernel and plain times (plain before and after), and those of
         ``others`` (name_ms -> fn), at warm L2: CUDA events around one
         call, and the device time alone (``device_ms``; the kernel's
-        captures hold each of its launches, ``LAUNCHES``)."""
+        captures hold each of its launches in ``dt``, ``launches_of``);
+        with ``passes``, the device time of each of them too
+        (``pass_device_ms``)."""
         plain1 = cuda_median_ms(fp)
         kern = cuda_median_ms(fk)
         plain2 = cuda_median_ms(fp)
+        launches = launches_of(kname, dt)
         row = dict(ms=kern, plain_ms=statistics.fmean([plain1, plain2]),
                    bound_ms=t_bound, bound_by=by, calls=calls,
-                   device_ms=device_ms(fk, kernels=LAUNCHES[kname]),
+                   device_ms=device_ms(fk, kernels=launches),
                    plain_device_ms=device_ms(fp))
+        if passes:
+            row["passes_device_ms"] = pass_device_ms(fk, launches,
+                                                     passes=passes)
         for k, fn in others.items():
             row[k] = cuda_median_ms(fn)
             row[k.replace("_ms", "_device_ms")] = device_ms(fn)
@@ -1855,7 +1891,9 @@ def main() -> int:
         time_row("edge_phase_fwd", case,
                  lambda a=args: ek.edge_phase_fwd(*a, *idx),
                  lambda a=args: ek.edge_phase_fwd_plain(*a, *idx),
-                 t_bound, by, calls, products_ms=k1_products(args))
+                 t_bound, by, calls, edt,
+                 K1_PASSES if edt == f32 else None,
+                 products_ms=k1_products(args))
         args = timing_inputs[("sigma", case)]
         extra = (b0.edge_mask, b0.dst_rowptr)
         fk = lambda a=args: sk.sigma_segsum(*a, b0.edge_dst, b0.edge_mask,
@@ -1864,17 +1902,23 @@ def main() -> int:
         time_row("sigma_segsum_fwd", case, fk,
                  lambda a=args: sk.sigma_segsum_plain(*a, b0.edge_dst,
                                                       b0.edge_mask, N),
-                 t_bound, by, calls)
-    # the training case of K1 (saved residual and moments on) and of K2
-    args = timing_inputs[("edge", "layer0_bf16")]
+                 t_bound, by, calls, tdt)
+    # the training cases of K1 (saved residual and moments on), bf16 and
+    # f32, and of K2
     kw = dict(saved=True, moments=True)
-    t_bound, by = edge_cost(list(args) + list(idx),
-                            ek.edge_phase_fwd(*args, *idx, **kw), d, E,
-                            "bf16")
-    time_row("edge_phase_fwd", "train_bf16",
-             lambda: ek.edge_phase_fwd(*args, *idx, **kw),
-             lambda: ek.edge_phase_fwd_plain(*args, *idx, **kw), t_bound, by,
-             4, products_ms=k1_products(args))
+    for case, src in (("train_bf16", "layer0_bf16"),
+                      ("train_f32", "f32_config")):
+        args = timing_inputs[("edge", src)]
+        edt = args[2].dtype
+        t_bound, by = edge_cost(list(args) + list(idx),
+                                ek.edge_phase_fwd(*args, *idx, **kw), d, E,
+                                "bf16" if edt == bf else "f32")
+        time_row("edge_phase_fwd", case,
+                 lambda a=args: ek.edge_phase_fwd(*a, *idx, **kw),
+                 lambda a=args: ek.edge_phase_fwd_plain(*a, *idx, **kw),
+                 t_bound, by, 4 if edt == bf else 0, edt,
+                 K1_PASSES if edt == f32 else None,
+                 products_ms=k1_products(args))
     rows_t["sigma_segsum_fwd"]["train_bf16"] = dict(
         rows_t["sigma_segsum_fwd"]["layer0_bf16"], calls=4)
     for case, (dt, calls) in train_cases.items():
@@ -1883,27 +1927,22 @@ def main() -> int:
                                     "bf16" if dt == bf else "f32")
         time_row("edge_phase_bwd", case,
                  lambda a=eargs: ek.edge_phase_bwd(*a),
-                 lambda a=eargs: edge_bwd_plain(*a), t_bound, by, calls,
-                 products_ms=k5_products(eargs))
-        rows_t["edge_phase_bwd"][case]["passes_device_ms"] = pass_device_ms(
-            lambda a=eargs: ek.edge_phase_bwd(*a), LAUNCHES["edge_phase_bwd"])
+                 lambda a=eargs: edge_bwd_plain(*a), t_bound, by, calls, dt,
+                 BWD_PASSES, products_ms=k5_products(eargs))
         sargs = timing_inputs[("sigma_bwd", case)]
         t_bound, by = sigma_bwd_cost(sargs, sk.sigma_segsum_bwd(*sargs), E, d)
         time_row("sigma_segsum_bwd", case,
                  lambda a=sargs: sk.sigma_segsum_bwd(*a),
                  lambda a=sargs: sk.sigma_segsum_bwd_plain(*a), t_bound, by,
-                 calls)
+                 calls, dt)
         # K6: K5's products (8 E d^2 multiply-adds) over its own operands
         margs = timing_inputs[("merged_bwd", case)]
         t_bound, by = edge_bwd_cost(margs, ek.merged_bwd(*margs), d, E,
                                     "bf16" if dt == bf else "f32")
         time_row("edge_phase_merged_bwd", case,
                  lambda a=margs: ek.merged_bwd(*a),
-                 lambda a=margs: merged_bwd_plain(*a), t_bound, by, calls,
-                 products_ms=k5_products(margs))
-        rows_t["edge_phase_merged_bwd"][case]["passes_device_ms"] = \
-            pass_device_ms(lambda a=margs: ek.merged_bwd(*a),
-                           LAUNCHES["edge_phase_merged_bwd"])
+                 lambda a=margs: merged_bwd_plain(*a), t_bound, by, calls, dt,
+                 BWD_PASSES, products_ms=k5_products(margs))
         emit(phase="time_passes", card=card, case=case, passes_device_ms={
             k: rows_t[k][case]["passes_device_ms"]
             for k in ("edge_phase_bwd", "edge_phase_merged_bwd")})
@@ -1960,7 +1999,7 @@ def main() -> int:
         time_row("segment_sum_csr", case,
                  lambda a=sargs: k3.segment_sum_csr(*a),
                  lambda a=sargs: k3.segment_sum_csr_plain(*a), t_bound, by,
-                 calls, library_ms=lambda a=sargs, t=table: t.index_add_(
+                 calls, dt, library_ms=lambda a=sargs, t=table: t.index_add_(
                      0, ids_lib, a[0]))
     # K7 beside the [E, d] x [d, 5120] GEMM alone (a note: no single call
     # computes K7)
@@ -1973,7 +2012,8 @@ def main() -> int:
             t_bound, by = tp_cost(a, [outs] if l2 else outs)
             time_row("tp_contract_fwd", f"{'l2' if l2 else 'l1'}_{case}",
                      lambda a=a, fn=fn: fn(*a), lambda a=a, l2=l2:
-                     tp_plain(l2)(*a), t_bound, by, calls,
+                     tp_plain(l2)(*a), t_bound, by, calls, hdt,
+                     K7_PASSES if hdt == f32 else None,
                      gemm_ms=lambda h=targs["h"]: torch.matmul(h, wt_t))
     # K3 as the gather backward beside one index_add_ of the same
     # cotangents onto edge_dst (the JAX package's function: every edge,
@@ -1985,7 +2025,7 @@ def main() -> int:
         time_row("segment_sum_csr", case,
                  lambda a=gargs: k3.segment_sum_csr(*a),
                  lambda a=gargs: k3.segment_sum_csr_plain(*a), t_bound, by,
-                 calls, library_ms=lambda a=gargs, t=table: t.index_add_(
+                 calls, dt, library_ms=lambda a=gargs, t=table: t.index_add_(
                      0, b0.edge_dst, a[0]))
     # K8 beside cuBLAS's three products alone on operands of the same
     # shapes and dtype: dwall @ wt, dwall^T h and the recompute h @ W
@@ -2005,11 +2045,7 @@ def main() -> int:
             time_row("tp_contract_bwd", kcase,
                      lambda a=a: k7.tp_contract_bwd(*a),
                      lambda a=a: k7.tp_contract_bwd_plain(*a), t_bound, by,
-                     calls, products_ms=cublas)
-            rows_t["tp_contract_bwd"][kcase]["passes_device_ms"] = \
-                pass_device_ms(lambda a=a: k7.tp_contract_bwd(*a),
-                               LAUNCHES["tp_contract_bwd"],
-                               passes=TP_BWD_PASSES)
+                     calls, dt, TP_BWD_PASSES, products_ms=cublas)
             emit(phase="time_passes", card=card, kernel="tp_contract_bwd",
                  case=kcase, passes_device_ms=rows_t["tp_contract_bwd"][
                      kcase]["passes_device_ms"])
@@ -2030,6 +2066,46 @@ def main() -> int:
     emit(phase="profile", card=card, what="forward", **profile_call(forward))
     emit(phase="profile", card=card, what="ecomformer_forward",
          **profile_call(eforward))
+    # the f32 forwards (the CLI's default dtype: K1 and K7 on their f32
+    # passes) per batch, through the kernels and through the plain
+    # versions, held to each other and timed and profiled as the bf16 ones
+    for net, mcfg, plain, want in (
+            ("cartnet", dataclasses.replace(cfg, compute_dtype=f32),
+             plain_cartnet_forward,
+             dict(edge_phase_fwd=4, sigma_segsum_fwd=4)),
+            ("ecomformer", dataclasses.replace(ecfg, compute_dtype=f32),
+             plain_ecomformer_kernels, ECO_FWD)):
+        m32 = create_model(mcfg, dev, 0).eval()
+        expect = dict.fromkeys(KERNELS, 0)
+        expect.update(want)
+        ms, ms_plain, errs = [], [], []
+        with torch.inference_mode():
+            for b in dev_batches:
+                launch_counts(reset=True)
+                pk, mask = m32(b)
+                torch.cuda.synchronize()
+                got = launch_counts()
+                with plain():
+                    pp, _ = m32(b)
+                    ms_plain.append(cuda_median_ms(lambda: m32(b), 20))
+                ms.append(cuda_median_ms(lambda: m32(b), 20))
+                m = mask.bool()
+                errs.append(normalized_err(pk[m], pp[m])[1])
+                if (got != expect or not bool(torch.isfinite(pk[m]).all())
+                        or not errs[-1] <= F32_STEP_TOL):
+                    fail(f"{net} f32 forward: launches {got} (expected "
+                         f"{expect}), rel err {errs[-1]}")
+        emit(phase="forward", card=card, model=net, compute_dtype="f32",
+             batch_ms_kernels=ms, batch_ms_plain=ms_plain, runs=20,
+             max_rel_err=errs, tol=F32_STEP_TOL, launches=got)
+
+        def fwd32(m=m32):
+            with torch.inference_mode():
+                m(dev_batches[0])
+
+        emit(phase="profile", card=card, what=f"{net}_forward_f32",
+             **profile_call(fwd32))
+        del m32
     step = lambda: micro(state, dev_batches[0])
     step_ms = cuda_median_ms(step, 20)
     with plain_kernels():
@@ -2104,7 +2180,7 @@ def main() -> int:
         """A kernel's times in its f32 cases, beside its line."""
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                 "plain_device_ms", "passes_device_ms", "products_ms",
-                "products_device_ms")
+                "products_device_ms", "gemm_ms", "gemm_device_ms")
         return {c: {k: rows_t[kname][c].get(k) for k in keys} for c in cases
                 if c in rows_t[kname]}
 
@@ -2137,7 +2213,7 @@ def main() -> int:
             "passes_device_ms": r.get("passes_device_ms"),
             "products_ms": r.get("products_ms"),
             "products_device_ms": r.get("products_device_ms"),
-            "f32": f32_rows(kname, ("f32_config",))})
+            "f32": f32_rows(kname, ("f32_config", "train_f32"))})
     for kname, src, replaces, case in (
             ("segment_sum_csr", "cartnet_tpu_torch/csrc/segment_sum_csr.cu",
              "cartnet_tpu/ops/pallas/segment_kernels.py:38", "f32_128"),
@@ -2159,6 +2235,7 @@ def main() -> int:
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r.get("library_device_ms"),
             "gemm_ms": r.get("gemm_ms"),
+            "gemm_device_ms": r.get("gemm_device_ms"),
             "products_ms": r.get("products_ms"),
             "products_device_ms": r.get("products_device_ms"),
             "passes_device_ms": r.get("passes_device_ms"),

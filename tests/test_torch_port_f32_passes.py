@@ -1,13 +1,17 @@
-"""The f32 passes of K5/K6 and K8 (SIMT GEMM tiles on the CUDA cores) and
-chip_smoke.py's bf16 gradient gate, on the CPU.
+"""The f32 passes of K1, K5/K6, K7 and K8 (SIMT GEMM tiles on the CUDA
+cores) and chip_smoke.py's bf16 gradient gate, on the CPU.
 
-- The Python mirrors of the f32 passes' shared memory (``bwd_smem_plan``)
-  are the layout of csrc/simt_gemm.cuh, read from its constants, and fit a
-  Hopper block at every width, for K5/K6 (one plan serves the merged entry
-  point) and K8 l1 / l2.
-- The CUDA launches of each f32 host function in the sources are the ones
-  ``chip_smoke.LAUNCHES`` states for the wrapper (three each, each matching
-  one of its name pieces), and the docstrings of the wrappers say three.
+- The Python mirrors of the f32 passes' shared memory (``bwd_smem_plan``,
+  ``fwd_smem_plan``, ``fwd_smem_bytes``) are the layout of
+  csrc/simt_gemm.cuh, read from its constants (K7's tile pass adds its
+  threads' output sums, read from tp_contract_fwd.cu), and fit an SM at the
+  blocks an SM the sources compile for, at every width, for K1, K5/K6 (one
+  plan serves the merged entry point), K7 l1 / l2 and K8 l1 / l2.
+- The CUDA launches of each host function in the sources are the ones
+  ``chip_smoke.LAUNCHES`` states for the wrapper in that dtype (three for
+  K5/K6 and K8 in f32, two for K1 and K7 in f32, one for K1 and K7 in
+  bf16, each matching one of its name pieces), and the docstrings of the
+  wrappers say so.
 - ``chip_smoke.bf16_grad_gate`` on synthetic gradients: one parameter far
   off by chance inside a layer that is otherwise in line passes (the
   per-parameter rule it replaced fails it), and so does honest noise; a
@@ -30,6 +34,7 @@ from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
 from cartnet_tpu_torch.ops.kernels import tp_kernels as k7
 
 SMEM_LIMIT = 232448
+SM_SMEM = 233472  # shared memory of one SM (228 KB); 1 KB a block reserved
 WIDTHS = (128, 256, 384, 512)
 
 
@@ -42,54 +47,100 @@ def _simt_smem() -> int:
                     text)
     pa, pb = map(int, pad.groups())
     assert "SMEM = sizeof(float) * 2 * (A_FLOATS + B_FLOATS)" in text
+    assert "constexpr int THREADS = 128;" in text
     return 4 * 2 * (bk * (bm + pa) + bk * (bn + pb))
 
 
-@pytest.mark.parametrize("kernel", ["K5", "K6", "K8 l1", "K8 l2"])
+def _constant(source: str, name: str) -> int:
+    """``constexpr int name = n;`` of a CUDA source."""
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _k7_smem() -> int:
+    """K7's f32 tile pass: the SIMT tile and each of its 128 threads'
+    OUT_SUMS output sums, as tp_contract_fwd.cu states it."""
+    text = (_build.CSRC / "tp_contract_fwd.cu").read_text()
+    assert re.search(r"F32_SMEM = simt::SMEM \+ sizeof\(float\) \* OUT_SUMS "
+                     r"\*\s+simt::THREADS;", text)
+    return _simt_smem() + 4 * _constant("tp_contract_fwd.cu",
+                                        "OUT_SUMS") * 128
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K6", "K7 l1", "K7 l2",
+                                    "K8 l1", "K8 l2"])
 @pytest.mark.parametrize("d", WIDTHS)
 def test_f32_smem_plans_are_the_simt_layout(d, kernel):
-    want = _simt_smem()
+    want, blocks = _simt_smem(), 4
     if kernel.startswith("K8"):
         plan = k7.bwd_smem_plan(d, kernel.endswith("l2"))
         got = (plan["tile_f32"], plan["weights_f32"])
+    elif kernel == "K1":  # both passes run the bare tile
+        got = (ek.fwd_smem_plan(d, False)["total"],) * 2
+        blocks = _constant("edge_phase_fwd.cu", "F32_BLOCKS")
+        assert ek.F32_BLOCKS == blocks
+    elif kernel.startswith("K7"):  # the tile pass; the reduce takes none
+        want = _k7_smem()
+        got = (k7.fwd_smem_bytes(d, False, kernel.endswith("l2"), 0),) * 2
+        blocks = _constant("tp_contract_fwd.cu", "F32_BLOCKS")
+        assert (k7.F32_BLOCKS, k7.F32_OUT_SUMS) == (
+            blocks, _constant("tp_contract_fwd.cu", "OUT_SUMS"))
     else:  # K6 runs K5's passes (the MERGED template flag)
         plan = ek.bwd_smem_plan(d, False)
         got = (plan["tile"], plan["weights"])
     assert got == (want, want)
-    assert want <= SMEM_LIMIT // 4  # room for the four blocks an SM
+    # room for the blocks an SM the passes are compiled for
+    assert blocks == 4 and blocks * (want + 1024) <= SM_SMEM
+    assert want <= SMEM_LIMIT
 
 
 def _launched(source: str, function: str) -> list:
     """Kernel names launched in one host function of a CUDA source (through
-    ``launch(kernel<...>`` or ``kernel<...><<<``)."""
+    ``launch(kernel<...>`` or ``kernel<<<`` / ``kernel<...><<<``)."""
     text = (_build.CSRC / source).read_text()
     start = re.search(rf"\ncudaError_t {function}\(", text).start()
     body = text[start:text.index("\n}\n", start)]
     return (re.findall(r"launch\((\w+)<", body)
-            + re.findall(r"(\w+)<\w+>\s*<<<", body))
+            + re.findall(r"(\w+)(?:<\w+>)?\s*<<<", body))
 
 
-@pytest.mark.parametrize("source,function,wrapper", [
-    ("tp_contract_bwd.cu", "run_f32", "tp_contract_bwd"),
-    ("edge_phase_bwd.cu", "launch_f32", "edge_phase_bwd"),
-    ("edge_phase_bwd.cu", "launch_f32", "edge_phase_merged_bwd"),
+@pytest.mark.parametrize("source,function,wrapper,dtype,count", [
+    ("tp_contract_bwd.cu", "run_f32", "tp_contract_bwd", "f32", 3),
+    ("edge_phase_bwd.cu", "launch_f32", "edge_phase_bwd", "f32", 3),
+    ("edge_phase_bwd.cu", "launch_f32", "edge_phase_merged_bwd", "f32", 3),
+    ("tp_contract_fwd.cu", "run_f32", "tp_contract_fwd", "f32", 2),
+    ("tp_contract_fwd.cu", "run_bf16", "tp_contract_fwd", "bf16", 1),
+    ("edge_phase_fwd.cu", "launch_f32", "edge_phase_fwd", "f32", 2),
+    ("edge_phase_fwd.cu", "launch_tc", "edge_phase_fwd", "bf16", 1),
 ])
-def test_f32_launches_match_chip_smoke(source, function, wrapper):
+def test_f32_launches_match_chip_smoke(source, function, wrapper, dtype,
+                                       count):
     names = _launched(source, function)
-    if function == "launch_f32":  # the reduce, through launch_reduce
+    if source == "edge_phase_bwd.cu":  # the reduce, through launch_reduce
         assert "launch_reduce(p, n_tiles, stream)" in (
             _build.CSRC / source).read_text()
         names.append("edge_bwd_reduce")
-    stated = cs.LAUNCHES[wrapper]
-    assert len(names) == sum(stated.values()) == 3, names
+    stated = cs.LAUNCHES[wrapper][dtype]
+    assert len(names) == sum(stated.values()) == count, names
     for piece, n in stated.items():
         assert sum(piece in name for name in names) == n, (piece, names)
+    # no piece of one dtype's kernels names a kernel of the other's
+    other = cs.LAUNCHES[wrapper]["bf16" if dtype == "f32" else "f32"]
+    if other != stated:
+        assert not any(piece in name for piece in other for name in names)
 
 
 def test_wrappers_state_three_launches_in_f32():
     assert "One call is three CUDA launches" in k7.__doc__
     assert "two in f32" not in k7.__doc__
     assert "three launches per call" in ek.__doc__
+
+
+def test_forward_wrappers_state_their_launches():
+    assert "bf16: one CUDA launch a call" in k7.__doc__
+    assert "f32: two CUDA launches a call" in k7.__doc__
+    assert "bf16 edges: one\nCUDA launch a call" in ek.__doc__
+    assert "f32 edges: two" in ek.__doc__
 
 
 # ------------------------------------------------------------ the F3 gate

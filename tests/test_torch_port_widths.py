@@ -16,8 +16,8 @@ test_torch_port_train_kernels.py: f32 elementwise 1e-5; f32 sums over
 edges (weight, bias and node gradients, the moments) 1e-4; 2e-2 where bf16
 rounding is involved.
 
-The shared-memory plans mirror csrc/edge_phase_fwd.cu (``TcLayout``,
-``fma_smem``) and csrc/edge_phase_bwd.cu (``TileLayout``, ``Layout1``, the
+The shared-memory plans mirror csrc/edge_phase_fwd.cu (``TcLayout``, the
+f32 passes' SIMT tile) and csrc/edge_phase_bwd.cu (``TileLayout``, ``Layout1``, the
 weight passes) in ``edge_kernels``; every width and dtype the kernels take
 must fit a Hopper block's 232,448 bytes.
 """
