@@ -16,17 +16,30 @@
 //
 // What bounds it: ~20 flops and one exp per element against the [E, d]
 // streams (gate, sender, deout in; dgate, dsender out) and the [N, d]
-// daggr gathers, so device memory bandwidth bounds it.
+// daggr gathers (~54 MB in bf16 at E = 20992, d = 256: 16 us at the
+// 3.35 TB/s of an NVIDIA H100 SXM), so device memory bandwidth bounds it.
 //
-// Design: two launches, no atomics, bitwise repeatable.
-//   1. One block per TE consecutive edges; each warp owns whole edges
-//      (lane l holds features l, l + 32, ...), so denv is a warp-shuffle
-//      butterfly over the row and every access is coalesced along d. Each
-//      lane keeps its features' dscale/dshift partials in registers; the
-//      block folds its 8 warps in order into one partial row per block.
-//   2. One thread per column sums the block partials in block order.
-// Elementwise steps use explicitly rounded operations so nvcc contracts
-// nothing into an FMA that the plain PyTorch version does not have.
+// Design: a pass at memory speed, two launches, no float atomics, bitwise
+// repeatable.
+//   1. Row pass: a grid of BLOCKS_PER_SM blocks an SM (fewer when E is
+//      small), each walking its own contiguous range of edges, warp w of a
+//      block taking the range's rows w, w + WARPS, .... A lane owns VEC
+//      contiguous features (16 bytes of gate: 8 bf16 or 4 f32) in each of
+//      NV groups of 32 VEC, so every row is read and written in 16-byte
+//      accesses (one warp instruction covers a bf16 row of 256), and the
+//      lane's dscale/dshift partials take 2 NV VEC registers, sized to d
+//      by the template. denv is a fixed butterfly over the row's lanes.
+//      The block folds its warps' partials in warp order into one partial
+//      row [dscale | dshift] (the grid's rows: ~2 an SM, not one per 32
+//      edges).
+//   2. Column pass: 32 columns a block, its warps summing fixed row ranges
+//      of the partial rows in order, then the warps' sums in warp order.
+// The per-element arithmetic is the earlier kernel's, operation for
+// operation (__fadd_rn/__fmul_rn, expf, 1/(1 + e)), so dgate and dsender
+// are bitwise those of a kernel that walks the features in any order;
+// denv, dscale and dshift sum in this kernel's fixed order. Elementwise
+// steps use explicitly rounded operations so nvcc contracts nothing into an
+// FMA that the plain PyTorch version does not have.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,129 +49,320 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int TE = 32;     // edges per block (4 per warp)
-constexpr int MAXQ = 16;   // features per lane: d <= 32 * MAXQ
+using bf16 = __nv_bfloat16;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BLOCKS_PER_SM = 2;  // row-pass blocks an SM (launch bounds)
+constexpr int MAX_WIDTH = 512;
+// the row pass's dynamic shared memory at MAX_WIDTH stays within the 48 KB
+// a launch takes without opting in (no cudaFuncSetAttribute a call)
+static_assert(sizeof(float) * 2 * WARPS * MAX_WIDTH <= 48 * 1024,
+              "row-pass partials fit the default dynamic shared memory");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename GT, typename ET>
-__global__ void __launch_bounds__(NTHREADS)
-    sigma_bwd_edges(const GT* __restrict__ gate,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ shift,
-                    const GT* __restrict__ env, const GT* __restrict__ sender,
-                    const ET* __restrict__ deout,
-                    const GT* __restrict__ daggr, const int* __restrict__ dst,
-                    const uint8_t* __restrict__ emask, GT* __restrict__ dgate,
-                    GT* __restrict__ denv, GT* __restrict__ dsender,
-                    float* __restrict__ part, int E, int d) {
-  __shared__ float red_s[2][NWARPS][32 * MAXQ];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nq = (d + 31) / 32;  // lanes past d in the last word own nothing
-  float acc_sc[MAXQ], acc_sh[MAXQ], sc[MAXQ], sh[MAXQ];
+// features a lane owns in each group: 16 bytes of the gate's dtype
+template <typename GT> __host__ __device__ constexpr int vec_of() {
+  return 16 / (int)sizeof(GT);
+}
+
+// v = p[f0 .. f0 + VEC) as floats; with AL (d % VEC == 0, rows 16-byte
+// aligned in gate's units) one vector load of VEC elements, else element
+// by element, zeros past d
+template <int VEC, bool AL>
+__device__ __forceinline__ void load(const float* p, int f0, int d,
+                                     float (&v)[VEC]) {
+  if (AL) {
 #pragma unroll
-  for (int q = 0; q < MAXQ; ++q) {
-    const int f = lane + 32 * q;
-    acc_sc[q] = 0.f;
-    acc_sh[q] = 0.f;
-    sc[q] = f < d ? scale[f] : 0.f;
-    sh[q] = f < d ? shift[f] : 0.f;
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + f0 + i);
+      v[i] = x.x;
+      v[i + 1] = x.y;
+      v[i + 2] = x.z;
+      v[i + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = f0 + i < d ? p[f0 + i] : 0.f;
   }
-  const int e0 = blockIdx.x * TE;
-  for (int r = warp; r < TE; r += NWARPS) {
-    const int e = e0 + r;
-    if (e >= E) break;
-    const bool real = emask[e] != 0;
+}
+template <int VEC, bool AL>
+__device__ __forceinline__ void load(const bf16* p, int f0, int d,
+                                     float (&v)[VEC]) {
+  if (AL) {
+    uint32_t w[VEC / 2];
+    if constexpr (VEC == 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p + f0);
+      w[0] = x.x;
+      w[1] = x.y;
+      w[2] = x.z;
+      w[3] = x.w;
+    } else {
+      const uint2 x = *reinterpret_cast<const uint2*>(p + f0);
+      w[0] = x.x;
+      w[1] = x.y;
+    }
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      v[i] = f0 + i < d ? __bfloat162float(p[f0 + i]) : 0.f;
+  }
+}
+
+// p[f0 .. f0 + VEC) = v rounded to T (element by element past d without AL)
+template <int VEC, bool AL>
+__device__ __forceinline__ void store(float* p, int f0, int d,
+                                      const float (&v)[VEC]) {
+  if (AL) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      *reinterpret_cast<float4*>(p + f0 + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (f0 + i < d) p[f0 + i] = v[i];
+  }
+}
+template <int VEC, bool AL>
+__device__ __forceinline__ void store(bf16* p, int f0, int d,
+                                      const float (&v)[VEC]) {
+  if (AL) {
+    uint32_t w[VEC / 2];
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    if constexpr (VEC == 8)
+      *reinterpret_cast<uint4*>(p + f0) = make_uint4(w[0], w[1], w[2], w[3]);
+    else
+      *reinterpret_cast<uint2*>(p + f0) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (f0 + i < d) p[f0 + i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+struct Args {
+  const void *gate, *env, *sender, *deout, *daggr;
+  const float *scale, *shift;
+  const int* dst;
+  const uint8_t* emask;
+  void *dgate, *denv, *dsender;
+  float* part;   // [gridDim.x][2 d]: each row-pass block's [dscale|dshift]
+  float* out;    // [2 d]: dscale then dshift
+  int E, d;
+};
+
+// Row pass: block b walks edges [b E / G, (b + 1) E / G) (G = gridDim.x),
+// warp w its rows w, w + WARPS, ...; lane l owns features VEC (l + 32 q)
+// .. + VEC - 1 of every row, q < NV. Dynamic shared memory: the warps'
+// partials [2][WARPS][d] f32.
+template <typename GT, typename ET, int NV, bool AL>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+    sigma_bwd_rows(const __grid_constant__ Args p) {
+  constexpr int VEC = vec_of<GT>();
+  extern __shared__ float red_s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, d = p.d;
+  const GT* gate = static_cast<const GT*>(p.gate);
+  const GT* env = static_cast<const GT*>(p.env);
+  const GT* sender = static_cast<const GT*>(p.sender);
+  const ET* deout = static_cast<const ET*>(p.deout);
+  const GT* daggr = static_cast<const GT*>(p.daggr);
+  GT* dgate = static_cast<GT*>(p.dgate);
+  GT* dsender = static_cast<GT*>(p.dsender);
+  float sc[NV][VEC], sh[NV][VEC], acc_sc[NV][VEC], acc_sh[NV][VEC];
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    const int f0 = VEC * (lane + 32 * q);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sc[q][i] = f0 + i < d ? p.scale[f0 + i] : 0.f;
+      sh[q][i] = f0 + i < d ? p.shift[f0 + i] : 0.f;
+      acc_sc[q][i] = acc_sh[q][i] = 0.f;
+    }
+  }
+  const long long G = gridDim.x;
+  const long long e_lo = (long long)blockIdx.x * p.E / G;
+  const long long e_hi = (long long)(blockIdx.x + 1) * p.E / G;
+  for (long long e = e_lo + warp; e < e_hi; e += WARPS) {
+    const bool real = p.emask[e] != 0;
     const size_t row = (size_t)e * d;
-    const size_t drow = (size_t)dst[e] * d;
+    const size_t drow = (size_t)p.dst[e] * d;
     const float env_e = to_f(env[e]);
     float denv_part = 0.f;
 #pragma unroll
-    for (int q = 0; q < MAXQ; ++q) {
-      if (q >= nq) break;
-      if (lane + 32 * q >= d) continue;
-      const size_t o = row + lane + 32 * q;
-      const float g = to_f(gate[o]);
-      const float a = __fadd_rn(__fmul_rn(g, sc[q]), sh[q]);
-      const float s0 = 1.f / (1.f + expf(-a));
-      const float sg = __fmul_rn(s0, env_e);
-      const float dv = real ? to_f(daggr[drow + lane + 32 * q]) : 0.f;
-      dsender[o] = from_f<GT>(__fmul_rn(dv, sg));
-      const float dsig =
-          __fadd_rn(to_f(deout[o]), __fmul_rn(dv, to_f(sender[o])));
-      denv_part = __fadd_rn(denv_part, __fmul_rn(dsig, s0));
-      const float da = __fmul_rn(__fmul_rn(__fmul_rn(dsig, env_e), s0),
-                                 __fadd_rn(1.f, -s0));
-      dgate[o] = from_f<GT>(__fmul_rn(da, sc[q]));
-      acc_sc[q] = __fadd_rn(acc_sc[q], __fmul_rn(da, g));
-      acc_sh[q] = __fadd_rn(acc_sh[q], da);
+    for (int q = 0; q < NV; ++q) {
+      const int f0 = VEC * (lane + 32 * q);
+      if (f0 >= d) break;
+      float g[VEC], s[VEC], de[VEC], dv[VEC], dg[VEC], ds[VEC];
+      load<VEC, AL>(gate + row, f0, d, g);
+      load<VEC, AL>(sender + row, f0, d, s);
+      load<VEC, AL>(deout + row, f0, d, de);
+      if (real) {
+        load<VEC, AL>(daggr + drow, f0, d, dv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dv[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        if (!AL && f0 + i >= d) break;
+        const float a = __fadd_rn(__fmul_rn(g[i], sc[q][i]), sh[q][i]);
+        const float s0 = 1.f / (1.f + expf(-a));
+        const float sg = __fmul_rn(s0, env_e);
+        ds[i] = __fmul_rn(dv[i], sg);
+        const float dsig = __fadd_rn(de[i], __fmul_rn(dv[i], s[i]));
+        denv_part = __fadd_rn(denv_part, __fmul_rn(dsig, s0));
+        const float da = __fmul_rn(__fmul_rn(__fmul_rn(dsig, env_e), s0),
+                                   __fadd_rn(1.f, -s0));
+        dg[i] = __fmul_rn(da, sc[q][i]);
+        acc_sc[q][i] = __fadd_rn(acc_sc[q][i], __fmul_rn(da, g[i]));
+        acc_sh[q][i] = __fadd_rn(acc_sh[q][i], da);
+      }
+      store<VEC, AL>(dgate + row, f0, d, dg);
+      store<VEC, AL>(dsender + row, f0, d, ds);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       denv_part =
           __fadd_rn(denv_part, __shfl_xor_sync(0xffffffffu, denv_part, off));
-    if (lane == 0) denv[e] = from_f<GT>(denv_part);
+    if (lane == 0) static_cast<GT*>(p.denv)[e] = from_f<GT>(denv_part);
   }
+  // the block's partial row [dscale | dshift]: warps folded in warp order
 #pragma unroll
-  for (int q = 0; q < MAXQ; ++q) {
-    if (q >= nq) break;
-    if (lane + 32 * q >= d) continue;
-    red_s[0][warp][lane + 32 * q] = acc_sc[q];
-    red_s[1][warp][lane + 32 * q] = acc_sh[q];
+  for (int q = 0; q < NV; ++q) {
+    const int f0 = VEC * (lane + 32 * q);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (f0 + i < d) {
+        red_s[warp * d + f0 + i] = acc_sc[q][i];
+        red_s[(WARPS + warp) * d + f0 + i] = acc_sh[q][i];
+      }
   }
   __syncthreads();
-  // block partial row: [dscale (d) | dshift (d)], warps folded in order
-  for (int c = threadIdx.x; c < 2 * d; c += NTHREADS) {
+  for (int c = threadIdx.x; c < 2 * d; c += THREADS) {
     const int k = c < d ? 0 : 1, f = c < d ? c : c - d;
     float s = 0.f;
-    for (int w = 0; w < NWARPS; ++w) s = __fadd_rn(s, red_s[k][w][f]);
-    part[(size_t)blockIdx.x * 2 * d + c] = s;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      s = __fadd_rn(s, red_s[(k * WARPS + w) * d + f]);
+    p.part[(size_t)blockIdx.x * 2 * d + c] = s;
   }
 }
 
-// out[c] = sum_b part[b][c], b in order (c < 2d: dscale then dshift)
-__global__ void __launch_bounds__(NTHREADS)
-    sigma_bwd_columns(const float* __restrict__ part, float* __restrict__ out,
-                      int nblocks, int width) {
-  const int c = blockIdx.x * NTHREADS + threadIdx.x;
-  if (c >= width) return;
+// Column pass: out[c] of the partial rows [dscale | dshift] (nrows of
+// width floats) for 32 columns a block, column c = 32 blockIdx.x + lane:
+// warp w sums its fixed range of rows in order, then warp 0 sums the
+// warps' sums in warp order
+__global__ void __launch_bounds__(THREADS)
+    sigma_bwd_fold(const float* __restrict__ part, float* __restrict__ out,
+                   int nrows, int width) {
+  __shared__ float red[WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int r0 = (int)((long long)warp * nrows / WARPS);
+  const int r1 = (int)((long long)(warp + 1) * nrows / WARPS);
   float s = 0.f;
-  for (int b = 0; b < nblocks; ++b)
-    s = __fadd_rn(s, part[(size_t)b * width + c]);
-  out[c] = s;
+  if (c < width)
+    for (int r = r0; r < r1; ++r)
+      s = __fadd_rn(s, part[(size_t)r * width + c]);
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < width) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) t = __fadd_rn(t, red[w][lane]);
+    out[c] = t;
+  }
 }
 
-template <typename GT, typename ET>
-cudaError_t launch(const void* gate, const void* scale, const void* shift,
-                   const void* env, const void* sender, const void* deout,
-                   const void* daggr, const void* dst, const void* emask,
-                   void* dgate, void* dscale_shift, void* denv, void* dsender,
-                   void* part, int E, int d, cudaStream_t stream) {
-  const int nblocks = (E + TE - 1) / TE;
-  sigma_bwd_edges<GT, ET><<<nblocks, NTHREADS, 0, stream>>>(
-      (const GT*)gate, (const float*)scale, (const float*)shift,
-      (const GT*)env, (const GT*)sender, (const ET*)deout, (const GT*)daggr,
-      (const int*)dst, (const uint8_t*)emask, (GT*)dgate, (GT*)denv,
-      (GT*)dsender, (float*)part, E, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sigma_bwd_columns<<<(2 * d + NTHREADS - 1) / NTHREADS, NTHREADS, 0,
-                      stream>>>((const float*)part, (float*)dscale_shift,
-                                nblocks, 2 * d);
+// the current device's SMs, asked once a device
+int num_sms() {
+  static int cache[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 0;
+  int& n = cache[dev & 63];
+  if (n <= 0 &&
+      (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+           cudaSuccess || n <= 0))
+    n = 132;
+  return n;
+}
+
+// row-pass blocks (= partial rows): BLOCKS_PER_SM an SM, at most one per
+// WARPS edges (every warp has a row), at least one
+int parts_of(int E, int n_sm) {
+  const long long by_rows = ((long long)E + WARPS - 1) / WARPS;
+  const long long g = (long long)n_sm * BLOCKS_PER_SM;
+  const long long n = g < by_rows ? g : by_rows;
+  return n < 1 ? 1 : (int)n;
+}
+
+template <typename K>
+cudaError_t launch(K kern, int blocks, size_t smem, cudaStream_t s,
+                   const Args& p) {
+  kern<<<blocks, THREADS, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// the row pass over parts_of(E) blocks, then the column pass
+template <typename GT, typename ET, int NV, bool AL>
+cudaError_t run(const Args& p, cudaStream_t s) {
+  const int G = parts_of(p.E, num_sms()), width = 2 * p.d;
+  cudaError_t err = launch(sigma_bwd_rows<GT, ET, NV, AL>, G,
+                           sizeof(float) * 2 * WARPS * p.d, s, p);
+  if (err != cudaSuccess) return err;
+  sigma_bwd_fold<<<(width + 31) / 32, THREADS, 0, s>>>(p.part, p.out, G,
+                                                        width);
+  return cudaGetLastError();
+}
+
+// vector accesses (AL): whole VEC groups, 16-byte aligned rows of gate's
+// dtype and VEC-element aligned rows of deout's
+template <typename GT, typename ET, int NV>
+cudaError_t run_aligned(const Args& p, cudaStream_t s) {
+  constexpr size_t VEC = vec_of<GT>();
+  constexpr size_t EA = VEC * sizeof(ET) < 16 ? VEC * sizeof(ET) : 16;
+  const bool al = p.d % VEC == 0 &&
+                  (reinterpret_cast<uintptr_t>(p.gate) |
+                   reinterpret_cast<uintptr_t>(p.sender) |
+                   reinterpret_cast<uintptr_t>(p.daggr) |
+                   reinterpret_cast<uintptr_t>(p.dgate) |
+                   reinterpret_cast<uintptr_t>(p.dsender)) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(p.deout) % EA == 0;
+  return al ? run<GT, ET, NV, true>(p, s) : run<GT, ET, NV, false>(p, s);
+}
+
+// NV = the 32 VEC-feature groups a lane walks: d <= 32 VEC NV
+template <typename GT, typename ET>
+cudaError_t run_width(const Args& p, cudaStream_t s) {
+  constexpr int W = 32 * vec_of<GT>();
+  if (p.d <= W) return run_aligned<GT, ET, 1>(p, s);
+  if (p.d <= 2 * W) return run_aligned<GT, ET, 2>(p, s);
+  if constexpr (W < MAX_WIDTH / 2) {
+    if (p.d <= 3 * W) return run_aligned<GT, ET, 3>(p, s);
+    return run_aligned<GT, ET, 4>(p, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -166,8 +370,9 @@ cudaError_t launch(const void* gate, const void* scale, const void* shift,
 // C entry point (bound with ctypes). 0 < d <= 512 (any width); E > 0.
 // gate_bf16 / e_bf16 select bf16 (1) or f32 (0) for gate, env, sender,
 // daggr and their cotangents / for deout. dscale_shift [2d] f32 receives
-// dscale then dshift; part is scratch of ceil(E / 32) * 2d floats. Two
-// launches; returns cudaGetLastError() after them.
+// dscale then dshift; part is scratch of sigma_segsum_bwd_parts(E) * 2d
+// floats. Two launches (row pass, column pass); returns cudaGetLastError()
+// after them.
 extern "C" int sigma_segsum_bwd(const void* gate, const void* scale,
                                 const void* shift, const void* env,
                                 const void* sender, const void* deout,
@@ -177,23 +382,19 @@ extern "C" int sigma_segsum_bwd(const void* gate, const void* scale,
                                 void* dsender, void* part, int E, int d,
                                 int gate_bf16, int e_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (gate_bf16 && e_bf16)
-    return launch<bf, bf>(gate, scale, shift, env, sender, deout, daggr, dst,
-                          emask, dgate, dscale_shift, denv, dsender, part, E,
-                          d, s);
-  if (gate_bf16)
-    return launch<bf, float>(gate, scale, shift, env, sender, deout, daggr,
-                             dst, emask, dgate, dscale_shift, denv, dsender,
-                             part, E, d, s);
-  if (e_bf16)
-    return launch<float, bf>(gate, scale, shift, env, sender, deout, daggr,
-                             dst, emask, dgate, dscale_shift, denv, dsender,
-                             part, E, d, s);
-  return launch<float, float>(gate, scale, shift, env, sender, deout, daggr,
-                              dst, emask, dgate, dscale_shift, denv, dsender,
-                              part, E, d, s);
+  if (E <= 0 || d <= 0 || d > MAX_WIDTH) return cudaErrorInvalidValue;
+  const Args p{gate, env, sender, deout, daggr, (const float*)scale,
+               (const float*)shift, (const int*)dst, (const uint8_t*)emask,
+               dgate, denv, dsender, (float*)part, (float*)dscale_shift, E,
+               d};
+  if (gate_bf16 && e_bf16) return run_width<bf16, bf16>(p, s);
+  if (gate_bf16) return run_width<bf16, float>(p, s);
+  if (e_bf16) return run_width<float, bf16>(p, s);
+  return run_width<float, float>(p, s);
 }
 
-// TE, for the wrapper's scratch size
-extern "C" int sigma_segsum_bwd_tile() { return TE; }
+// partial rows the call writes to part (the row pass's grid), for the
+// wrapper's scratch size
+extern "C" int sigma_segsum_bwd_parts(int E) {
+  return parts_of(E, num_sms());
+}

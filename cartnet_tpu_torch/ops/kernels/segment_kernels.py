@@ -20,8 +20,10 @@ launched, and a lane past d owns no feature; nothing is padded.
 
 The backward (port of ``_sigma_bwd`` -> ``_sigma_seg_bwd_kernel``) is
 ``sigma_segsum_bwd``: on a CUDA tensor it launches ``csrc/sigma_segsum_bwd.cu``
-(two launches per call: an edge pass with per-block column partials, then a
-fixed-order column reduce; no atomics) or raises; on a CPU tensor it runs
+(two launches per call: a row pass at memory speed, ``BWD_BLOCKS_PER_SM``
+blocks an SM each walking a contiguous range of edges in 16-byte accesses
+and writing one partial row of dscale/dshift, then a fixed-order column
+pass over those rows; no float atomics) or raises; on a CPU tensor it runs
 ``sigma_segsum_bwd_plain``. ``SigmaSegsum`` is the autograd Function whose
 forward is ``sigma_segsum`` and whose backward is ``sigma_segsum_bwd``.
 """
@@ -152,9 +154,22 @@ def _lib_bwd():
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.sigma_segsum_bwd_tile.argtypes = []
-        lib.sigma_segsum_bwd_tile.restype = ctypes.c_int
-    return fn, lib.sigma_segsum_bwd_tile()
+        lib.sigma_segsum_bwd_parts.argtypes = [ctypes.c_int]
+        lib.sigma_segsum_bwd_parts.restype = ctypes.c_int
+    return lib
+
+
+# the row pass's warps a block and blocks an SM, as sigma_segsum_bwd.cu
+# states them (``WARPS``, ``BLOCKS_PER_SM``)
+BWD_WARPS, BWD_BLOCKS_PER_SM = 8, 2
+
+
+def bwd_parts(E: int, n_sm: int) -> int:
+    """K4's partial rows of dscale/dshift, one per row-pass block (mirrors
+    ``sigma_segsum_bwd_parts``, which the wrapper asks on the card):
+    ``BWD_BLOCKS_PER_SM`` blocks an SM, at most one per ``BWD_WARPS`` edges
+    (every warp has a row), at least one."""
+    return max(1, min(n_sm * BWD_BLOCKS_PER_SM, -(-E // BWD_WARPS)))
 
 
 def sigma_segsum_bwd(gate, scale, shift, env, sender, deout, daggr, edge_dst,
@@ -182,18 +197,19 @@ def sigma_segsum_bwd(gate, scale, shift, env, sender, deout, daggr, edge_dst,
         raise ValueError(f"sigma_segsum_bwd kernel needs 0 < d <= 512 and "
                          f"E > 0 (E={E}, d={d})")
     dev = gate.device
-    fn, tile = _lib_bwd()
+    lib = _lib_bwd()
     dgate = torch.empty_like(gate)
     dsender = torch.empty_like(sender)
     denv = torch.empty_like(env)
     dscale_shift = torch.empty(2 * d, dtype=torch.float32, device=dev)
-    part = torch.empty((-(-E // tile), 2 * d), dtype=torch.float32,
-                       device=dev)
-    err = fn(*(t.data_ptr() for t in args), dgate.data_ptr(),
-             dscale_shift.data_ptr(), denv.data_ptr(), dsender.data_ptr(),
-             part.data_ptr(), E, d, int(gate.dtype == torch.bfloat16),
-             int(deout.dtype == torch.bfloat16),
-             torch.cuda.current_stream(dev).cuda_stream)
+    part = torch.empty((lib.sigma_segsum_bwd_parts(E), 2 * d),
+                       dtype=torch.float32, device=dev)
+    err = lib.sigma_segsum_bwd(
+        *(t.data_ptr() for t in args), dgate.data_ptr(),
+        dscale_shift.data_ptr(), denv.data_ptr(), dsender.data_ptr(),
+        part.data_ptr(), E, d, int(gate.dtype == torch.bfloat16),
+        int(deout.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "sigma_segsum_bwd")
     global bwd_launches
     bwd_launches += 1

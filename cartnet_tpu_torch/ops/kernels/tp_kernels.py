@@ -18,17 +18,18 @@ the nn.Linear layout of the fc's second layer. ``a`` may be f32 beside bf16
 
 On a CUDA tensor the entries launch ``csrc/tp_contract_fwd.cu`` or raise;
 on a CPU tensor they run ``tp_contract_plain``. Nothing of size [E, 5120]
-reaches device memory. bf16: one CUDA launch a call, tiles sized to fill
-the card's SMs in one wave, as far as shared memory allows (at d = 512 at
-most 5 warps a block). f32: two CUDA launches a call, a tile pass of SIMT
-GEMM tiles on the CUDA cores with the contraction as their epilogue (a
-block takes one 64-edge tile and a group of column tiles, and writes a
+reaches device memory. bf16: one CUDA launch a call, wgmma + TMA on a
+persistent grid, up to ``TC_WGS`` 64-edge tiles a block sharing one ring of
+wt slabs (``fwd_smem_plan``). f32: two CUDA launches a call, a tile pass of
+SIMT GEMM tiles on the CUDA cores with the contraction as their epilogue
+(a block takes one 64-edge tile and a group of column tiles, and writes a
 partial [E, 64] table of the V = 64 paths) and a reduce that adds the
 partial tables in group order; the scratch is allocated here
 (``tp_contract_fwd_workspace``). The kernel takes d % 16 == 0
-(``GRANULE``) natively; other widths 1 <= d <= 512 (``MAX_WIDTH``) are
-zero-padded inside the wrapper (h's and wt's padded columns are zero, so
-every product over d gains only zero terms and w_all is unchanged).
+(``GRANULE``) natively, in bf16 from ``TC_MIN_WIDTH`` up (its TMA box);
+other widths 1 <= d <= 512 (``MAX_WIDTH``) are zero-padded inside the
+wrapper (h's and wt's padded columns are zero, so every product over d
+gains only zero terms and w_all is unchanged).
 
 The backward (port of ``_bwd_call`` -> ``_tp_bwd_kernel``, driven by
 ``_l1_bwd`` / ``_l2_bwd``) is ``tp_contract_bwd``: from the cotangents dc of
@@ -68,9 +69,9 @@ NUMEL = 5120
 # (U, V, column offset) per TP path; 64*64 + 64*8 + 64*8 = 5120
 PATHS_L1 = ((64, 64, 0), (64, 8, 4096), (64, 8, 4608))
 PATHS_L2 = ((64, 64, 0), (8, 64, 4096), (8, 64, 4608))
-TILE_EDGES = 64  # E must be a multiple of it (the f32 tile pass's edge tile)
-WARPS = (4, 12)  # the bf16 kernel's tile: 16 edges per warp, in this range
-GRANULE = 16  # K7's width granule (mma.sync k16): other widths are padded
+TILE_EDGES = 64  # E must be a multiple of it (both paths' edge tile)
+GRANULE = 16  # K7's width granule (the k16 step): other widths are padded
+TC_MIN_WIDTH = 64  # bf16: narrower h and wt are padded to the TMA box
 MAX_WIDTH = 512  # the widest d the TP kernels take
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -120,10 +121,10 @@ def _lib():
     lib = _build.load("tp_contract_fwd")
     fn = lib.tp_contract_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.tp_contract_fwd_smem.argtypes = [ctypes.c_int] * 4
+        lib.tp_contract_fwd_smem.argtypes = [ctypes.c_int] * 3
         lib.tp_contract_fwd_workspace.argtypes = [ctypes.c_int] * 3
         for name in ("tp_contract_fwd_smem", "tp_contract_fwd_workspace"):
             getattr(lib, name).restype = ctypes.c_longlong
@@ -133,31 +134,59 @@ def _lib():
 # the f32 tile pass's blocks an SM (``__launch_bounds__``) and its output
 # sums a thread (8 rows x 4 columns), as tp_contract_fwd.cu states them
 F32_BLOCKS, F32_OUT_SUMS = 4, 32
+# the bf16 block, as tp_contract_fwd.cu states it: consumer warpgroups (a
+# 64-edge tile each) at most, and the ring stages they must leave (else
+# two warpgroups), chunks a wgmma (n = 64 TC_NB), the ring's most stages
+TC_WGS, TC_MIN_STAGES, TC_NB, TC_MAX_STAGES = 3, 4, 2, 16
+_SLAB = 8192  # a 64 x 64 bf16 slab, 128-byte swizzled
 
 
-def fwd_smem_bytes(d: int, is_bf16: bool, l2: bool, warps: int) -> int:
+def _tc_layout(d: int, l2: bool, wgs: int) -> dict:
+    ks = -(-d // 64)
+    bias = wgs * ks * _SLAB + wgs * 64 * ((80 if l2 else 64) + 2) * 2
+    ring = -(-(bias + NUMEL * 2) // 1024) * 1024
+    stages = min(TC_MAX_STAGES, max(0, (_SMEM_LIMIT - 1024 - ring
+                                        - 16 * TC_MAX_STAGES - 16 * wgs)
+                                    // (TC_NB * _SLAB)))
+    total = 1024 + ring + stages * TC_NB * _SLAB + 16 * stages + 16 * wgs
+    ok = total <= _SMEM_LIMIT and stages >= 2
+    return {"total": total if ok else 0, "wgs": wgs, "stages": stages,
+            "slabs": ks}
+
+
+def fwd_smem_plan(d: int, l2: bool) -> dict:
+    """K7's bf16 block (mirrors ``tc_plan`` and ``TcLayout`` in
+    tp_contract_fwd.cu, whose ``tp_contract_fwd_smem`` the wrapper asks on
+    the card): ``TC_WGS`` warpgroups while their ring keeps
+    ``TC_MIN_STAGES`` stages, else two; per warpgroup an h tile of d/64
+    slabs and an a table [64][a + 2] bf16 (a staged in bf16 for f32 and
+    bf16 a alike), the bias [5120] bf16, then as many ring stages of
+    ``TC_NB`` slabs as fit up to ``TC_MAX_STAGES``, the barriers and 1 KB
+    of alignment slack; ``total`` is 0 where no plan holds (fewer than two
+    stages)."""
+    most = _tc_layout(d, l2, TC_WGS)
+    if most["total"] and most["stages"] >= TC_MIN_STAGES:
+        return most
+    return _tc_layout(d, l2, 2)
+
+
+def fwd_smem_bytes(d: int, is_bf16: bool, l2: bool) -> int:
     """K7's dynamic shared memory per block (mirrors tp_contract_fwd.cu,
-    whose ``tp_contract_fwd_smem`` gives it on the card): bf16, the h tile
-    of 16 edges a warp and the double-buffered 64-row wt chunk (rows of
-    d + 8 bf16) and the a tile; f32, at every width, the SIMT tile's two
-    k-slabs of 8 rows of the 64-row A tile and the 128-column B tile (rows
-    padded by 4 floats, csrc/simt_gemm.cuh) and the threads' output sums
+    whose ``tp_contract_fwd_smem`` gives it on the card): bf16, the plan of
+    ``fwd_smem_plan``; f32, at every width, the SIMT tile's two k-slabs of
+    8 rows of the 64-row A tile and the 128-column B tile (rows padded by 4
+    floats, csrc/simt_gemm.cuh) and the threads' output sums
     (``F32_OUT_SUMS`` floats for each of the tile's 128 threads)."""
     if is_bf16:
-        a_w = 80 if l2 else 64
-        return 2 * ((16 * warps + 128) * (d + 8) + 16 * warps * (a_w + 2))
+        return fwd_smem_plan(d, l2)["total"]
     return 4 * 2 * 8 * ((64 + 4) + (128 + 4)) + 4 * F32_OUT_SUMS * 128
 
 
-def fwd_warps(E: int, d: int, l2: bool, n_sm: int) -> int:
-    """The bf16 kernel's warps per block: the fewest whose tiles fill the
-    SMs in one wave, within ``WARPS``, then fewer while the block's shared
-    memory would not fit (wide d: at most 5 at d = 512); 0 when none
-    fits."""
-    warps = min(max(-(-E // (16 * n_sm)), WARPS[0]), WARPS[1])
-    while warps and fwd_smem_bytes(d, True, l2, warps) > _SMEM_LIMIT:
-        warps -= 1
-    return warps
+def padded_width(d: int, is_bf16: bool) -> int:
+    """The width K7 runs at: d rounded up to ``GRANULE``, in bf16 at least
+    ``TC_MIN_WIDTH``."""
+    dp = _pad.round_up(d, GRANULE)
+    return max(dp, TC_MIN_WIDTH) if is_bf16 else dp
 
 
 def _launch(h, a_list, wt, b, outs, l2: bool):
@@ -170,16 +199,16 @@ def _launch(h, a_list, wt, b, outs, l2: bool):
     if E % TILE_EDGES or not 0 < d0 <= MAX_WIDTH:
         raise ValueError(f"tp_contract kernel needs E % {TILE_EDGES} == 0 "
                          f"and 0 < d <= {MAX_WIDTH} (E={E}, d={d0})")
-    d = _pad.round_up(d0, GRANULE)
-    h, wt = _pad.pad(h, (False, 1), d0, d), _pad.pad(wt, (False, 1), d0, d)
-    if any(t.data_ptr() % 16 for t in (h, wt)):
-        raise ValueError("tp_contract needs 16-byte aligned h and wt")
-    lib = _lib()
     is_bf16 = h.dtype == torch.bfloat16
-    n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
-    warps = fwd_warps(E, d, l2, n_sm) if is_bf16 else WARPS[0]
-    if not warps or lib.tp_contract_fwd_smem(d, int(is_bf16), int(l2),
-                                             warps) > _SMEM_LIMIT:
+    d = padded_width(d0, is_bf16)
+    h, wt = _pad.pad(h, (False, 1), d0, d), _pad.pad(wt, (False, 1), d0, d)
+    # the bf16 kernel also copies the bias in 16-byte words
+    if any(t.data_ptr() % 16 for t in ((h, wt, b) if is_bf16 else (h, wt))):
+        raise ValueError("tp_contract needs 16-byte aligned h and wt (and b "
+                         "in bf16)")
+    lib = _lib()
+    if not 0 < lib.tp_contract_fwd_smem(d, int(is_bf16),
+                                        int(l2)) <= _SMEM_LIMIT:
         raise ValueError(f"tp_contract kernel: no shared-memory plan for "
                          f"d={d}")
     ptrs = [a.data_ptr() for a in a_list] + [None] * (3 - len(a_list))
@@ -192,7 +221,6 @@ def _launch(h, a_list, wt, b, outs, l2: bool):
                               None if work is None else work.data_ptr(), E,
                               d, int(is_bf16),
                               int(a_list[0].dtype == torch.float32), int(l2),
-                              warps,
                               torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "tp_contract_fwd")
     global launches

@@ -8,7 +8,9 @@ Phases, one JSON line each (every line names the card and its power limit):
   2. build    nvcc builds the eight kernels from csrc/ (seven sources, one
               process per source, all started together; K6 is the second
               entry point of edge_phase_bwd.cu); each kernel's registers,
-              spills and static shared memory from ptxas
+              spills and static shared memory from ptxas; the CPU tests'
+              mirrors of the kernels' shared-memory plans (K1, K7, K8) and
+              of K4's scratch rows against the sources' own
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: K1/K2 in every dtype combination the
               CartNet inference forward feeds them, with K1's optional
@@ -52,12 +54,12 @@ Phases, one JSON line each (every line names the card and its power limit):
               through K4 + K5)
   6b. widths  the CartNet edge kernels at d = 32, 64, 96, 384 and 512, bf16
               and f32: K1 (training layout), K2, K4, K5 and K6 against their
-              plain versions with bitwise repeats, K1's f32, K5's and K6's
-              device time per pass past 256 (K7/K8 likewise at d = 64, 384,
-              512); then one CartNet micro-step (4 layers) per width, dtype
-              and backward path (default: K1, K2, K4, K5 4 each; merged:
-              K1, K2, K6 4 each) through the kernels against the plain
-              versions, with its launch counts
+              plain versions with bitwise repeats, K4's device time per
+              pass at every width, K1's f32, K5's and K6's past 256 (K7/K8
+              likewise at d = 64, 384, 512); then one CartNet micro-step
+              (4 layers) per width, dtype and backward path (default: K1,
+              K2, K4, K5 4 each; merged: K1, K2, K6 4 each) through the
+              kernels against the plain versions, with its launch counts
   6c. cli_scalar  the CLI's --dataset synthetic without --cholesky: the
               scalar head on scalar targets (the JAX CLI's rule), trained
               through the kernels
@@ -81,8 +83,9 @@ Phases, one JSON line each (every line names the card and its power limit):
               work, K3's index_add_ time and the [E, d] x [d, 5120] GEMM
               beside K7, cuBLAS's products beside K1, K5, K6 and K8, the
               device time per pass of K1's and K7's f32 passes (K1 also in
-              its f32 training layout) and of K5's, K6's and K8's passes
-              (tile, weights, reduce) in bf16 and f32, one CartNet layer's
+              its f32 training layout), of K4's (rows, fold) and of K5's,
+              K6's and K8's passes (tile, weights, reduce) in bf16 and f32,
+              K7's bf16 l1 / l2 with f32 and bf16 a, one CartNet layer's
               whole backward through the default path and through the
               merged one, the forward times per batch (CartNet,
               eComformer; bf16, then f32 through the kernels against the
@@ -157,6 +160,7 @@ ECO_MICRO = dict(ECO_FWD, segment_sum_csr=7, sigma_segsum_bwd=3,
 # the wrappers) and up to MAX_WIDTH; the eComformer's TP kernels likewise
 CARTNET_WIDTHS = (32, 64, 96, 384, 512)
 ECO_WIDTHS = (64, 384, 512)
+E_MAIN = 20992  # the main path's padded edges (2 batches of 4 crystals)
 # K5/K6's passes, by the CUDA kernel's name
 BWD_PASSES = (("tile", "edge_bwd_tile"), ("weights", "edge_bwd_weights"),
               ("reduce", "edge_bwd_reduce"))
@@ -167,6 +171,8 @@ TP_BWD_PASSES = (("tile", "tp_bwd_tile"), ("weights", "tp_bwd_weight"),
 # (tile pass, reduce of its partial tables)
 K1_PASSES = (("pre", "edge_fwd_pre_f32"), ("out", "edge_fwd_out_f32"))
 K7_PASSES = (("tile", "tp_fwd_tile_f32"), ("reduce", "tp_fwd_reduce_f32"))
+# K4's passes, bf16 and f32 (row pass, column pass over its partial rows)
+K4_PASSES = (("rows", "sigma_bwd_rows"), ("fold", "sigma_bwd_fold"))
 # the CUDA kernels one call of each wrapper launches at its own width, in
 # bf16 and in f32 (K1: its edge dtype; K7: h's), by a piece of the kernels'
 # names
@@ -175,12 +181,11 @@ LAUNCHES = {
     "edge_phase_fwd": {"bf16": {"edge_phase_fwd_tc": 1},
                        "f32": {sub: 1 for _, sub in K1_PASSES}},
     "sigma_segsum_fwd": _SAME({"sigma_segsum_fwd_kernel": 1}),
-    "sigma_segsum_bwd": _SAME({"sigma_bwd_edges": 1,
-                               "sigma_bwd_columns": 1}),
+    "sigma_segsum_bwd": _SAME({sub: 1 for _, sub in K4_PASSES}),
     "edge_phase_bwd": _SAME({sub: 1 for _, sub in BWD_PASSES}),
     "edge_phase_merged_bwd": _SAME({sub: 1 for _, sub in BWD_PASSES}),
     "segment_sum_csr": _SAME({"segment_sum_csr_kernel": 1}),
-    "tp_contract_fwd": {"bf16": {"tp_fwd_mma": 1},
+    "tp_contract_fwd": {"bf16": {"tp_fwd_tc": 1},
                         "f32": {sub: 1 for _, sub in K7_PASSES}},
     "tp_contract_bwd": _SAME({sub: 1 for _, sub in TP_BWD_PASSES}),
 }
@@ -1071,32 +1076,39 @@ def main() -> int:
         ptxas[src] = ptxas_report(log.read_text()) if log.exists() else []
     emit(phase="build", card=card, seconds=round(build_s, 3), ptxas=ptxas)
     # the CPU tests' mirrors of the shared-memory plans against the CUDA
-    # sources' own (K1 per edge dtype; K7 per dtype and layer at the warps
-    # the wrapper picks; K8 per pass and layer), at every padded width
+    # sources' own (K1 per edge dtype; K8 per pass and layer, at every
+    # padded width; K7 per dtype and layer at every width it runs: its bf16
+    # block of warpgroup tiles and wt ring, its f32 tile), and of K4's
+    # scratch rows (one per row-pass block) at a few E
     plans, bad_plans = [], []
     for wp in range(ek.GRANULE, ek.MAX_WIDTH + 1, ek.GRANULE):
         for is_bf in (1, 0):
             plans.append(("K1", wp, is_bf, ek._lib().edge_phase_fwd_smem(
                 wp, is_bf), ek.fwd_smem_plan(wp, bool(is_bf))["total"]))
             for l2 in (0, 1):
-                w = k7.fwd_warps(20992, wp, bool(l2), n_sm) if is_bf else 4
-                plans.append((f"K7 l{l2 + 1} warps {w}", wp, is_bf,
-                              k7._lib().tp_contract_fwd_smem(wp, is_bf, l2,
-                                                             w),
-                              k7.fwd_smem_bytes(wp, bool(is_bf), bool(l2),
-                                                w)))
                 plan = k7.bwd_smem_plan(wp, bool(l2))
                 for kind, key in ((0, "tile"), (1, "weights")) if is_bf \
                         else ((2, "tile_f32"), (3, "weights_f32")):
                     plans.append((f"K8 l{l2 + 1} {key}", wp, is_bf,
                                   k7._lib_bwd().tp_contract_bwd_smem(
                                       wp, kind, l2), plan[key]))
-    bad_plans = [p for p in plans if p[3] != p[4] or p[3] > 232448]
+    for wp in range(k7.TC_MIN_WIDTH, k7.MAX_WIDTH + 1, k7.GRANULE):
+        for is_bf in (1, 0):
+            for l2 in (0, 1):
+                plans.append((f"K7 l{l2 + 1}", wp, is_bf,
+                              k7._lib().tp_contract_fwd_smem(wp, is_bf, l2),
+                              k7.fwd_smem_bytes(wp, bool(is_bf), bool(l2))))
+    for n_e in (1, 5, 20993, E_MAIN):
+        plans.append(("K4 parts", n_e, None,
+                      sk._lib_bwd().sigma_segsum_bwd_parts(n_e),
+                      sk.bwd_parts(n_e, n_sm)))
+    bad_plans = [p for p in plans
+                 if p[3] != p[4] or not 0 < p[3] <= 232448]
     emit(phase="smem_plans", card=card, checked=len(plans),
          mismatched=bad_plans)
     if bad_plans:
-        fail(f"shared-memory plans differ from their Python mirrors or "
-             f"exceed a block: {bad_plans}")
+        fail(f"shared-memory plans or scratch rows differ from their "
+             f"Python mirrors or exceed a block: {bad_plans}")
 
     # main-path data: 8 ADP-scale crystals, RCM, 2 batches of 4
     d = 256
@@ -1546,7 +1558,11 @@ def main() -> int:
                               tol_of)
                 times[kname] = device_ms(lambda f=fn, a=a: f(*a),
                                          kernels=launches_of(kname, wdt))
-                if kname != "sigma_segsum_bwd" and wd > d:
+                if kname == "sigma_segsum_bwd":
+                    passes[kname] = pass_device_ms(lambda f=fn, a=a: f(*a),
+                                                   launches_of(kname, wdt),
+                                                   passes=K4_PASSES)
+                elif wd > d:
                     passes[kname] = pass_device_ms(lambda f=fn, a=a: f(*a),
                                                    launches_of(kname, wdt))
             # the CPU tests' mirror of the tile pass's shared-memory plan
@@ -1934,7 +1950,7 @@ def main() -> int:
         time_row("sigma_segsum_bwd", case,
                  lambda a=sargs: sk.sigma_segsum_bwd(*a),
                  lambda a=sargs: sk.sigma_segsum_bwd_plain(*a), t_bound, by,
-                 calls, dt)
+                 calls, dt, K4_PASSES)
         # K6: K5's products (8 E d^2 multiply-adds) over its own operands
         margs = timing_inputs[("merged_bwd", case)]
         t_bound, by = edge_bwd_cost(margs, ek.merged_bwd(*margs), d, E,
@@ -1945,7 +1961,8 @@ def main() -> int:
                  BWD_PASSES, products_ms=k5_products(margs))
         emit(phase="time_passes", card=card, case=case, passes_device_ms={
             k: rows_t[k][case]["passes_device_ms"]
-            for k in ("edge_phase_bwd", "edge_phase_merged_bwd")})
+            for k in ("edge_phase_bwd", "edge_phase_merged_bwd",
+                      "sigma_segsum_bwd")})
     # one CartNet layer's whole backward (autograd through the layer's
     # Functions, bf16, random cotangents zero on pad rows): default (K4, the
     # window-moment merge's backward, K5) beside merged (phase A', the
@@ -2177,7 +2194,8 @@ def main() -> int:
     # K8 per launch on the eComformer training path (l1, bf16), with the
     # launches of its 16 micro-steps
     def f32_rows(kname, cases):
-        """A kernel's times in its f32 cases, beside its line."""
+        """A kernel's times in its other cases (the f32 ones, K7's other
+        bf16 ones), beside its line."""
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                 "plain_device_ms", "passes_device_ms", "products_ms",
                 "products_device_ms", "gemm_ms", "gemm_device_ms")
@@ -2239,6 +2257,8 @@ def main() -> int:
             "products_ms": r.get("products_ms"),
             "products_device_ms": r.get("products_device_ms"),
             "passes_device_ms": r.get("passes_device_ms"),
+            "cases": f32_rows(kname, ("l2_bf16_f32a", "l1_bf16", "l2_bf16")
+                              if kname == "tp_contract_fwd" else ()),
             "f32": f32_rows(kname, ("l1_f32_config", "l2_f32_config"))})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

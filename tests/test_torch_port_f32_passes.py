@@ -10,8 +10,8 @@ cores) and chip_smoke.py's bf16 gradient gate, on the CPU.
 - The CUDA launches of each host function in the sources are the ones
   ``chip_smoke.LAUNCHES`` states for the wrapper in that dtype (three for
   K5/K6 and K8 in f32, two for K1 and K7 in f32, one for K1 and K7 in
-  bf16, each matching one of its name pieces), and the docstrings of the
-  wrappers say so.
+  bf16, two for K4 in both, each matching one of its name pieces), and
+  the docstrings of the wrappers say so.
 - ``chip_smoke.bf16_grad_gate`` on synthetic gradients: one parameter far
   off by chance inside a layer that is otherwise in line passes (the
   per-parameter rule it replaced fails it), and so does honest noise; a
@@ -81,7 +81,7 @@ def test_f32_smem_plans_are_the_simt_layout(d, kernel):
         assert ek.F32_BLOCKS == blocks
     elif kernel.startswith("K7"):  # the tile pass; the reduce takes none
         want = _k7_smem()
-        got = (k7.fwd_smem_bytes(d, False, kernel.endswith("l2"), 0),) * 2
+        got = (k7.fwd_smem_bytes(d, False, kernel.endswith("l2")),) * 2
         blocks = _constant("tp_contract_fwd.cu", "F32_BLOCKS")
         assert (k7.F32_BLOCKS, k7.F32_OUT_SUMS) == (
             blocks, _constant("tp_contract_fwd.cu", "OUT_SUMS"))
@@ -110,6 +110,8 @@ def _launched(source: str, function: str) -> list:
     ("edge_phase_bwd.cu", "launch_f32", "edge_phase_merged_bwd", "f32", 3),
     ("tp_contract_fwd.cu", "run_f32", "tp_contract_fwd", "f32", 2),
     ("tp_contract_fwd.cu", "run_bf16", "tp_contract_fwd", "bf16", 1),
+    ("sigma_segsum_bwd.cu", "run", "sigma_segsum_bwd", "bf16", 2),
+    ("sigma_segsum_bwd.cu", "run", "sigma_segsum_bwd", "f32", 2),
     ("edge_phase_fwd.cu", "launch_f32", "edge_phase_fwd", "f32", 2),
     ("edge_phase_fwd.cu", "launch_tc", "edge_phase_fwd", "bf16", 1),
 ])

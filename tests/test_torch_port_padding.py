@@ -204,7 +204,8 @@ def test_stale_sees_sources_and_shared_headers(tmp_path, monkeypatch):
 
 
 def test_wgmma_kernels_share_one_hopper_header():
-    for name in ("edge_phase_fwd", "edge_phase_bwd", "tp_contract_bwd"):
+    for name in ("edge_phase_fwd", "edge_phase_bwd", "tp_contract_fwd",
+                 "tp_contract_bwd"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "hopper_common.cuh"' in text, name
         assert "mbarrier.init" not in text, name  # not a copy of the helpers

@@ -3,13 +3,15 @@ card now takes.
 
 * K7's and K8's plain versions against the Pallas kernels in interpret
   mode at d = 384 (E = T_TP = 128), layer 1 and layer 2, f32 and bf16.
-* The wrappers' zero-padding (``_pad``, K7 to a multiple of 16, K8 to a
-  multiple of 128) at d in {32, 64, 96}: the plain versions on padded
-  operands, cut back, equal the plain versions at the real width, and the
-  padded columns of dh and dwt are zero.
-* The Python mirrors of the kernels' shared-memory plans (K7's warp choice
-  and its f32 K loop, K8's passes) fit a Hopper block at every width and
-  dtype the kernels take; ``chip_smoke.py`` holds them to the CUDA plans.
+* The wrappers' zero-padding (``_pad``, K7 to a multiple of 16 and in
+  bf16 to at least 64, K8 to a multiple of 128) at d in {32, 64, 96}: the
+  plain versions on padded operands, cut back, equal the plain versions at
+  the real width, and the padded columns of dh and dwt are zero.
+* The Python mirrors of the kernels' shared-memory plans (K7's bf16 block
+  of warpgroup tiles and wt ring, and its f32 K loop; K8's passes) fit a
+  Hopper block at every width and dtype the kernels take, K7's bf16 plan
+  as tp_contract_fwd.cu's constants lay it out; ``chip_smoke.py`` holds
+  them to the CUDA plans.
 
 Tolerances, as max |ours - ref| / max |ref| per output: f32 1e-5, and 1e-4
 for f32 sums over edges or over 5120 columns (dh, dW, db); 1e-2 where bf16
@@ -120,7 +122,9 @@ H = (False, 1)  # h [E, d] and wt [5120, d]: d is the last axis
 @pytest.mark.parametrize("d", [32, 64, 96])
 def test_k7_padding_is_exact(d, dt):
     _, t = _inputs(_vals(d, seed=d), dt)
-    dp = _pad.round_up(d, k7.GRANULE)
+    dp = k7.padded_width(d, dt == "bf16")
+    assert dp == (max(_pad.round_up(d, k7.GRANULE), k7.TC_MIN_WIDTH)
+                  if dt == "bf16" else _pad.round_up(d, k7.GRANULE))
     h, wt = _pad.pad(t["h"], H, d, dp), _pad.pad(t["W"], H, d, dp)
     assert h.shape == (E, dp) and not h[:, d:].any() and not wt[:, d:].any()
     for l2 in (False, True):
@@ -168,18 +172,77 @@ WIDTHS = [16 * k for k in range(1, 33)]  # K7's granule up to 512
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
 def test_k7_plans_fit_a_hopper_block(bf16, l2):
     for d in WIDTHS:
-        if bf16:  # the main path's E on 132 SMs
-            warps = k7.fwd_warps(20992, d, l2, 132)
-            assert 1 <= warps <= k7.WARPS[1], d
-            assert k7.fwd_smem_bytes(d, True, l2, warps) <= SMEM_LIMIT, d
-        else:
-            assert k7.fwd_smem_bytes(d, False, l2, 0) <= SMEM_LIMIT, d
-    # the wide bf16 block gives way in warps; the f32 one keeps its SIMT
-    # tile at every width (d only lengthens its k loop)
-    assert k7.fwd_warps(20992, 512, l2, 132) == 5
-    assert k7.fwd_warps(20992, 256, l2, 132) == 10
-    assert k7.fwd_smem_bytes(512, False, l2, 0) == k7.fwd_smem_bytes(
-        16, False, l2, 0)
+        dp = k7.padded_width(d, bf16)
+        assert 0 < k7.fwd_smem_bytes(dp, bf16, l2) <= SMEM_LIMIT, d
+        if bf16:  # three warpgroups while their ring keeps its stages
+            plan = k7.fwd_smem_plan(dp, l2)
+            assert plan["stages"] >= (k7.TC_MIN_STAGES
+                                      if plan["wgs"] == k7.TC_WGS else 2), d
+    # the wide bf16 block gives way in warpgroups (two past d = 256), then
+    # in ring stages (d = 512: half a chunk group); the f32 one keeps its
+    # SIMT tile at every width (d only lengthens its k loop)
+    assert (k7.fwd_smem_plan(256, l2)["wgs"],
+            k7.fwd_smem_plan(256, l2)["stages"]) == (3, 5)
+    assert (k7.fwd_smem_plan(384, l2)["wgs"],
+            k7.fwd_smem_plan(512, l2)["wgs"]) == (2, 2)
+    assert k7.fwd_smem_plan(512, l2)["stages"] == 4
+    assert k7.fwd_smem_bytes(512, False, l2) == k7.fwd_smem_bytes(
+        16, False, l2)
+
+
+def _source_constant(name: str) -> str:
+    """``constexpr <type> name = value;`` of tp_contract_fwd.cu."""
+    import re
+    from cartnet_tpu_torch.ops.kernels import _build
+    text = (_build.CSRC / "tp_contract_fwd.cu").read_text()
+    m = re.search(rf"constexpr \w+(?: \w+)? {name} = ([^;]+);", text)
+    return m.group(1)
+
+
+@pytest.mark.parametrize("a_dt", ["f32", "bf16"])
+@pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])
+def test_k7_bf16_plan_is_the_source_layout(l2, a_dt):
+    """``fwd_smem_plan`` against a plan laid out from tp_contract_fwd.cu's
+    own constants (warpgroups, chunks a wgmma, ring depth, the block's
+    limit, the a table's width), at every width the wrapper
+    runs (16..48 padded to 64). The a table is bf16 for f32 and bf16 a
+    alike (``stage_a`` rounds into it), so both plans are one."""
+    from cartnet_tpu_torch.ops.kernels import _build
+    text = (_build.CSRC / "tp_contract_fwd.cu").read_text()
+    most = int(_source_constant("TC_WGS"))
+    min_stages = int(_source_constant("TC_MIN_STAGES"))
+    nb = int(_source_constant("TC_NB"))
+    max_stages = int(_source_constant("TC_MAX_STAGES"))
+    limit = int(_source_constant("SMEM_LIMIT"))
+    assert (most, min_stages, nb, max_stages) == (
+        k7.TC_WGS, k7.TC_MIN_STAGES, k7.TC_NB, k7.TC_MAX_STAGES)
+    assert limit == SMEM_LIMIT
+    assert "a_s[r * AS + c] = __float2bfloat16_rn(v);" in text
+    assert "return a_width(l2) + 2;" in text
+    assert "return most.ok() && most.stages >= TC_MIN_STAGES ? most" in text
+
+    def layout(dp, wgs):
+        ks = -(-dp // 64)
+        head = wgs * ks * 8192 + wgs * 64 * ((80 if l2 else 64) + 2) * 2 \
+            + 5120 * 2
+        ring = -(-head // 1024) * 1024
+        stages = min(max_stages, (limit - 1024 - ring - 16 * max_stages
+                                  - 16 * wgs) // (nb * 8192))
+        total = 1024 + ring + stages * nb * 8192 + 16 * stages + 16 * wgs
+        return ks, stages, total
+
+    for d in WIDTHS:
+        dp = k7.padded_width(d, True)
+        wgs = most
+        ks, stages, total = layout(dp, wgs)
+        if not (stages >= min_stages and total <= limit):
+            wgs = 2
+            ks, stages, total = layout(dp, wgs)
+        assert stages >= 2 and total <= limit, d
+        plan = k7.fwd_smem_plan(dp, l2)
+        assert plan["wgs"] == wgs, d
+        assert (plan["total"], plan["stages"], plan["slabs"]) == (
+            total, stages, ks), d
 
 
 @pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])

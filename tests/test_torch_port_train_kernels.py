@@ -333,3 +333,46 @@ def test_backward_wrappers_take_plain_path_on_cpu(edge_setup, sigma_setup):
                           srowptr[:-1])
     with pytest.raises(ValueError):  # daggr must be [N, d] in gate's dtype
         sk.sigma_segsum_bwd(*sargs[:6], sargs[6][:, :-1], *sargs[7:])
+
+
+def _k4_constant(name: str) -> int:
+    """``constexpr int name = n;`` of sigma_segsum_bwd.cu."""
+    import re
+    from cartnet_tpu_torch.ops.kernels import _build
+    text = (_build.CSRC / "sigma_segsum_bwd.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("E", [1, 5, 8, 20993, 20992, 2 * 132 * 8 - 3])
+def test_k4_scratch_rows_follow_the_grid_rule(E):
+    """K4's partial rows (one per row-pass block) as ``bwd_parts`` mirrors
+    them: the source's BLOCKS_PER_SM blocks an SM, at most one per WARPS
+    edges, at least one; the wrapper sizes its scratch by the library's
+    own count (``sigma_segsum_bwd_parts``), which the card run holds to
+    the mirror. E below one block's warps, an odd E and the main path's."""
+    import inspect
+    warps = _k4_constant("THREADS") // 32
+    per_sm = _k4_constant("BLOCKS_PER_SM")
+    assert (sk.BWD_WARPS, sk.BWD_BLOCKS_PER_SM) == (warps, per_sm)
+    for n_sm in (132, 114):
+        want = max(1, min(n_sm * per_sm, -(-E // warps)))
+        assert sk.bwd_parts(E, n_sm) == want
+    assert sk.bwd_parts(20992, 132) == 264
+    assert sk.bwd_parts(5, 132) == 1
+    src = inspect.getsource(sk.sigma_segsum_bwd)
+    assert "part = torch.empty((lib.sigma_segsum_bwd_parts(E), 2 * d)" in src
+
+
+@pytest.mark.parametrize("d", [1, 256, 512])
+def test_k4_row_pass_needs_no_shared_memory_opt_in(d):
+    """K4's row pass holds its warps' partials [2][WARPS][d] f32 in dynamic
+    shared memory; up to the source's MAX_WIDTH (the wrapper's limit) that
+    stays within the 48 KB a launch takes without opting in, so a call
+    sets no function attribute."""
+    from cartnet_tpu_torch.ops.kernels import _build
+    text = (_build.CSRC / "sigma_segsum_bwd.cu").read_text()
+    warps = _k4_constant("THREADS") // 32
+    assert d <= _k4_constant("MAX_WIDTH") == 512
+    assert "sizeof(float) * 2 * WARPS * p.d, s, p);" in text
+    assert 4 * 2 * warps * d <= 48 * 1024
+    assert "cudaFuncSetAttribute(" not in text
