@@ -26,7 +26,8 @@
 //      block taking the range's rows w, w + WARPS, .... A lane owns VEC
 //      contiguous features (16 bytes of gate: 8 bf16 or 4 f32) in each of
 //      NV groups of 32 VEC, so every row is read and written in 16-byte
-//      accesses (one warp instruction covers a bf16 row of 256), and the
+//      accesses (row_vectors.cuh's load / store; one warp instruction
+//      covers a bf16 row of 256), and the
 //      lane's dscale/dshift partials take 2 NV VEC registers, sized to d
 //      by the template. denv is a fixed butterfly over the row's lanes.
 //      The block folds its warps' partials in warp order into one partial
@@ -47,9 +48,9 @@
 #include <cstddef>
 #include <cstdint>
 
-namespace {
+#include "row_vectors.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -60,105 +61,9 @@ constexpr int MAX_WIDTH = 512;
 static_assert(sizeof(float) * 2 * WARPS * MAX_WIDTH <= 48 * 1024,
               "row-pass partials fit the default dynamic shared memory");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // features a lane owns in each group: 16 bytes of the gate's dtype
 template <typename GT> __host__ __device__ constexpr int vec_of() {
   return 16 / (int)sizeof(GT);
-}
-
-// v = p[f0 .. f0 + VEC) as floats; with AL (d % VEC == 0, rows 16-byte
-// aligned in gate's units) one vector load of VEC elements, else element
-// by element, zeros past d
-template <int VEC, bool AL>
-__device__ __forceinline__ void load(const float* p, int f0, int d,
-                                     float (&v)[VEC]) {
-  if (AL) {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + f0 + i);
-      v[i] = x.x;
-      v[i + 1] = x.y;
-      v[i + 2] = x.z;
-      v[i + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = f0 + i < d ? p[f0 + i] : 0.f;
-  }
-}
-template <int VEC, bool AL>
-__device__ __forceinline__ void load(const bf16* p, int f0, int d,
-                                     float (&v)[VEC]) {
-  if (AL) {
-    uint32_t w[VEC / 2];
-    if constexpr (VEC == 8) {
-      const uint4 x = *reinterpret_cast<const uint4*>(p + f0);
-      w[0] = x.x;
-      w[1] = x.y;
-      w[2] = x.z;
-      w[3] = x.w;
-    } else {
-      const uint2 x = *reinterpret_cast<const uint2*>(p + f0);
-      w[0] = x.x;
-      w[1] = x.y;
-    }
-#pragma unroll
-    for (int i = 0; i < VEC / 2; ++i) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      v[i] = f0 + i < d ? __bfloat162float(p[f0 + i]) : 0.f;
-  }
-}
-
-// p[f0 .. f0 + VEC) = v rounded to T (element by element past d without AL)
-template <int VEC, bool AL>
-__device__ __forceinline__ void store(float* p, int f0, int d,
-                                      const float (&v)[VEC]) {
-  if (AL) {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(p + f0 + i) =
-          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      if (f0 + i < d) p[f0 + i] = v[i];
-  }
-}
-template <int VEC, bool AL>
-__device__ __forceinline__ void store(bf16* p, int f0, int d,
-                                      const float (&v)[VEC]) {
-  if (AL) {
-    uint32_t w[VEC / 2];
-#pragma unroll
-    for (int i = 0; i < VEC / 2; ++i) {
-      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&b);
-    }
-    if constexpr (VEC == 8)
-      *reinterpret_cast<uint4*>(p + f0) = make_uint4(w[0], w[1], w[2], w[3]);
-    else
-      *reinterpret_cast<uint2*>(p + f0) = make_uint2(w[0], w[1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      if (f0 + i < d) p[f0 + i] = __float2bfloat16_rn(v[i]);
-  }
 }
 
 struct Args {

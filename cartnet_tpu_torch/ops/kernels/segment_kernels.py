@@ -11,12 +11,13 @@ Port of the Pallas forward kernel cartnet_tpu/ops/pallas/segment_kernels.py
 ``e_out`` is written for every edge, pads included; only edges under
 ``emask`` enter ``aggr``. The CUDA kernel reduces each destination row over
 the masked-in edges of its CSR range [dst_rowptr[n], dst_rowptr[n+1]) in
-edge order, while separate blocks write e_out of the pad edges: no atomics,
-bitwise repeatable. On a CUDA tensor ``sigma_segsum`` launches
-``csrc/sigma_segsum_fwd.cu`` or raises; on a CPU tensor it runs
-``sigma_segsum_plain``. Both kernels take every width natively (K2
-0 < d <= 1024, K4 0 < d <= 512): threads are features, whole warps are
-launched, and a lane past d owns no feature; nothing is padded.
+edge order, one warp per row and slice of its features, while separate pad
+warps write e_out of the pad edges: no atomics, bitwise repeatable. On a
+CUDA tensor ``sigma_segsum`` launches ``csrc/sigma_segsum_fwd.cu`` or
+raises; on a CPU tensor it runs ``sigma_segsum_plain``. Both kernels take
+every width natively (K2 0 < d <= 1024, K4 0 < d <= 512): lanes own
+features, a lane past d owns none, and each kernel picks its vector or its
+scalar accesses from d and the operands' alignment; nothing is padded.
 
 The backward (port of ``_sigma_bwd`` -> ``_sigma_seg_bwd_kernel``) is
 ``sigma_segsum_bwd``: on a CUDA tensor it launches ``csrc/sigma_segsum_bwd.cu``

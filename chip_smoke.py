@@ -24,7 +24,10 @@ Phases, one JSON line each (every line names the card and its power limit):
               bf16 a, and the f32 config; K8 (TP backward, l1 and l2) in
               bf16 and f32 with random cotangents zero on pad rows, and K3's
               perm=None form over dst_rowptr (the sorted gather's backward)
-              at bf16 [E, 256] / [E, 64] / [E, 128] and f32 [E, 256]; plus a
+              at bf16 [E, 256] / [E, 64] / [E, 128] and f32 [E, 256]; K2
+              (four dtype combinations) and K3 (perm and perm=None, bf16
+              and f32) at d = 36 and 33, also on views one row into a
+              larger buffer, so that K2 runs its scalar route; plus a
               bitwise repeat of every kernel run
   4. main     the CartNet ADP inference sweep (runner.inference) over 2
               batches of 4 synthetic ADP-scale crystals, flagship model (dim
@@ -419,10 +422,17 @@ def edge_cost(args, outs, d, E, op_dtype):
     return bound(nbytes(*args) + nbytes(*outs), n_ops, op_dtype)
 
 
-def sigma_cost(args, outs, E, d):
-    # per element: scale, shift, exp, add, divide, envelope, residual add,
-    # sender product, accumulate
-    return bound(nbytes(*args) + nbytes(*outs), 9 * E * d, "f32")
+def sigma_cost(args, outs, real_edges: int):
+    """K2's ``args`` (gate, scale, shift, env, sender, e_in, mask, rowptr)
+    and outputs. Bytes: each read once and each written once, the sender
+    rows only at the masked-in edges (a pad's e_out needs none). Operations
+    per element: scale, shift, exp, add, divide, envelope and residual add
+    at every edge; sender product and accumulate at the masked-in ones."""
+    E, d = args[0].shape
+    sender = args[4]
+    n_bytes = (nbytes(*args[:4], *args[5:]) + nbytes(*outs)
+               + real_edges * d * sender.element_size())
+    return bound(n_bytes, 7 * E * d + 2 * real_edges * d, "f32")
 
 
 def sigma_bwd_cost(args, outs, E, d):
@@ -568,6 +578,68 @@ def sigma_fwd_plain(*a):
     """K2's plain version with the wrapper's arguments."""
     from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
     return sk.sigma_segsum_plain(*a[:8], a[9])
+
+
+def row_offset_view(t):
+    """t's values in a contiguous view one row into a buffer one row
+    longer: a base d elements past the allocation's start, which K2's
+    vector route needs to be a multiple of 16 bytes (else its scalar route
+    runs)."""
+    import torch
+    buf = torch.empty((t.shape[0] + 1,) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def odd_width_checks(card, batch, gen, dev, widths=(36, 33)) -> None:
+    """K2 in its four gate / edge dtype combinations and K3 (scatter onto
+    sources with perm, sorted-gather backward without) in bf16 and f32 at
+    widths that are not a multiple of 8, on fresh tensors and on views one
+    row into a larger buffer (``row_offset_view``): between them K2 runs
+    its vector and its scalar (AL = false) route in every dtype, and K3
+    (one feature a thread) reads unaligned rows. Each against its plain
+    version, with bitwise repeats."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    from cartnet_tpu_torch.ops.kernels import segsum_kernels as k3
+    bf, f32 = torch.bfloat16, torch.float32
+    N, E = batch.num_nodes, batch.num_edges
+    for d in widths:
+        for gdt, edt in ((bf, bf), (f32, bf), (bf, f32), (f32, f32)):
+            tol = CHECK_TOL["f32" if gdt == edt == f32 else "bf16"]
+            a = sigma_inputs(batch, gdt, edt, d, gen, dev)
+            for view in ("", "_offset"):
+                if view:
+                    a = [row_offset_view(x) if x.dim() == 2 and
+                         x.shape[1] == d else x for x in a]
+                tail = (batch.edge_dst, batch.edge_mask, batch.dst_rowptr, N)
+                got, again = (sk.sigma_segsum(*a, *tail) for _ in range(2))
+                want = sk.sigma_segsum_plain(*a, *tail[:2], N)
+                torch.cuda.synchronize()
+                check_outputs(card, "sigma_segsum_fwd",
+                              f"d{d}_{str(gdt)[6:]}_{str(edt)[6:]}{view}",
+                              ("e_out", "aggr"), got, again, want,
+                              lambda _, t=tol: t)
+        for dt in (bf, f32):
+            tol = CHECK_TOL["sum" if dt == f32 else "bf16"]
+            for form in ("perm", "dst"):
+                if form == "perm":
+                    a = list(seg_args(batch, dt, d, gen, dev))
+                else:
+                    ct = (torch.randn(E, d, generator=gen).to(dev)
+                          * batch.edge_mask[:, None]).to(dt)
+                    a = [ct, batch.dst_rowptr, batch.edge_mask]
+                for view in ("", "_offset"):
+                    if view:
+                        a[0] = row_offset_view(a[0])
+                    got, again = (k3.segment_sum_csr(*a) for _ in range(2))
+                    want = k3.segment_sum_csr_plain(*a)
+                    torch.cuda.synchronize()
+                    check_outputs(card, "segment_sum_csr",
+                                  f"d{d}_{str(dt)[6:]}_{form}{view}",
+                                  ("out",), (got,), (again,), (want,),
+                                  lambda _, t=tol: t)
 
 
 def seg_args(batch, dt, width, gen, dev):
@@ -1272,6 +1344,9 @@ def main() -> int:
                       (again,), (want,),
                       lambda _: CHECK_TOL["sum" if dt == f32 else "bf16"])
         timing_inputs[("seg", case)] = gargs
+    # K2 and K3 at widths that are not a multiple of 8, K2 on each route
+    # (a generator of their own: the later phases' inputs stay as they were)
+    odd_width_checks(card, b0, torch.Generator().manual_seed(11), dev)
     # K8 on K7's operands (bf16 h, a and W; the f32 config) with random
     # cotangents that are zero on pad rows
     for case, (dt, _) in tp_bwd_cases.items():
@@ -1538,6 +1613,9 @@ def main() -> int:
                           got, again, want, elem_tol)
             times["sigma_segsum_fwd"] = device_ms(
                 sfn, kernels=launches_of("sigma_segsum_fwd", wdt))
+            k2_bound = sigma_cost(
+                list(sargs) + [b0.edge_mask, b0.dst_rowptr], got,
+                int(b0.edge_mask.sum()))
             eargs, s4args = backward_inputs(b0, wdt, wd, gen, dev)
             margs, _ = merged_inputs(b0, wdt, wd, gen, dev)
             passes = {}
@@ -1571,7 +1649,8 @@ def main() -> int:
             plan = ek.bwd_smem_plan(wp, wdt == bf)
             emit(phase="widths_time", card=card, case=case, d=wd,
                  padded_to=wp, device_ms=times, passes_device_ms=passes,
-                 tile_smem=smem, smem_plan=plan)
+                 sigma_segsum_fwd_bound_ms=k2_bound[0], tile_smem=smem,
+                 smem_plan=plan)
             if smem != plan["tile"]:
                 fail(f"{case}: the tile pass takes {smem} bytes of shared "
                      f"memory, bwd_smem_plan says {plan['tile']}")
@@ -1914,7 +1993,8 @@ def main() -> int:
         extra = (b0.edge_mask, b0.dst_rowptr)
         fk = lambda a=args: sk.sigma_segsum(*a, b0.edge_dst, b0.edge_mask,
                                             b0.dst_rowptr, N)
-        t_bound, by = sigma_cost(list(args) + list(extra), fk(), E, d)
+        t_bound, by = sigma_cost(list(args) + list(extra), fk(),
+                                 int(b0.edge_mask.sum()))
         time_row("sigma_segsum_fwd", case, fk,
                  lambda a=args: sk.sigma_segsum_plain(*a, b0.edge_dst,
                                                       b0.edge_mask, N),

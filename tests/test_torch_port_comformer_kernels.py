@@ -74,11 +74,21 @@ def seg_batch():
     return batch
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_segment_sum_plain_matches_pallas_kernel_and_twin(seg_batch, dt):
+def _widths(main: int, odd: int):
+    """dt x width cases: the main width under the plain dtype ids, and a
+    width that is not a multiple of 8 (the CUDA kernel's scalar route on
+    the card)."""
+    return [pytest.param(dt, w, id=dt if w == main else f"{dt}-{w}")
+            for w in (main, odd) for dt in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize("dt,width", _widths(D, 36))
+def test_segment_sum_plain_matches_pallas_kernel_and_twin(seg_batch, dt,
+                                                          width):
     b = seg_batch
     E = b.num_edges
-    vals = np.random.default_rng(0).normal(size=(E, D)).astype(np.float32)
+    vals = np.random.default_rng(0).normal(size=(E, width)).astype(
+        np.float32)
     jv, tv = _pair(vals, dt)
     perm = jnp.asarray(b.edge_src_perm)
     ids_eff = jnp.where(jnp.asarray(b.edge_mask_src_sorted),
@@ -110,12 +120,12 @@ def test_segment_sum_plain_matches_pallas_kernel_and_twin(seg_batch, dt):
     assert torch.equal(ours, again)
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_segment_sum_plain_without_perm(seg_batch, dt):
+@pytest.mark.parametrize("dt,width", _widths(64, 33))
+def test_segment_sum_plain_without_perm(seg_batch, dt, width):
     # the form the gather backward will use: ids already sorted (dst)
     b = seg_batch
     vals = np.random.default_rng(1).normal(
-        size=(b.num_edges, 64)).astype(np.float32)
+        size=(b.num_edges, width)).astype(np.float32)
     jv, tv = _pair(vals, dt)
     ids_eff = jnp.where(jnp.asarray(b.edge_mask), jnp.asarray(b.edge_dst),
                         N).astype(jnp.int32)

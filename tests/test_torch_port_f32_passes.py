@@ -114,6 +114,10 @@ def _launched(source: str, function: str) -> list:
     ("sigma_segsum_bwd.cu", "run", "sigma_segsum_bwd", "f32", 2),
     ("edge_phase_fwd.cu", "launch_f32", "edge_phase_fwd", "f32", 2),
     ("edge_phase_fwd.cu", "launch_tc", "edge_phase_fwd", "bf16", 1),
+    ("sigma_segsum_fwd.cu", "run", "sigma_segsum_fwd", "bf16", 1),
+    ("sigma_segsum_fwd.cu", "run", "sigma_segsum_fwd", "f32", 1),
+    ("segment_sum_csr.cu", "run", "segment_sum_csr", "bf16", 1),
+    ("segment_sum_csr.cu", "run", "segment_sum_csr", "f32", 1),
 ])
 def test_f32_launches_match_chip_smoke(source, function, wrapper, dtype,
                                        count):

@@ -142,21 +142,41 @@ def test_edge_plain_matches_jnp_twin(edge_setup, case):
                                    rtol=tol["rtol"])
 
 
+def _sigma_vals(batch, d, seed=1):
+    rng = np.random.default_rng(seed)
+    E = batch.num_edges
+    mk = lambda *s: (rng.normal(size=s) * 0.5).astype(np.float32)
+    return dict(gate=mk(E, d), sender=mk(E, d), scale=1.0 + 0.1 * mk(d),
+                shift=mk(d), env=1.0 / (1.0 + np.exp(-mk(E, 1))),
+                e_in=mk(E, d))
+
+
 @pytest.fixture(scope="module", params=[0, 512])
 def sigma_setup(request):
     batch = _batch(request.param)
-    rng = np.random.default_rng(1)
-    E = batch.num_edges
-    mk = lambda *s: (rng.normal(size=s) * 0.5).astype(np.float32)
-    vals = dict(gate=mk(E, D), sender=mk(E, D), scale=1.0 + 0.1 * mk(D),
-                shift=mk(D), env=1.0 / (1.0 + np.exp(-mk(E, 1))),
-                e_in=mk(E, D))
-    return request.param, batch, vals
+    return request.param, batch, _sigma_vals(batch, D)
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_sigma_plain_matches_pallas_kernel_and_twin(sigma_setup, case):
     align, batch, vals = sigma_setup
+    _sigma_plain_vs_jax(batch, vals, case)
+    if align:  # the batch really has pads between real edges
+        last = np.flatnonzero(batch.edge_mask)[-1]
+        assert (~batch.edge_mask[:last]).any()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sigma_plain_matches_pallas_kernel_odd_width(case):
+    # a width that is not a multiple of 8 (the CUDA kernel's scalar route
+    # on the card): the same function at d = 36 on the aligned batch
+    batch = _batch(512)
+    _sigma_plain_vs_jax(batch, _sigma_vals(batch, 36, seed=2), case)
+
+
+def _sigma_plain_vs_jax(batch, vals, case):
+    """K2's plain version against the Pallas kernel (interpret mode) and
+    its jnp twin on the same values, at the case's tolerance."""
     gdt, edt = CASES[case]
     pg = {k: _pair(vals[k], gdt) for k in ("gate", "sender", "env")}
     pe = _pair(vals["e_in"], edt)
@@ -180,9 +200,6 @@ def test_sigma_plain_matches_pallas_kernel_and_twin(sigma_setup, case):
                              else torch.float32)
         np.testing.assert_allclose(_np(e_out), _np(ref[0]), **tol)
         np.testing.assert_allclose(_np(aggr), _np(ref[1]), **tol)
-    if align:  # the batch really has pads between real edges
-        last = np.flatnonzero(batch.edge_mask)[-1]
-        assert (~batch.edge_mask[:last]).any()
 
 
 def _wrapper_args(batch, vals):
@@ -231,3 +248,30 @@ def test_wrappers_check_inputs(edge_setup):
         sk.sigma_segsum(g, torch.ones(D), torch.zeros(D), torch.ones(E, 1),
                         g, g, tidx[0], tidx[2], torch.zeros(N, dtype=torch.int32),
                         N)
+
+
+def _csrc_int(source: str, name: str) -> int:
+    """``constexpr int name = n;`` of a CUDA source of the port."""
+    import re
+    from cartnet_tpu_torch.ops.kernels import _build
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("source,decl,ints", [
+    ("sigma_segsum_fwd.cu", "__shared__ int list_s[WARPS][32 * WORD];",
+     lambda threads, word: threads * word),
+    ("segment_sum_csr.cu", "__shared__ int list_s[ROUND];",
+     lambda threads, word: threads * word + threads // 32),
+])
+def test_row_kernel_lists_fit_static_shared_memory(source, decl, ints):
+    """K2's per-warp lists and K3's per-block list hold one int per
+    position of a window (WORD mask bytes a lane, row_vectors.cuh); with
+    K3's warp counts they stay within the 48 KB of static shared memory a
+    block may declare, so no launch opts in to more."""
+    from cartnet_tpu_torch.ops.kernels import _build
+    assert decl in (_build.CSRC / source).read_text()
+    word = _csrc_int("row_vectors.cuh", "WORD")
+    threads = _csrc_int(source, "THREADS")
+    assert word == 32 and threads % 32 == 0
+    assert 4 * ints(threads, word) <= 48 * 1024

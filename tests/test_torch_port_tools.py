@@ -22,3 +22,27 @@ def test_tool_needs_the_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert kernel_ab.main(["k8_tile"]) == 1
+
+
+def test_rcp_sweep_holds_every_float_across_the_range_edges():
+    """``k2_rcp``'s sweep fills K2's gate at the main shapes (E 20992,
+    d 256) and holds every float32 across the two edges it must cross:
+    where 1 + exp(-a) reaches 2^126 (rcp_fast's range check sends the
+    batch to the division) and where exp(-a) overflows; and NaN, +-inf."""
+    import numpy as np
+    n = 20992 * 256
+    a = kernel_ab._rcp_sweep(n)
+    assert a.dtype == np.float32 and a.size == n
+    assert np.isnan(a).any() and np.isposinf(a).any() and np.isneginf(a).any()
+    with np.errstate(over="ignore"):
+        past = ((-87.40, -87.28,
+                 lambda v: 1.0 + np.exp(-v.astype(np.float64)) >= 2.0 ** 126),
+                (-88.76, -88.68, lambda v: np.isinf(np.exp(-v))))
+        for lo, hi, beyond in past:
+            run = np.unique(a[(a >= np.float32(lo)) & (a <= np.float32(hi))]
+                            .view(np.int32))
+            lo_b, hi_b = (np.float32(v).view(np.int32) for v in (lo, hi))
+            assert run.size == lo_b - hi_b + 1, (lo, hi)
+            assert (np.diff(run) == 1).all(), (lo, hi)
+            out = beyond(run.view(np.float32))
+            assert out.any() and not out.all(), (lo, hi)
