@@ -1,11 +1,12 @@
 """CLI: training and the ADP inference sweep, on the card.
 
     python -m cartnet_tpu_torch.cli --dataset synthetic --limit N \
-        --epochs E --batch_accumulation A [--model CartNet|eComformer] \
+        --epochs E --batch_accumulation A \
+        [--model CartNet|eComformer|iComformer] \
         [--cholesky] [--invariant] [--disable_temp] [--disable_envelope] \
         [--disable_atom_types] [--bf16] [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset synthetic --cholesky --limit 8 \
-        --inference [--model CartNet|eComformer] \
+        --inference [--model CartNet|eComformer|iComformer] \
         [--checkpoint_path best.ckpt] [--bf16] [--device cuda|cpu]
 
 Flags and the synthetic splits mirror cartnet_tpu/cli.py; the ``synthetic``
@@ -15,11 +16,11 @@ Cholesky head on ADP targets; otherwise ``--dataset synthetic`` trains the
 scalar head on scalar targets. The temperature input is on only for the ADP
 sources (and then off with ``--disable_temp``); ``--invariant``,
 ``--disable_envelope`` and ``--disable_atom_types`` are the reference's
-ablation switches. ``--model`` is case-insensitive; CartNet and the
-eComformer both serve (``--inference``, which needs the Cholesky head) and
-train. Without a checkpoint the weights are random, drawn from ``--seed``;
-with one (a reference CartNet ``best.ckpt`` or a state_dict the port
-saved), training starts from it.
+ablation switches. ``--model`` is case-insensitive; CartNet, the
+eComformer and the iComformer all serve (``--inference``, which needs the
+Cholesky head) and train. Without a checkpoint the weights are random,
+drawn from ``--seed``; with one (a reference CartNet ``best.ckpt`` or a
+state_dict the port saved), training starts from it.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("cartnet_tpu_torch")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model", type=str, default="CartNet",
-                   help="CartNet or eComformer (case-insensitive)")
+                   help="CartNet, eComformer or iComformer "
+                        "(case-insensitive)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--dataset", type=str, default="synthetic",
                    help="synthetic (the only source ported so far)")

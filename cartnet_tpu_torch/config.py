@@ -17,7 +17,7 @@ import torch
 class ModelConfig:
     """Model hyperparameters (reference defaults)."""
 
-    name: str = "cartnet"  # cartnet | ecomformer (models/factory.py)
+    name: str = "cartnet"  # cartnet | ecomformer | icomformer (factory)
     dim_in: int = 256
     dim_rbf: int = 64
     num_layers: int = 4

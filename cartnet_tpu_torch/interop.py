@@ -6,8 +6,8 @@ loads as is, and so does a state_dict the port saved (any model).
 ``params_from_jax`` is the port's own copy of the mapping that
 cartnet_tpu/interop.py::export_state_dict applies to the JAX package's
 CartNet (params, bn_state) pytrees, taken as nested dicts of numpy arrays;
-``ecomformer_params_from_jax`` does the same for the eComformer, whose
-state_dict names follow the JAX pytree:
+``ecomformer_params_from_jax`` and ``icomformer_params_from_jax`` do the
+same for the two Comformers, whose state_dict names follow the JAX pytree:
 
   * JAX ``w`` is [in, out]; torch ``nn.Linear.weight`` is [out, in];
   * embeddings are [num, dim] on both sides;
@@ -89,23 +89,7 @@ def ecomformer_params_from_jax(params_np, bn_state_np,
     if cfg.name != "ecomformer":
         raise ValueError(f"expected an eComformer config, got {cfg.name!r}")
     p, s = params_np, bn_state_np
-    sd: Dict[str, torch.Tensor] = {
-        "embedding.weight": _t(p["embedding"]["w"]),
-        "rbf_centers": _t(p["rbf_centers"]),
-        "rbf_gamma": _t(np.asarray(p["rbf_gamma"]).reshape(())),
-    }
-    _lin("temp_proj", p["temp_proj"], sd)
-    _lin("rbf.lin", p["rbf"]["lin"], sd)
-    for i in range(3):
-        cp, cs = p[f"conv{i}"], s[f"conv{i}"]
-        for name in ("lin_key", "lin_query", "lin_value", "lin_edge",
-                     "lin_concate"):
-            _lin(f"conv{i}.{name}", cp[name], sd)
-        for mlp in ("key_update", "msg_update"):
-            _lin(f"conv{i}.{mlp}.0", cp[mlp]["lin0"], sd)
-            _lin(f"conv{i}.{mlp}.2", cp[mlp]["lin1"], sd)
-        for bn in ("bn", "bn_att"):
-            _bn(f"conv{i}.{bn}", cp[bn], cs[bn], sd)
+    sd = _comformer_common(p, s, 3)
     ep = p["equi"]
     for name in ("node_linear", "skip_linear", "node_linear_2"):
         _lin(f"equi.{name}", ep[name], sd)
@@ -113,6 +97,52 @@ def ecomformer_params_from_jax(params_np, bn_state_np,
         for lin in ("lin0", "lin1"):
             _lin(f"equi.{tp}.{lin}", ep[tp]["fc"][lin], sd)
     _bn("equi.bn", ep["bn"], s["equi"]["bn"], sd)
+    return sd
+
+
+def icomformer_params_from_jax(params_np, bn_state_np,
+                               cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``icomformer_init`` (params, bn_state) as numpy
+    dicts, or a gradient pytree of the same structure -> the port's
+    IComformer state_dict (CPU tensors), as ``ecomformer_params_from_jax``:
+    four convs, the edge update (``edge_update.*``, whose ``lin_edge`` has
+    no bias), the angle head ``rbf_angle.lin`` and its ``rbfa_*``."""
+    if cfg.name != "icomformer":
+        raise ValueError(f"expected an iComformer config, got {cfg.name!r}")
+    p, s = params_np, bn_state_np
+    sd = _comformer_common(p, s, 4)
+    sd["rbfa_centers"] = _t(p["rbfa_centers"])
+    sd["rbfa_gamma"] = _t(np.asarray(p["rbfa_gamma"]).reshape(()))
+    _lin("rbf_angle.lin", p["rbf_angle"]["lin"], sd)
+    _conv("edge_update", p["edge_update"], s["edge_update"], sd,
+          ("key_e1", "key_e2", "key_e3", "value_e1", "value_e2",
+           "value_e3"))
+    return sd
+
+
+def _conv(prefix: str, cp, cs, sd: Dict[str, torch.Tensor], extra=()):
+    for name in ("lin_key", "lin_query", "lin_value", "lin_edge",
+                 "lin_concate") + extra:
+        _lin(f"{prefix}.{name}", cp[name], sd)
+    for mlp in ("key_update", "msg_update"):
+        _lin(f"{prefix}.{mlp}.0", cp[mlp]["lin0"], sd)
+        _lin(f"{prefix}.{mlp}.2", cp[mlp]["lin1"], sd)
+    for bn in ("bn", "bn_att"):
+        _bn(f"{prefix}.{bn}", cp[bn], cs[bn], sd)
+
+
+def _comformer_common(p, s, n_conv: int) -> Dict[str, torch.Tensor]:
+    """What both Comformers hold: the embedding, the temperature
+    projection, the RBF head and its centers, the convs and the head."""
+    sd: Dict[str, torch.Tensor] = {
+        "embedding.weight": _t(p["embedding"]["w"]),
+        "rbf_centers": _t(p["rbf_centers"]),
+        "rbf_gamma": _t(np.asarray(p["rbf_gamma"]).reshape(())),
+    }
+    _lin("temp_proj", p["temp_proj"], sd)
+    _lin("rbf.lin", p["rbf"]["lin"], sd)
+    for i in range(n_conv):
+        _conv(f"conv{i}", p[f"conv{i}"], s[f"conv{i}"], sd)
     _lin("head.MLP.0", p["head"]["mlp"]["lin0"], sd)
     _lin("head.MLP.2", p["head"]["mlp"]["lin1"], sd)
     return sd

@@ -1,5 +1,5 @@
-"""eComformer forward, eval and train (port of
-cartnet_tpu/models/comformer.py:42-204, 287-347).
+"""eComformer and iComformer forward, eval and train (port of
+cartnet_tpu/models/comformer.py:42-463).
 
 ``ComformerConv`` is the gated single-head attention conv on the JAX
 package's fused branch: the key/msg MLPs over [x_dst | x_src | e] have
@@ -26,6 +26,16 @@ gather through ``gather_sorted`` (K3 backward), two-pass train BN on alpha
 into ``SigmaSegsum`` (K2 forward, K4 backward), and train BN on the nodes;
 each train forward advances the BN running stats in place. Train BN keeps
 x's dtype, so with bf16 compute every kernel sees bf16 operands (ROADMAP §3).
+
+``IComformer``: the same embedding and RBF head, the lattice features of
+each edge (``lattice_features``: RBF heads over -0.75 / |cell row| and the
+cosines between the cell rows and the edge direction, as channel-major
+[3E, d] rows), conv0, the edge update ``ComformerConvEdge`` (plain
+PyTorch: the JAX package has no kernel there), conv1-conv3 and the head.
+With bf16 compute, eval BN's f32 running stats make the edge update's
+output f32, so conv1-conv3 see f32 edges and cast their bf16 K1 weights to
+f32 (exact; K1's f32 route), as the JAX package's K1 promotes them. In
+training everything keeps the compute dtype.
 """
 
 from __future__ import annotations
@@ -67,6 +77,16 @@ def _mlp2(d: int, dt, gen: torch.Generator) -> nn.Sequential:
     return seq
 
 
+def _as_edge_dtype(weights, dt):
+    """K1's weights in the edge dtype ``dt``. They already are, but for the
+    bf16 weights on the f32 edges that the iComformer's eval edge update
+    gives in bf16 compute: the JAX package's K1 promotes them in its
+    products, so they are cast (exact) and K1 takes its f32 route. ``to``
+    returns a tensor already in ``dt`` itself, so elsewhere nothing
+    changes."""
+    return tuple(w.to(dt) for w in weights)
+
+
 class ComformerConv(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
@@ -98,11 +118,12 @@ class ComformerConv(nn.Module):
         xj = torch.cat([mm(k, wk[d:2 * d]), mm(v, wm[d:2 * d])], dim=1)
         we = torch.cat([wk[2 * d:], wm[2 * d:]], dim=1).contiguous()
         b = torch.cat([p["key_update.0.bias"], p["msg_update.0.bias"]])
-        args = (xi, xj, e, we, b, p["key_update.2.weight"].t().contiguous(),
-                p["key_update.2.bias"],
-                p["msg_update.2.weight"].t().contiguous(),
-                p["msg_update.2.bias"], batch.edge_dst, batch.edge_src,
-                batch.edge_mask)
+        weights = (we, b, p["key_update.2.weight"].t().contiguous(),
+                   p["key_update.2.bias"],
+                   p["msg_update.2.weight"].t().contiguous(),
+                   p["msg_update.2.bias"])
+        args = (xi, xj, e, *_as_edge_dtype(weights, e.dtype), batch.edge_dst,
+                batch.edge_src, batch.edge_mask)
         E = e.shape[0]
         if self.training:
             key_j, msg, _, _, _ = EdgePhase.apply(
@@ -142,9 +163,115 @@ class ComformerConv(nn.Module):
         return F.softplus(x + out)
 
 
+class ComformerConvEdge(nn.Module):
+    """The edge update over the three lattice channels (port of
+    conv_edge_apply, cartnet_tpu/models/comformer.py:227-282): a gated
+    attention of each edge (query) over its three lattice rows (keys and
+    values from the -0.75 / |row| features and the angle features), summed
+    over the channels. Every [3E, d] tensor is channel-major (rows i*E + e)
+    and stays rank 2. The first layers of the key and message MLPs over
+    [x | y | exy] run as block products: the x block is projected once per
+    edge and tiled, never an [E, 3, 3d] concat. Adds keep the JAX package's
+    order, where bf16 rounds. Autograd does the backward."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.cfg = cfg
+        names = ("lin_key", "lin_query", "lin_value", "lin_edge",
+                 "lin_concate", "key_e1", "key_e2", "key_e3", "value_e1",
+                 "value_e2", "value_e3")
+        for name in names:
+            lin = nn.Linear(d, d, bias=name != "lin_edge", dtype=dt)
+            torch_linear_init_(lin, gen)
+            setattr(self, name, lin)
+        self.key_update = _mlp2(d, dt, gen)
+        self.msg_update = _mlp2(d, dt, gen)
+        self.bn = nn.BatchNorm1d(d, eps=cfg.bn_eps, momentum=cfg.bn_momentum,
+                                 dtype=dt)
+        self.bn_att = nn.BatchNorm1d(d, eps=cfg.bn_eps,
+                                     momentum=cfg.bn_momentum, dtype=dt)
+
+    def _norm(self, bn: nn.BatchNorm1d, name: str, x, mask, p: Params):
+        eps = self.cfg.bn_eps
+        if not self.training:
+            return masked_batch_norm(x, p[f"{name}.weight"], p[f"{name}.bias"],
+                                     bn.running_mean, bn.running_var, eps)
+        y, (mean, var, n) = masked_batch_norm_train(
+            x, p[f"{name}.weight"], p[f"{name}.bias"], mask, eps)
+        bn_state_update(bn, mean, var, n, self.cfg.bn_momentum)
+        return y
+
+    def forward(self, edge_attr, nei_len, nei_ang, edge_mask, p: Params):
+        """edge_attr [E, d], nei_len / nei_ang [3E, d] channel-major ->
+        edge_attr [E, d]; train mode when ``self.training`` (advances bn
+        and bn_att's running stats)."""
+        E, d = edge_attr.shape
+        q, kx, vx = (_lin(p, n, edge_attr) for n in ("lin_query", "lin_key",
+                                                      "lin_value"))
+        ky, vy = (torch.cat([_lin(p, f"{n}{i + 1}", nei_len[i * E:(i + 1) * E])
+                             for i in range(3)])
+                  for n in ("key_e", "value_e"))
+        exy = linear(nei_ang, p["lin_edge.weight"])
+
+        def pre3(mlp, x2d, y2d):
+            w = p[f"{mlp}.0.weight"]
+            return ((linear(x2d, w[:, :d]).repeat(3, 1)
+                     + linear(y2d, w[:, d:2 * d]))
+                    + linear(exy, w[:, 2 * d:])) + p[f"{mlp}.0.bias"]
+
+        key = _lin(p, "key_update.2", F.silu(pre3("key_update", kx, ky)))
+        alpha = (q.repeat(3, 1) * key) / math.sqrt(d)
+        alpha = self._norm(self.bn_att, "bn_att", alpha, edge_mask.repeat(3),
+                           p)
+        msg = _lin(p, "msg_update.2", F.silu(pre3("msg_update", vx, vy)))
+        out3 = _lin(p, "lin_concate", msg * torch.sigmoid(alpha))
+        out = (out3[:E] + out3[E:2 * E]) + out3[2 * E:]
+        out = self._norm(self.bn, "bn", out, edge_mask, p)
+        return F.softplus(edge_attr + out)
+
+
+def lattice_features(batch: CrystalBatch, dt):
+    """Each edge's lattice features in ``dt`` (icomformer_apply,
+    cartnet_tpu/models/comformer.py:383-433) -> (nei_len_feat [E, 3] =
+    -0.75 / |cell row|, cosang [E, 3] = the cosine between each cell row
+    and the edge direction). An edge's graph is the one whose node range
+    holds its dst (collate's contiguous ranges, only trailing graphs
+    empty), clamped to a real graph so that pad edges get finite
+    features. The JAX package selects per edge with an [E, G] one-hot
+    product of one nonzero term; this indexes."""
+    G, N = batch.num_graphs, batch.num_nodes
+    dev = batch.edge_dst.device
+    cell = batch.cell.to(dt)                                     # [G, 3, 3]
+    row_norm_g = torch.linalg.vector_norm(cell, dim=-1)          # [G, 3]
+    gids = torch.arange(G, dtype=batch.graph_id.dtype, device=dev)
+    rows = torch.arange(N, dtype=batch.edge_dst.dtype, device=dev)
+    owned = (batch.graph_id[:, None] == gids) & batch.node_mask[:, None]
+    starts = torch.where(owned, rows[:, None], N).amin(dim=0)    # [G]
+    gid_e = torch.clamp(torch.searchsorted(starts, batch.edge_dst,
+                                           right=True) - 1, 0, G - 1)
+    row_norm = torch.clamp(row_norm_g.index_select(0, gid_e), min=1e-6)
+    dirs = batch.cart_dir.to(dt)
+    # the JAX package's 3-term bf16 product sums in f32 and rounds once
+    cos_raw = torch.einsum("ec,erc->er", dirs.float(),
+                           cell.float().index_select(0, gid_e)).to(dt)
+    dir_norm = torch.clamp(torch.linalg.vector_norm(dirs, dim=-1,
+                                                    keepdim=True), min=1e-6)
+    cosang = torch.clamp(cos_raw / (row_norm * dir_norm), -1.0, 1.0)
+    return _inv_len(row_norm), cosang
+
+
+def _inv_len(t):
+    """-0.75 / t, rounded once: torch's scalar / tensor multiplies by the
+    rounded reciprocal, which rounds twice in bf16 where the JAX package
+    divides."""
+    return torch.div(t.new_tensor(-0.75), t)
+
+
 class RBFHead(nn.Module):
     """RBFExpansion(bins=d) -> Linear -> softplus; the centers and gamma
-    are the model's ``rbf_centers`` / ``rbf_gamma``."""
+    are the model's ``rbf_centers`` / ``rbf_gamma`` (``rbfa_*`` for the
+    iComformer's angle head)."""
 
     def __init__(self, d: int, dt, gen: torch.Generator):
         super().__init__()
@@ -152,7 +279,58 @@ class RBFHead(nn.Module):
         torch_linear_init_(self.lin, gen)
 
 
-class EComformer(nn.Module):
+def _rbf_head(p: Params, name: str, x, centers: str, gamma: str):
+    return F.softplus(_lin(p, f"{name}.lin", rbf_ops.rbf_expansion(
+        x, p[centers], p[gamma])))
+
+
+class _Comformer(nn.Module):
+    """What the two Comformers share: the name check and device rule, the
+    param cast, the input encoding and the head."""
+
+    NAME = ""
+
+    def _setup(self, cfg: ModelConfig, device, gen: torch.Generator):
+        """Checks the name, resolves the device and builds the input
+        layers (embedding, temperature projection, RBF head) from
+        ``gen`` -> the device."""
+        device = resolve_device(device)
+        if cfg.name != self.NAME:
+            raise ValueError(f"{type(self).__name__} needs cfg.name "
+                             f"{self.NAME!r}, got {cfg.name!r}")
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.cfg = cfg
+        self.embedding = nn.Embedding(119, d, dtype=dt)
+        with torch.no_grad():
+            self.embedding.weight.normal_(generator=gen)
+        self.temp_proj = nn.Linear(1, d, dtype=dt)
+        torch_linear_init_(self.temp_proj, gen)
+        self.rbf = RBFHead(d, dt, gen)
+        return device
+
+    def cast(self, t: torch.Tensor) -> torch.Tensor:
+        """Param dtype -> compute dtype (other dtypes pass through)."""
+        cfg = self.cfg
+        return t.to(cfg.compute_dtype) if t.dtype == cfg.param_dtype else t
+
+    def _encode(self, batch: CrystalBatch):
+        """-> (p, x [N, d], dist [E]): the cast params, atom embedding +
+        the temperature projection gathered per graph, and the edge
+        lengths in the compute dtype, at least 1e-6."""
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        p = Params(cast_params(self, dt, cfg.param_dtype, skip=("head.",)))
+        t = _lin(p, "temp_proj", batch.temperature[:, None].to(dt))
+        x = (embedding(p["embedding.weight"], batch.z, dt)
+             + embedding(t, batch.graph_id, dt))
+        return p, x, torch.clamp(batch.cart_dist.to(dt), min=1e-6)
+
+    def _head(self, x, batch: CrystalBatch):
+        if self.cfg.cholesky:
+            return self.head(x, self.cast), batch.non_h_mask
+        return self.head(x, batch, self.cast), batch.graph_mask
+
+
+class EComformer(_Comformer):
     """Embedding -> conv0 -> equivariant block -> conv1 -> conv2 -> head.
 
     Built on the CPU from ``seed`` with a torch.Generator, then moved to
@@ -161,51 +339,76 @@ class EComformer(nn.Module):
     ``model.train()`` the conv and block layers run their train forward.
     """
 
+    NAME = "ecomformer"
+
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
-        device = resolve_device(device)
-        if cfg.name != "ecomformer":
-            raise ValueError(f"EComformer needs cfg.name 'ecomformer', got "
-                             f"{cfg.name!r}")
-        d, dt = cfg.dim_in, cfg.param_dtype
-        self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
-        self.embedding = nn.Embedding(119, d, dtype=dt)
-        with torch.no_grad():
-            self.embedding.weight.normal_(generator=gen)
-        self.temp_proj = nn.Linear(1, d, dtype=dt)
-        torch_linear_init_(self.temp_proj, gen)
-        self.rbf = RBFHead(d, dt, gen)
+        device = self._setup(cfg, device, gen)
         self.conv0 = ComformerConv(cfg, gen)
         self.conv1 = ComformerConv(cfg, gen)
         self.conv2 = ComformerConv(cfg, gen)
         self.equi = EquiBlock(cfg, gen)
         self.head = (CholeskyHead(cfg, gen) if cfg.cholesky
                      else ScalarHead(cfg, gen))
+        d, dt = cfg.dim_in, cfg.param_dtype
         centers, gamma = rbf_ops.rbf_expansion_params(-4.0, 0.0, d, dt)
         self.rbf_centers = nn.Parameter(centers)
         self.rbf_gamma = nn.Parameter(gamma)
         self.to(device)
         self.eval()
 
-    def cast(self, t: torch.Tensor) -> torch.Tensor:
-        """Param dtype -> compute dtype (other dtypes pass through)."""
-        cfg = self.cfg
-        return t.to(cfg.compute_dtype) if t.dtype == cfg.param_dtype else t
-
     def forward(self, batch: CrystalBatch):
-        cfg, dt = self.cfg, self.cfg.compute_dtype
-        p = Params(cast_params(self, dt, cfg.param_dtype, skip=("head.",)))
-        t = _lin(p, "temp_proj", batch.temperature[:, None].to(dt))
-        x = (embedding(p["embedding.weight"], batch.z, dt)
-             + embedding(t, batch.graph_id, dt))
-        efeat = -0.75 / torch.clamp(batch.cart_dist.to(dt), min=1e-6)
-        e = F.softplus(_lin(p, "rbf.lin", rbf_ops.rbf_expansion(
-            efeat, p["rbf_centers"], p["rbf_gamma"])))
+        p, x, dist = self._encode(batch)
+        e = _rbf_head(p, "rbf", -0.75 / dist, "rbf_centers", "rbf_gamma")
         x = self.conv0(x, e, batch, p.sub("conv0"))
         x = self.equi(x, e, batch, p.sub("equi"))
         x = self.conv1(x, e, batch, p.sub("conv1"))
         x = self.conv2(x, e, batch, p.sub("conv2"))
-        if cfg.cholesky:
-            return self.head(x, self.cast), batch.non_h_mask
-        return self.head(x, batch, self.cast), batch.graph_mask
+        return self._head(x, batch)
+
+
+class IComformer(_Comformer):
+    """Embedding -> conv0 -> edge update -> conv1 -> conv2 -> conv3 -> head
+    (port of icomformer_init / icomformer_apply,
+    cartnet_tpu/models/comformer.py:350-463); built, moved and run as
+    ``EComformer``. The lattice features go through the RBF head
+    (``rbf_centers``) and the angle head (``rbfa_centers`` over [-1, 1])."""
+
+    NAME = "icomformer"
+
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        device = self._setup(cfg, device, gen)
+        d, dt = cfg.dim_in, cfg.param_dtype
+        self.rbf_angle = RBFHead(d, dt, gen)
+        self.conv0 = ComformerConv(cfg, gen)
+        self.conv1 = ComformerConv(cfg, gen)
+        self.conv2 = ComformerConv(cfg, gen)
+        self.conv3 = ComformerConv(cfg, gen)
+        self.edge_update = ComformerConvEdge(cfg, gen)
+        self.head = (CholeskyHead(cfg, gen) if cfg.cholesky
+                     else ScalarHead(cfg, gen))
+        for prefix, lo, hi in (("rbf", -4.0, 0.0), ("rbfa", -1.0, 1.0)):
+            centers, gamma = rbf_ops.rbf_expansion_params(lo, hi, d, dt)
+            setattr(self, f"{prefix}_centers", nn.Parameter(centers))
+            setattr(self, f"{prefix}_gamma", nn.Parameter(gamma))
+        self.to(device)
+        self.eval()
+
+    def forward(self, batch: CrystalBatch):
+        p, x, dist = self._encode(batch)
+        e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
+        nei_len_feat, cosang = lattice_features(batch, self.cfg.compute_dtype)
+        # channel-major [3E] features -> [3E, d] heads (rows i*E + e)
+        nei_len = _rbf_head(p, "rbf", nei_len_feat.t().reshape(-1),
+                            "rbf_centers", "rbf_gamma")
+        nei_ang = _rbf_head(p, "rbf_angle", cosang.t().reshape(-1),
+                            "rbfa_centers", "rbfa_gamma")
+        x = self.conv0(x, e, batch, p.sub("conv0"))
+        e = self.edge_update(e, nei_len, nei_ang, batch.edge_mask,
+                             p.sub("edge_update"))
+        for i in (1, 2, 3):
+            x = getattr(self, f"conv{i}")(x, e, batch, p.sub(f"conv{i}"))
+        return self._head(x, batch)

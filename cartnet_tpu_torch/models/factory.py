@@ -10,18 +10,14 @@ import dataclasses
 
 from cartnet_tpu_torch.config import ModelConfig
 from cartnet_tpu_torch.models.cartnet import CartNet
-from cartnet_tpu_torch.models.comformer import EComformer
+from cartnet_tpu_torch.models.comformer import EComformer, IComformer
 
-_REGISTRY = {"cartnet": CartNet, "ecomformer": EComformer}
-_NOT_PORTED = {"icomformer": "the iComformer is not ported yet: it needs "
-                             "conv_edge_apply and icomformer_apply "
-                             "(ROADMAP C2)"}
+_REGISTRY = {"cartnet": CartNet, "ecomformer": EComformer,
+             "icomformer": IComformer}
 
 
 def create_model(cfg: ModelConfig, device="cuda", seed: int = 0):
     name = cfg.name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[name])
     if name not in _REGISTRY:
         raise ValueError(f"model {cfg.name!r} not implemented; available: "
                          f"{sorted(_REGISTRY)}")

@@ -1,6 +1,6 @@
 """Run orchestration: training and the ADP inference sweep (port of
 cartnet_tpu/runner.py::run, ::train and ::inference). The sweep and the
-training serve any ported model (CartNet, eComformer).
+training serve any ported model (CartNet, eComformer, iComformer).
 
 ``train`` runs the epochs: a train epoch, a val pass, best-epoch tracking by
 val MAE with the best weights kept in memory, then the final test pass with

@@ -80,6 +80,23 @@ Phases, one JSON line each (every line names the card and its power limit):
               training run through the CLI (--model eComformer); one
               micro-step through the kernels and through the plain versions,
               in bf16 and in f32
+  8b. icomformer  the iComformer inference sweep on the same 2 batches (dim
+              256, four convs and the edge update, Cholesky head, bf16,
+              random weights from seed 0, BN running stats from one f32
+              train-mode forward over batch 0, calibrate_bn, here and in
+              its f32 forward): K1 4, K2 4 launches per forward
+              (K1 by CUDA kernel name: conv0's bf16 kernel once, conv1-conv3's
+              two f32 passes three times each, as the edge update's f32
+              output gives them f32 edges), finite predictions, the kernel
+              forward against the plain forward; then a short sweep through
+              the CLI (--model iComformer --inference)
+  8c. icomformer_train  the iComformer training path on the same batches
+              (bf16, batch_accumulation 16): 16 micro-steps = 1 optimizer
+              update, K1, K2, K3 (the q gathers' backward), K4 and K5 4
+              launches each per micro-step, finite losses, no skipped step,
+              advanced running stats in all ten BNs; a short training run
+              through the CLI; one micro-step through the kernels and
+              through the plain versions, in bf16 and in f32
   9. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
@@ -91,13 +108,12 @@ Phases, one JSON line each (every line names the card and its power limit):
               K7's bf16 l1 / l2 with f32 and bf16 a, one CartNet layer's
               whole backward through the default path and through the
               merged one, the forward times per batch (CartNet,
-              eComformer; bf16, then f32 through the kernels against the
-              plain versions) and the train micro-step times (CartNet
-              default and merged in turns, eComformer; then the f32
-              micro-steps of CartNet and the eComformer), and one profiled
-              CartNet forward, eComformer forward and micro-step of each
-              model, path and dtype (device time by kernel, idle share of
-              the device)
+              eComformer, iComformer; bf16, then f32 through the kernels
+              against the plain versions) and the train micro-step times
+              (CartNet default and merged in turns, eComformer,
+              iComformer; then the f32 micro-steps of the three models),
+              and one profiled forward and micro-step of each model, path
+              and dtype (device time by kernel, idle share of the device)
   10. kernels the summary line {"kernels": [...]}
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
@@ -152,12 +168,18 @@ KERNELS = SOURCES + ("edge_phase_merged_bwd",)
 MERGED_MICRO = dict(edge_phase_fwd=4, sigma_segsum_fwd=4,
                     edge_phase_merged_bwd=4)
 TRAIN_MICRO_STEPS, TRAIN_ACCUM = 32, 16
-ECO_MICRO_STEPS = 16  # one optimizer update at TRAIN_ACCUM
+# the Comformers' training phases: one optimizer update at TRAIN_ACCUM
+COMFORMER_STEPS = 16
 # eComformer launches per forward (serving) and per train micro-step
 ECO_FWD = dict(edge_phase_fwd=3, sigma_segsum_fwd=3, segment_sum_csr=2,
                tp_contract_fwd=2)
 ECO_MICRO = dict(ECO_FWD, segment_sum_csr=7, sigma_segsum_bwd=3,
                  edge_phase_bwd=3, tp_contract_bwd=2)
+# iComformer launches per forward (four convs; the edge update is plain
+# PyTorch) and per train micro-step (K3: the q gathers' backward)
+ICO_FWD = dict(edge_phase_fwd=4, sigma_segsum_fwd=4)
+ICO_MICRO = dict(ICO_FWD, segment_sum_csr=4, sigma_segsum_bwd=4,
+                 edge_phase_bwd=4)
 # widths besides the flagship's 256 that the widths phase drives: the
 # CartNet edge kernels below their 128-column granule (zero-padded inside
 # the wrappers) and up to MAX_WIDTH; the eComformer's TP kernels likewise
@@ -192,6 +214,11 @@ LAUNCHES = {
                         "f32": {sub: 1 for _, sub in K7_PASSES}},
     "tp_contract_bwd": _SAME({sub: 1 for _, sub in TP_BWD_PASSES}),
 }
+# K1's CUDA kernels in one bf16 iComformer forward: conv0's bf16 kernel,
+# conv1-conv3's f32 passes (f32 edges after the eval edge update)
+ICO_K1_BF16_FWD = {**LAUNCHES["edge_phase_fwd"]["bf16"],
+                   **{k: 3 * v for k, v in
+                      LAUNCHES["edge_phase_fwd"]["f32"].items()}}
 # profiler captures of one timing at most (``cuda_events``), and the spin
 # kernels around each capture's calls (``_capture``): their name and length
 CAPTURES = 10
@@ -947,6 +974,27 @@ def plain_k1_permuted():
         yield
     finally:
         ek.edge_phase_fwd, cm.edge_phase_fwd = kept
+
+
+def calibrate_bn(model, batch):
+    """Give ``model`` BN running stats that describe its activations on
+    ``batch``: one f32 train-mode forward of the same weights with momentum
+    1, whose stats it loads. With the default stats (mean 0, variance 1)
+    the iComformer's four convs grow the activations until its prediction
+    reaches ~1e6 at the main path's shapes, and two honest f32 forwards
+    (K1's plain version summing in another order, ``plain_k1_permuted``)
+    part by 7.5e-4 of it on the CPU: a serving check would measure that,
+    not the kernels. Calibrated, they part by 8e-7."""
+    import torch
+    cfg = dataclasses.replace(model.cfg, bn_momentum=1.0,
+                              compute_dtype=torch.float32)
+    ref = type(model)(cfg, device=batch.z.device, seed=0)
+    ref.load_state_dict(model.state_dict())
+    ref.train()
+    with torch.no_grad():
+        ref(batch)
+    model.load_state_dict(ref.state_dict())
+    return model
 
 
 def one_micro(cfg, model, sd, batch):
@@ -1781,147 +1829,188 @@ def main() -> int:
         fail(f"scalar-head CLI run: head {head}, launches {launches_scli}, "
              f"{sstate.step} optimizer steps, test stats {stest}")
 
-    # 7. eComformer serving: the inference sweep through K1, K2, K3, K7
+    def serve(net, cli_name, mcfg, fwd, k1_kernels=None):
+        """A Comformer's serving phases (``net``, ``net``_vs_plain,
+        ``net``_cli): the sweep over both batches with ``fwd`` launches a
+        forward, finite predictions, K1's CUDA kernels by name a forward
+        (``k1_kernels``, optional), each batch through the kernels against
+        the plain versions (``PRED_TOL``) with both timed, and the CLI
+        sweep -> (model, launches of the sweep, kernel ms, plain ms)."""
+        model = create_model(mcfg, dev, 0)
+        if k1_kernels:  # the iComformer: BN stats describing its inputs
+            calibrate_bn(model, b0)
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        out = runner.inference(
+            model, batches, str(_build.BUILD_DIR / f"chip_smoke_{net}.pkl"),
+            device=dev)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = launch_counts()
+        expect = dict.fromkeys(KERNELS, 0)
+        expect.update({k: v * len(batches) for k, v in fwd.items()})
+        preds = [torch.as_tensor(p) for p in out["pred"]]
+        finite = all(bool(torch.isfinite(p).all()) for p in preds)
+        extra = {}
+        if k1_kernels:
+            # cuda_events fails the run unless each name occurs as stated
+            def one_forward():
+                with torch.inference_mode():
+                    model(b0)
+
+            names = dict.fromkeys(k1_kernels, 0.0)
+            for ev in cuda_events(one_forward, 2, k1_kernels):
+                for sub in k1_kernels:
+                    names[sub] += (sub in ev.name) / 2
+            extra["k1_cuda_kernels_per_forward"] = names
+        emit(phase=net, card=card, batches=len(batches),
+             structures=len(preds), atoms=sum(p.shape[0] for p in preds),
+             params=sum(p.numel() for p in model.parameters()),
+             launches=launches, expected_launches=expect, **extra,
+             sweep_seconds=round(sweep_s, 3), finite=finite,
+             mean_mae=float(statistics.fmean(out["mae"])))
+        if launches != expect:
+            fail(f"{net} launch counts {launches}, expected {expect}")
+        if not finite or len(preds) != len(recs):
+            fail(f"non-finite or missing {net} predictions")
+
+        worst, ms, ms_plain = 0.0, [], []
+        with torch.inference_mode():
+            for b in dev_batches:
+                pk, mask = model(b)
+                with plain_ecomformer_kernels():
+                    pp, _ = model(b)
+                    ms_plain.append(cuda_median_ms(lambda: model(b), 20))
+                ms.append(cuda_median_ms(lambda: model(b), 20))
+                m = mask.bool()
+                abs_err, rel = normalized_err(pk[m], pp[m])
+                worst = max(worst, rel)
+                emit(phase=f"{net}_vs_plain", card=card, max_abs_err=abs_err,
+                     max_rel_err=rel, tol=PRED_TOL)
+        if worst > PRED_TOL:
+            fail(f"{net} kernel forward vs plain forward: rel err {worst}")
+
+        # the user's entry point: the CLI sweep over the synthetic test
+        # split (2 crystals, 1 batch)
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        cout = cli.main(["--dataset", "synthetic", "--cholesky", "--limit",
+                         "8", "--inference", "--model", cli_name, "--bf16",
+                         "--inference_output",
+                         str(_build.BUILD_DIR / f"chip_smoke_cli_{net}.pkl")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches_cli = launch_counts()
+        expect_cli = dict.fromkeys(KERNELS, 0)
+        expect_cli.update(fwd)
+        cfinite = all(bool(torch.isfinite(torch.as_tensor(p)).all())
+                      for p in cout["pred"])
+        emit(phase=f"{net}_cli", card=card, launches=launches_cli,
+             expected_launches=expect_cli, structures=len(cout["pred"]),
+             finite=cfinite, mean_mae=float(statistics.fmean(cout["mae"])),
+             seconds=round(cli_s, 3))
+        if launches_cli != expect_cli or not cfinite or not cout["pred"]:
+            fail(f"{net} CLI sweep: launches {launches_cli}, finite "
+                 f"{cfinite}")
+        return model, launches, ms, ms_plain
+
+    def train(net, cli_name, mcfg, fwd, micro_launches, n_bn):
+        """A Comformer's training phases (``net``_train,
+        ``net``_cli_train, train_vs_plain): 16 micro-steps = 1 optimizer
+        update with ``micro_launches`` a micro-step, finite losses, no
+        skipped step, all ``n_bn`` BNs advanced; a short CLI run (2
+        micro-steps, a val and a test forward); one micro-step through the
+        kernels and the plain versions in bf16 (the trained model) and f32
+        (from seed 0) -> (state, micro_step, launches of the 16
+        micro-steps, f32 config)."""
+        tcfg = Config(model=mcfg, optim=OptimConfig(
+            max_epoch=1, batch_accumulation=TRAIN_ACCUM))
+        model = create_model(tcfg.model, dev, 0)
+        opt = loop.build_optimizer(tcfg, model.parameters(), COMFORMER_STEPS)
+        state = loop.init_train_state(model, opt)
+        micro, update, _ = loop.make_steps(tcfg)
+        epoch = dev_batches * (COMFORMER_STEPS // len(dev_batches))
+        bn0 = [t.clone() for t in loop.bn_buffers(model)]
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        state, rows = loop.train_epoch(state, epoch, micro, update,
+                                       TRAIN_ACCUM, dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        losses = [float(r[0]["loss"]) for r in rows]
+        moved = all(not torch.equal(a, b)
+                    for a, b in zip(bn0, loop.bn_buffers(model)))
+        bns = sum(isinstance(mod, torch.nn.BatchNorm1d)
+                  for mod in model.modules())
+        expect = dict.fromkeys(KERNELS, 0)
+        expect.update({k: v * len(epoch) for k, v in micro_launches.items()})
+        emit(phase=f"{net}_train", card=card, micro_steps=len(epoch),
+             batch_accumulation=TRAIN_ACCUM, optimizer_steps=state.step,
+             launches=launches, expected_launches=expect,
+             launches_per_micro_step={k: v / len(epoch)
+                                      for k, v in launches.items()},
+             loss_first=losses[0], loss_last=losses[-1],
+             finite=all(math.isfinite(x) for x in losses),
+             bad_steps=int(state.bad_steps), bn_layers=bns,
+             bn_stats_updated=moved, seconds=round(train_s, 3))
+        if launches != expect:
+            fail(f"{net} train launch counts {launches}, expected {expect}")
+        if not all(math.isfinite(x) for x in losses) or int(state.bad_steps):
+            fail(f"non-finite {net} train losses or skipped steps")
+        if state.step != len(epoch) // TRAIN_ACCUM or not moved \
+                or bns != n_bn:
+            fail(f"{net}: {state.step} optimizer steps, {bns} BNs, BN stats "
+                 f"moved: {moved}")
+
+        # the user's entry point: a short training run through the CLI
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        cstate, ctest = cli.main(["--dataset", "synthetic", "--cholesky",
+                                  "--limit", "8", "--epochs", "1",
+                                  "--batch_accumulation", "2", "--model",
+                                  cli_name, "--bf16"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches_cli = launch_counts()
+        expect_cli = {k: 2 * micro_launches.get(k, 0) + 2 * fwd.get(k, 0)
+                      for k in KERNELS}
+        emit(phase=f"{net}_cli_train", card=card, launches=launches_cli,
+             expected_launches=expect_cli, optimizer_steps=cstate.step,
+             bad_steps=int(cstate.bad_steps), test=ctest,
+             seconds=round(cli_s, 3))
+        if launches_cli != expect_cli or cstate.step != 1 or \
+                not all(math.isfinite(v) for v in ctest.values()):
+            fail(f"{net} CLI training run: launches {launches_cli}, "
+                 f"{cstate.step} optimizer steps, test stats {ctest}")
+
+        train_vs_plain(card, tcfg, model, dev_batches[0], PRED_TOL,
+                       plain_ecomformer_kernels)
+        cfg32 = with_dtype(tcfg, f32)
+        train_vs_plain(card, cfg32, create_model(cfg32.model, dev, 0),
+                       dev_batches[0], F32_STEP_TOL, plain_ecomformer_kernels)
+        return state, micro, launches, cfg32
+
+    # 7-8. the eComformer: serving through K1, K2, K3, K7; bench.py's
+    # eComformer training
     ecfg = ModelConfig(name="ecomformer", dim_in=d, cholesky=True,
                        compute_dtype=bf)
-    emodel = create_model(ecfg, dev, 0)
-    launch_counts(reset=True)
-    t0 = time.perf_counter()
-    eout = runner.inference(
-        emodel, batches, str(_build.BUILD_DIR / "chip_smoke_ecomformer.pkl"),
-        device=dev)
-    torch.cuda.synchronize()
-    esweep_s = time.perf_counter() - t0
-    launches_eco = launch_counts()
-    expect_eco = dict.fromkeys(KERNELS, 0)
-    expect_eco.update({k: v * len(batches) for k, v in ECO_FWD.items()})
-    epreds = [torch.as_tensor(p) for p in eout["pred"]]
-    efinite = all(bool(torch.isfinite(p).all()) for p in epreds)
-    emit(phase="ecomformer", card=card, batches=len(batches),
-         structures=len(epreds), atoms=sum(p.shape[0] for p in epreds),
-         params=sum(p.numel() for p in emodel.parameters()),
-         launches=launches_eco, expected_launches=expect_eco,
-         sweep_seconds=round(esweep_s, 3), finite=efinite,
-         mean_mae=float(statistics.fmean(eout["mae"])))
-    if launches_eco != expect_eco:
-        fail(f"eComformer launch counts {launches_eco}, expected "
-             f"{expect_eco}")
-    if not efinite or len(epreds) != len(recs):
-        fail("non-finite or missing eComformer predictions")
+    emodel, launches_eco, efwd_ms, efwd_plain_ms = serve(
+        "ecomformer", "eComformer", ecfg, ECO_FWD)
+    estate, emicro, launches_etrain, ecfg32 = train(
+        "ecomformer", "eComformer", ecfg, ECO_FWD, ECO_MICRO, 7)
 
-    epred_err = 0.0
-    efwd_ms, efwd_plain_ms = [], []
-    with torch.inference_mode():
-        for b in batches:
-            bd = b.to(dev)
-            pk, mask = emodel(bd)
-            with plain_ecomformer_kernels():
-                pp, _ = emodel(bd)
-                efwd_plain_ms.append(cuda_median_ms(lambda: emodel(bd), 20))
-            efwd_ms.append(cuda_median_ms(lambda: emodel(bd), 20))
-            m = mask.bool()
-            abs_err, rel = normalized_err(pk[m], pp[m])
-            epred_err = max(epred_err, rel)
-            emit(phase="ecomformer_vs_plain", card=card, max_abs_err=abs_err,
-                 max_rel_err=rel, tol=PRED_TOL)
-    if epred_err > PRED_TOL:
-        fail(f"eComformer kernel forward vs plain forward: rel err "
-             f"{epred_err}")
+    # 8b-8c. the iComformer: serving through K1, K2 (conv1-conv3 on K1's
+    # f32 route); training through K1-K5
+    icfg = dataclasses.replace(ecfg, name="icomformer")
+    imodel, launches_ico, ifwd_ms, ifwd_plain_ms = serve(
+        "icomformer", "iComformer", icfg, ICO_FWD, ICO_K1_BF16_FWD)
+    istate, imicro, launches_itrain, icfg32 = train(
+        "icomformer", "iComformer", icfg, ICO_FWD, ICO_MICRO, 10)
 
-    # the user's entry point: the CLI sweep over the synthetic test split
-    # (2 crystals, 1 batch)
-    launch_counts(reset=True)
-    t0 = time.perf_counter()
-    cout = cli.main(["--dataset", "synthetic", "--cholesky", "--limit", "8",
-                     "--inference", "--model", "eComformer", "--bf16",
-                     "--inference_output",
-                     str(_build.BUILD_DIR / "chip_smoke_cli_ecomformer.pkl")])
-    torch.cuda.synchronize()
-    ecli_s = time.perf_counter() - t0
-    launches_ecli = launch_counts()
-    expect_ecli = dict.fromkeys(KERNELS, 0)
-    expect_ecli.update(ECO_FWD)
-    cfinite = all(bool(torch.isfinite(torch.as_tensor(p)).all())
-                  for p in cout["pred"])
-    emit(phase="ecomformer_cli", card=card, launches=launches_ecli,
-         expected_launches=expect_ecli, structures=len(cout["pred"]),
-         finite=cfinite, mean_mae=float(statistics.fmean(cout["mae"])),
-         seconds=round(ecli_s, 3))
-    if launches_ecli != expect_ecli or not cfinite or not cout["pred"]:
-        fail(f"eComformer CLI sweep: launches {launches_ecli}, finite "
-             f"{cfinite}")
-
-    # 8. eComformer training: bench.py's eComformer through make_steps /
-    # train_epoch, 16 micro-steps = 1 optimizer update
-    etcfg = Config(model=ecfg, optim=OptimConfig(
-        max_epoch=1, batch_accumulation=TRAIN_ACCUM))
-    etmodel = create_model(etcfg.model, dev, 0)
-    eopt = loop.build_optimizer(etcfg, etmodel.parameters(), ECO_MICRO_STEPS)
-    estate = loop.init_train_state(etmodel, eopt)
-    emicro, eupdate, _ = loop.make_steps(etcfg)
-    eepoch = dev_batches * (ECO_MICRO_STEPS // len(dev_batches))
-    ebn0 = [t.clone() for t in loop.bn_buffers(etmodel)]
-    launch_counts(reset=True)
-    t0 = time.perf_counter()
-    estate, erows = loop.train_epoch(estate, eepoch, emicro, eupdate,
-                                     TRAIN_ACCUM, dev)
-    torch.cuda.synchronize()
-    etrain_s = time.perf_counter() - t0
-    launches_etrain = launch_counts()
-    elosses = [float(r[0]["loss"]) for r in erows]
-    ebn_moved = all(not torch.equal(a, b)
-                    for a, b in zip(ebn0, loop.bn_buffers(etmodel)))
-    expect_etrain = dict.fromkeys(KERNELS, 0)
-    expect_etrain.update({k: v * len(eepoch) for k, v in ECO_MICRO.items()})
-    emit(phase="ecomformer_train", card=card, micro_steps=len(eepoch),
-         batch_accumulation=TRAIN_ACCUM, optimizer_steps=estate.step,
-         launches=launches_etrain, expected_launches=expect_etrain,
-         launches_per_micro_step={k: v / len(eepoch)
-                                  for k, v in launches_etrain.items()},
-         loss_first=elosses[0], loss_last=elosses[-1],
-         finite=all(math.isfinite(x) for x in elosses),
-         bad_steps=int(estate.bad_steps), bn_stats_updated=ebn_moved,
-         seconds=round(etrain_s, 3))
-    if launches_etrain != expect_etrain:
-        fail(f"eComformer train launch counts {launches_etrain}, expected "
-             f"{expect_etrain}")
-    if not all(math.isfinite(x) for x in elosses) or int(estate.bad_steps):
-        fail("non-finite eComformer train losses or skipped steps")
-    if estate.step != len(eepoch) // TRAIN_ACCUM or not ebn_moved:
-        fail(f"eComformer: {estate.step} optimizer steps, BN stats moved: "
-             f"{ebn_moved}")
-
-    # the user's entry point: a short eComformer training run through the
-    # CLI (2 train micro-steps, 1 val and 1 test forward)
-    launch_counts(reset=True)
-    t0 = time.perf_counter()
-    ecstate, ectest = cli.main(["--dataset", "synthetic", "--cholesky",
-                                "--limit", "8", "--epochs", "1",
-                                "--batch_accumulation", "2", "--model",
-                                "eComformer", "--bf16"])
-    torch.cuda.synchronize()
-    ecli_train_s = time.perf_counter() - t0
-    launches_ecli_train = launch_counts()
-    expect_ecli_train = dict.fromkeys(KERNELS, 0)
-    for k in KERNELS:
-        expect_ecli_train[k] = 2 * ECO_MICRO.get(k, 0) + 2 * ECO_FWD.get(k, 0)
-    emit(phase="ecomformer_cli_train", card=card,
-         launches=launches_ecli_train, expected_launches=expect_ecli_train,
-         optimizer_steps=ecstate.step, bad_steps=int(ecstate.bad_steps),
-         test=ectest, seconds=round(ecli_train_s, 3))
-    if launches_ecli_train != expect_ecli_train or ecstate.step != 1 or \
-            not all(math.isfinite(v) for v in ectest.values()):
-        fail(f"eComformer CLI training run: launches {launches_ecli_train}, "
-             f"{ecstate.step} optimizer steps, test stats {ectest}")
-
-    # one micro-step from the same state, kernels vs plain versions: the
-    # trained bf16 model, and the f32 config at its initial state
-    train_vs_plain(card, etcfg, etmodel, dev_batches[0], PRED_TOL,
-                   plain_ecomformer_kernels)
-    ecfg32 = dataclasses.replace(
-        etcfg, model=dataclasses.replace(etcfg.model, compute_dtype=f32))
-    train_vs_plain(card, ecfg32, create_model(ecfg32.model, dev, 0),
-                   dev_batches[0], F32_STEP_TOL, plain_ecomformer_kernels)
+    def iforward():
+        with torch.inference_mode():
+            imodel(b0)
 
     # 9. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}
@@ -2151,6 +2240,8 @@ def main() -> int:
          batch_ms_plain=fwd_plain_ms, runs=20)
     emit(phase="forward", card=card, model="ecomformer",
          batch_ms_kernels=efwd_ms, batch_ms_plain=efwd_plain_ms, runs=20)
+    emit(phase="forward", card=card, model="icomformer",
+         batch_ms_kernels=ifwd_ms, batch_ms_plain=ifwd_plain_ms, runs=20)
 
     def forward():
         with torch.inference_mode():
@@ -2163,6 +2254,8 @@ def main() -> int:
     emit(phase="profile", card=card, what="forward", **profile_call(forward))
     emit(phase="profile", card=card, what="ecomformer_forward",
          **profile_call(eforward))
+    emit(phase="profile", card=card, what="icomformer_forward",
+         **profile_call(iforward))
     # the f32 forwards (the CLI's default dtype: K1 and K7 on their f32
     # passes) per batch, through the kernels and through the plain
     # versions, held to each other and timed and profiled as the bf16 ones
@@ -2171,8 +2264,12 @@ def main() -> int:
              plain_cartnet_forward,
              dict(edge_phase_fwd=4, sigma_segsum_fwd=4)),
             ("ecomformer", dataclasses.replace(ecfg, compute_dtype=f32),
-             plain_ecomformer_kernels, ECO_FWD)):
+             plain_ecomformer_kernels, ECO_FWD),
+            ("icomformer", dataclasses.replace(icfg, compute_dtype=f32),
+             plain_ecomformer_kernels, ICO_FWD)):
         m32 = create_model(mcfg, dev, 0).eval()
+        if net == "icomformer":
+            calibrate_bn(m32, dev_batches[0])
         expect = dict.fromkeys(KERNELS, 0)
         expect.update(want)
         ms, ms_plain, errs = [], [], []
@@ -2242,11 +2339,24 @@ def main() -> int:
          edges_per_s_plain=real_edges / (estep_plain_ms / 1e3))
     emit(phase="profile", card=card, what="ecomformer_train_micro_step",
          **profile_call(estep))
+    istep = lambda: imicro(istate, dev_batches[0])
+    istep_ms = cuda_median_ms(istep, 20)
+    with plain_ecomformer_kernels():
+        istep_plain_ms = cuda_median_ms(istep, 20)
+    emit(phase="train_step", card=card, model="icomformer",
+         micro_step_ms=istep_ms, micro_step_ms_plain=istep_plain_ms, runs=20,
+         mean_real_edges=real_edges,
+         edges_per_s=real_edges / (istep_ms / 1e3),
+         edges_per_s_plain=real_edges / (istep_plain_ms / 1e3))
+    emit(phase="profile", card=card, what="icomformer_train_micro_step",
+         **profile_call(istep))
     # the f32 micro-steps (the CLI's default dtype: K5 and K8 on their f32
     # passes), CartNet default and eComformer, from a fresh state at seed 0,
     # beside the bf16 ones above
     for net, f32cfg, plain in (("cartnet", cfg32, plain_kernels),
                                ("ecomformer", ecfg32,
+                                plain_ecomformer_kernels),
+                               ("icomformer", icfg32,
                                 plain_ecomformer_kernels)):
         m32 = create_model(f32cfg.model, dev, 0)
         st32 = loop.init_train_state(m32, loop.build_optimizer(
@@ -2262,7 +2372,7 @@ def main() -> int:
              edges_per_s=real_edges / (ms32 / 1e3),
              edges_per_s_plain=real_edges / (ms32_plain / 1e3))
         emit(phase="profile", card=card,
-             what=f"{'' if net == 'cartnet' else 'ecomformer_'}"
+             what=f"{'' if net == 'cartnet' else net + '_'}"
                   f"train_micro_step_f32", **profile_call(step32))
         del m32, st32
 
@@ -2303,6 +2413,8 @@ def main() -> int:
             "replaces": replaces, "launches": run[kname],
             "launches_merged_train": launches_mtrain[kname],
             "launches_inference": launches_inf[kname],
+            "launches_icomformer_inference": launches_ico[kname],
+            "launches_icomformer_train": launches_itrain[kname],
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
@@ -2326,6 +2438,8 @@ def main() -> int:
             "launches": (launches_etrain if kname == "tp_contract_bwd"
                          else launches_eco)[kname],
             "launches_ecomformer_train": launches_etrain[kname],
+            "launches_icomformer_inference": launches_ico[kname],
+            "launches_icomformer_train": launches_itrain[kname],
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

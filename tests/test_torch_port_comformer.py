@@ -15,7 +15,7 @@ land in different places in the two frameworks, each worth up to 2^-8 of
 the value rounded, compounded over the layers). Dtypes must be equal.
 
 Also: rotation invariance of the port's prediction, the CLI sweep against
-``cartnet_tpu.runner.inference``, and the errors for what is not ported.
+``cartnet_tpu.runner.inference``, and the model names the factory takes.
 """
 
 import os
@@ -50,7 +50,7 @@ from cartnet_tpu_torch.config import ModelConfig
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import ecomformer_params_from_jax
-from cartnet_tpu_torch.models.comformer import EComformer
+from cartnet_tpu_torch.models.comformer import EComformer, IComformer
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.nn.core import Params, cast_params
 from cartnet_tpu_torch.ops.sh import spherical_harmonics_l012
@@ -306,15 +306,22 @@ def test_cli_sweep_matches_jax_runner(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        create_model(ModelConfig(name="icomformer", dim_in=D), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        cli.main(["--device", "cpu", "--limit", "4", "--inference",
-                  "--model", "iComformer", "--dim_in", str(D),
-                  "--inference_output", str(tmp_path / "x.pkl")])
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):  # training
-        cli.main(["--device", "cpu", "--limit", "4", "--epochs", "1",
-                  "--model", "ICOMFORMER", "--dim_in", str(D)])
+    """The iComformer, which raised here until it was ported, builds,
+    serves and trains through the same entry points (its numbers against
+    the JAX package: tests/test_torch_port_icomformer*.py); an unknown
+    model still raises."""
+    ico = create_model(ModelConfig(name="icomformer", dim_in=D), "cpu")
+    assert isinstance(ico, IComformer) and not ico.training
+    out = cli.main(["--device", "cpu", "--limit", "4", "--inference",
+                    "--cholesky", "--model", "iComformer", "--dim_in",
+                    str(D), "--inference_output", str(tmp_path / "x.pkl")])
+    assert len(out["pred"]) == 2 and (tmp_path / "x.pkl").exists()
+    assert all(np.isfinite(p).all() for p in out["pred"])
+    state, test = cli.main(["--device", "cpu", "--limit", "4", "--epochs",
+                            "1", "--model", "ICOMFORMER", "--dim_in",
+                            str(D)])  # training
+    assert isinstance(state.model, IComformer) and state.step == 1
+    assert np.isfinite(test["MAE"])
     model = create_model(ModelConfig(name="eComformer", dim_in=D), "cpu")
     assert isinstance(model, EComformer) and not model.training
     model.train()  # the eComformer trains (test_torch_port_comformer_train)

@@ -39,7 +39,7 @@ from cartnet_tpu_torch import cli
 from cartnet_tpu_torch.config import Config, ModelConfig, OptimConfig
 from cartnet_tpu_torch.data.batching import collate
 from cartnet_tpu_torch.interop import ecomformer_params_from_jax
-from cartnet_tpu_torch.models.comformer import EComformer
+from cartnet_tpu_torch.models.comformer import EComformer, IComformer
 from cartnet_tpu_torch.nn.core import Params, cast_params
 from cartnet_tpu_torch.train import loop, schedule
 
@@ -320,6 +320,10 @@ def test_cli_trains_ecomformer_on_cpu(tmp_path, monkeypatch, caplog):
     assert state.step == 1 and int(state.bad_steps) == 0
     assert np.isfinite(test["MAE"]) and 0.0 <= test["iou"] <= 1.0
     assert "model ecomformer" in caplog.text
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        cli.main(["--device", "cpu", "--limit", "8", "--epochs", "1",
-                  "--model", "iComformer", "--dim_in", str(D)])
+    # the iComformer, which raised here until it was ported, trains too
+    istate, itest = cli.main(["--device", "cpu", "--limit", "8", "--epochs",
+                              "1", "--model", "iComformer", "--dim_in",
+                              str(D)])
+    assert isinstance(istate.model, IComformer) and istate.step == 1
+    assert int(istate.bad_steps) == 0 and np.isfinite(itest["MAE"])
+    assert "model icomformer" in caplog.text

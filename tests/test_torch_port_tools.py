@@ -1,7 +1,8 @@
 """The kernel A/B tool (``cartnet_tpu_torch.tools.kernel_ab``) builds its
 variants by replacing one line of a CUDA source; each such line must occur
 exactly once in this tree's source, or the variant would not be the one its
-docstring names. The tool itself needs the card."""
+docstring names. The tool itself needs the card. The model A/B tool
+(``model_ab``) runs on the CPU too."""
 
 import pytest
 
@@ -46,3 +47,22 @@ def test_rcp_sweep_holds_every_float_across_the_range_edges():
             assert (np.diff(run) == 1).all(), (lo, hi)
             out = beyond(run.view(np.float32))
             assert out.any() and not out.all(), (lo, hi)
+
+
+@pytest.mark.parametrize("model", ["ecomformer", "icomformer"])
+def test_model_ab_holds_a_tree_bitwise_to_itself(model, capsys):
+    """``model_ab`` against this very tree on the CPU, at a narrow width:
+    every forward, loss, gradient and BN buffer, bf16 and f32, bitwise
+    between the trees and between runs."""
+    import json
+    import pathlib
+    from cartnet_tpu_torch.tools import model_ab
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    line = model_ab.main([str(repo), "--model", model, "--device", "cpu",
+                          "--dim", "32", "--atoms", "12"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == line
+    assert line["tensors"] > 100
+    assert line["differ_between_trees"] == []
+    assert line["differ_between_runs_of_this_tree"] == []
+    assert line["differ_between_runs_of_dir"] == []
