@@ -1,67 +1,86 @@
-"""CLI: training and the ADP inference sweep, on the card.
+"""CLI: training, the ADP inference sweep and the Monte-Carlo audit, on
+the card.
 
-    python -m cartnet_tpu_torch.cli --dataset synthetic --limit N \
-        --epochs E --batch_accumulation A \
-        [--model CartNet|eComformer|iComformer] \
-        [--cholesky] [--invariant] [--disable_temp] [--disable_envelope] \
-        [--disable_atom_types] [--bf16] [--device cuda|cpu]
-    python -m cartnet_tpu_torch.cli --dataset synthetic --cholesky --limit 8 \
-        --inference [--model CartNet|eComformer|iComformer] \
-        [--checkpoint_path best.ckpt] [--bf16] [--device cuda|cpu]
+    python -m cartnet_tpu_torch.cli --dataset synthetic|adpfix [--limit N] \
+        --epochs E --batch_accumulation A [--augment] [--name NAME] \
+        [--seed S] [--resume] [--model CartNet|eComformer|iComformer] \
+        [--cholesky] [--invariant] [--disable_temp] [--no_standarize_temp] \
+        [--disable_envelope] [--disable_atom_types] [--bf16] \
+        [--device cuda|cpu]
+    python -m cartnet_tpu_torch.cli --dataset adpfix --inference|--montecarlo \
+        [--checkpoint_path results/NAME/S/ckpt/best.ckpt] \
+        [--inference_output out.pkl] [--bf16] [--device cuda|cpu]
 
-Flags and the synthetic splits mirror cartnet_tpu/cli.py; the ``synthetic``
-source is the one ported. As there, the head follows the dataset: the ADP
-sources (``ADP``, ``adpfix``, not ported yet) and ``--cholesky`` give the
+Flags, the synthetic splits and the run directory ``results/<name>/<seed>``
+(``stats.json`` per split, ``ckpt/best.ckpt`` and ``ckpt/last.ckpt``)
+mirror cartnet_tpu/cli.py; the ``synthetic`` and ``adpfix`` sources are the
+ones ported. As there, the head follows the dataset: the ADP sources
+(``adpfix``; ``ADP`` is not ported yet) and ``--cholesky`` give the
 Cholesky head on ADP targets; otherwise ``--dataset synthetic`` trains the
-scalar head on scalar targets. The temperature input is on only for the ADP
-sources (and then off with ``--disable_temp``); ``--invariant``,
-``--disable_envelope`` and ``--disable_atom_types`` are the reference's
-ablation switches. ``--model`` is case-insensitive; CartNet, the
-eComformer and the iComformer all serve (``--inference``, which needs the
-Cholesky head) and train. Without a checkpoint the weights are random,
-drawn from ``--seed``; with one (a reference CartNet ``best.ckpt`` or a
-state_dict the port saved), training starts from it.
+scalar head on scalar targets. The temperature input is on only for the
+ADP sources (and then off with ``--disable_temp``); adpfix temperatures
+are standardized unless ``--no_standarize_temp``. ``--augment`` rotates
+the train split each epoch (forced off for the two Comformers, as in the
+JAX CLI). ``--resume`` continues a run from its ``last.ckpt``.
+``--invariant``, ``--disable_envelope`` and ``--disable_atom_types`` are
+the reference's ablation switches. ``--model`` is case-insensitive;
+CartNet, the eComformer and the iComformer all serve (``--inference`` and
+``--montecarlo`` need the Cholesky head) and train. Without a checkpoint
+the weights are random, drawn from ``--seed``; with one (a reference or
+port ``best.ckpt``, or a state_dict the port saved), training, the sweep
+and the audit start from it.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import torch
 
 from cartnet_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                       OptimConfig, resolve_device)
+from cartnet_tpu_torch.data.adpfix import load_fixture
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import load_reference_checkpoint
 from cartnet_tpu_torch.models.factory import create_model
-from cartnet_tpu_torch.runner import inference, run
+from cartnet_tpu_torch.runner import inference, montecarlo, pipelines, run
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("cartnet_tpu_torch")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--name", type=str, default="CartNet",
+                   help="run name: the run dir is results/<name>/<seed>")
     p.add_argument("--model", type=str, default="CartNet",
                    help="CartNet, eComformer or iComformer "
                         "(case-insensitive)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--dataset", type=str, default="synthetic",
-                   help="synthetic (the only source ported so far)")
+                   help="synthetic or adpfix (the sources ported so far)")
     p.add_argument("--limit", type=int, default=None,
                    help="truncate dataset (smoke runs)")
     p.add_argument("--inference", action="store_true",
                    help="run the ADP inference sweep instead of training")
+    p.add_argument("--montecarlo", action="store_true",
+                   help="run the Monte-Carlo rotation audit of the test "
+                        "split instead of training")
+    p.add_argument("--resume", action="store_true",
+                   help="continue the run from results/<name>/<seed>/ckpt/"
+                        "last.ckpt")
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--batch_accumulation", type=int, default=16)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--warmup", type=float, default=0.01)
     p.add_argument("--loss", type=str, default="MAE", help="MAE or MSE")
     p.add_argument("--augment", action="store_true",
-                   help="SO(3) augmentation (not ported yet)")
+                   help="SO(3) augmentation of the train split, per epoch "
+                        "(off for the Comformers)")
     p.add_argument("--inference_output", type=str, default="./inference.pkl")
     p.add_argument("--checkpoint_path", type=str, default=None,
-                   help="reference best.ckpt or state_dict .pt")
+                   help="reference or port best.ckpt, or a state_dict .pt")
     p.add_argument("--radius", type=float, default=5.0)
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--dim_in", type=int, default=256)
@@ -72,8 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no temperature input (ADP sources only)")
     p.add_argument("--no_standarize_temp", action="store_false",
                    dest="standarize_temp",
-                   help="raw temperatures for the adpfix source; no effect "
-                        "until that source is ported (ROADMAP P2a)")
+                   help="raw temperatures for the adpfix source")
     p.add_argument("--disable_envelope", action="store_false",
                    dest="envelope", help="no cosine cutoff envelope")
     p.add_argument("--disable_atom_types", action="store_false",
@@ -92,8 +110,9 @@ def args_to_config(args) -> Config:
     # a temperature input and ADP targets; other sources (synthetic) train
     # the scalar head unless --cholesky asks for ADP targets
     adp_like = args.dataset in ("ADP", "adpfix")
+    name = args.model.lower()
     model = ModelConfig(
-        name=args.model.lower(), dim_in=args.dim_in, dim_rbf=args.dim_rbf,
+        name=name, dim_in=args.dim_in, dim_rbf=args.dim_rbf,
         num_layers=args.num_layers, radius=args.radius,
         invariant=args.invariant,
         use_temperature=args.use_temp if adp_like else False,
@@ -102,19 +121,27 @@ def args_to_config(args) -> Config:
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     data = DataConfig(name=args.dataset, radius=args.radius,
                       batch_size=args.batch,
+                      augment=args.augment and name not in ("ecomformer",
+                                                            "icomformer"),
                       standarize_temp=args.standarize_temp)
     optim = OptimConfig(lr=args.lr, max_epoch=args.epochs,
                         warmup=args.warmup,
                         batch_accumulation=args.batch_accumulation,
                         loss=args.loss)
-    return Config(model=model, data=data, optim=optim, seed=args.seed)
+    return Config(model=model, data=data, optim=optim, seed=args.seed,
+                  name=args.name,
+                  run_dir=os.path.join("results", args.name, str(args.seed)))
 
 
 def load_datasets(data: DataConfig, limit=None, adp: bool = True):
-    """The synthetic source's (train, val, test) splits: the reference CLI's
-    records (seed 123, ~32 atoms per crystal), sizes n / k / k with
-    n = limit (default 128) and k = max(n // 4, 2); ADP targets with
-    ``adp`` (the Cholesky head), else one scalar per crystal."""
+    """(train, val, test) record lists. ``adpfix``: the frozen fixture
+    (200 / 20 / 20, ``limit`` cuts to limit / k / k). ``synthetic``: the
+    reference CLI's records (seed 123, ~32 atoms per crystal), sizes
+    n / k / k with n = limit (default 128); ADP targets with ``adp`` (the
+    Cholesky head), else one scalar per crystal. k = max(n // 4, 2)."""
+    if data.name == "adpfix":
+        return load_fixture(standarize_temp=data.standarize_temp,
+                            limit=limit)
     if data.name != "synthetic":
         raise ValueError(f"dataset {data.name!r} is not ported yet")
     n = limit or 128
@@ -128,9 +155,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
-    if args.augment:
-        raise NotImplementedError("--augment: SO(3) augmentation is not "
-                                  "ported yet (ROADMAP P2)")
     device = resolve_device(args.device)
     cfg = args_to_config(args)
     state_dict = None
@@ -138,11 +162,14 @@ def main(argv=None):
         state_dict = load_reference_checkpoint(args.checkpoint_path)
         logging.info("loaded checkpoint %s", args.checkpoint_path)
     splits = load_datasets(cfg.data, args.limit, adp=cfg.model.cholesky)
-    if not args.inference:
-        return run(cfg, splits, device, state_dict)
+    if not (args.inference or args.montecarlo):
+        return run(cfg, splits, device, state_dict, resume=args.resume)
     model = create_model(cfg.model, device, args.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
+    if args.montecarlo:
+        return montecarlo(cfg, model, pipelines(cfg, splits)[2],
+                          args.inference_output, device=device)
     batches = make_batches(splits[2], cfg.data.batch_size)
     return inference(model, batches, args.inference_output, device)
 

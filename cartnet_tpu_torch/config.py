@@ -1,8 +1,10 @@
 """Immutable typed configuration (port of cartnet_tpu/config.py).
 
 What the inference sweep and the trainer read: the model hyperparameters,
-the data settings of the synthetic source, the optimizer/schedule and the
-device-side step guard. Dtypes are torch dtypes.
+the data settings (synthetic and adpfix sources, augmentation), the
+optimizer/schedule, the device-side step guard, and the run's name and
+directory (``results/<name>/<seed>`` from the CLI: stats.json files and
+checkpoints). Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -37,13 +39,15 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Dataset / batching settings used by the inference sweep."""
+    """Dataset / batching settings."""
 
-    name: str = "synthetic"
+    name: str = "synthetic"  # synthetic | adpfix
     radius: float = 5.0
     batch_size: int = 4
+    # per-epoch SO(3) augmentation of the train split
+    augment: bool = False
     # standardize the adpfix source's temperatures (--no_standarize_temp
-    # turns it off); read once that source is ported (ROADMAP P2a)
+    # turns it off)
     standarize_temp: bool = True
 
 
@@ -78,6 +82,8 @@ class Config:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     guard: GuardConfig = dataclasses.field(default_factory=GuardConfig)
     seed: int = 0
+    name: str = "CartNet"
+    run_dir: str = "results"
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -1,11 +1,14 @@
 """Batch pipeline (port of the default path of cartnet_tpu/data/pipeline.py).
 
 Pad sizes chosen once for a whole dataset, per-graph edge alignment on
-ADP-scale data, RCM relabeling where the edges are aligned, and a seeded
-per-epoch shuffle: the train split shuffles, val/test do not. With
-``buckets=1`` and no augmentation (the JAX defaults) this emits the same
-batches, in the same order, as the JAX ``BatchPipeline`` with the same seed.
-Size buckets, background prefetch and SO(3) augmentation are not ported yet.
+ADP-scale data, RCM relabeling where the edges are aligned, a seeded
+per-epoch shuffle and SO(3) augmentation: the train split shuffles and
+(with ``augment``) rotates each record as its batch is emitted, val/test do
+neither. Shuffle and augmentation draw from one ``np.random.default_rng``
+(``rng``) in the JAX order, so with ``buckets=1`` (the JAX default) this
+emits the same batches, in the same order, as the JAX ``BatchPipeline``
+with the same seed. ``rng``'s bit-generator state is what a resumable
+checkpoint keeps. Size buckets and background prefetch are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from cartnet_tpu_torch.data.adp import augment_record
 from cartnet_tpu_torch.data.batching import (EDGE_ALIGN, bandwidth_reorder,
                                              collate)
 from cartnet_tpu_torch.data.schema import CrystalBatch
@@ -61,12 +65,9 @@ class BatchPipeline:
     def __init__(self, records, batch_size: int,
                  max_nodes: Optional[int] = None,
                  max_edges: Optional[int] = None, shuffle: bool = False,
-                 augment: bool = False, seed: int = 0,
-                 edge_align: Optional[int] = None,
+                 augment: bool = False, rotate_targets: bool = True,
+                 seed: int = 0, edge_align: Optional[int] = None,
                  node_multiple: int = 128, edge_multiple: int = 512):
-        if augment:
-            raise NotImplementedError("SO(3) augmentation is not ported yet "
-                                      "(ROADMAP P2)")
         self.records = records
         self.batch_size = batch_size
         nodes, edges = record_counts(records)
@@ -79,7 +80,9 @@ class BatchPipeline:
                 edge_align=self.edge_align)
         self.max_nodes, self.max_edges = max_nodes, max_edges
         self.shuffle = shuffle
-        self._rng = np.random.default_rng(seed)
+        self.augment = augment
+        self.rotate_targets = rotate_targets
+        self.rng = np.random.default_rng(seed)
         self._cached: Optional[List[CrystalBatch]] = None
 
     def __len__(self):
@@ -88,17 +91,20 @@ class BatchPipeline:
     def _make_batches(self) -> Iterator[CrystalBatch]:
         order = np.arange(len(self.records))
         if self.shuffle:
-            self._rng.shuffle(order)
+            self.rng.shuffle(order)
         bs = self.batch_size
         for i in range(0, len(order), bs):
             recs = [self.records[j] for j in order[i:i + bs]]
+            if self.augment:
+                recs = [augment_record(r, self.rng, self.rotate_targets)
+                        for r in recs]
             if self.edge_align:  # RCM only where edges are window-aligned
                 recs = [bandwidth_reorder(r) for r in recs]
             yield collate(recs, self.max_nodes, self.max_edges, bs,
                           edge_align=self.edge_align)
 
     def __iter__(self) -> Iterator[CrystalBatch]:
-        if self.shuffle:
+        if self.shuffle or self.augment:
             yield from self._make_batches()
             return
         if self._cached is None:  # val/test: collate once

@@ -360,7 +360,7 @@ class EComformer(_Comformer):
 
     def forward(self, batch: CrystalBatch):
         p, x, dist = self._encode(batch)
-        e = _rbf_head(p, "rbf", -0.75 / dist, "rbf_centers", "rbf_gamma")
+        e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
         x = self.conv0(x, e, batch, p.sub("conv0"))
         x = self.equi(x, e, batch, p.sub("equi"))
         x = self.conv1(x, e, batch, p.sub("conv1"))

@@ -8,12 +8,17 @@ Reference semantics:
   * BN running stats advance every train micro-batch;
   * the device-side guard skips non-finite micro-steps (train/guard.py).
 The steps keep everything on the device: stats stay tensors until the epoch
-means are read (``epoch_means``, one sync per epoch).
+means are read (``epoch_means``, or an ``EpochLogger``'s ``write_epoch``:
+one copy to the host per epoch). A logger passed to ``train_epoch`` gets
+each micro-batch's stats, weight, lr and real edges, and the epoch's time
+closed by a device synchronize; one passed to ``eval_epoch`` also gets the
+masked true/pred values for r2 and Spearman.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,12 +128,27 @@ def make_steps(cfg: Config):
     return micro_step, update_step, eval_step
 
 
+def real_edges(batch: CrystalBatch) -> float:
+    """Masked-in edges of a host batch."""
+    return float(np.sum(np.asarray(batch.edge_mask)))
+
+
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def train_epoch(state: TrainState, batches: Iterable[CrystalBatch],
                 micro_step, update_step, batch_accumulation: int,
-                device="cuda") -> Tuple[TrainState, List[tuple]]:
+                device="cuda", logger=None,
+                lr_fn: Optional[Callable[[int], float]] = None
+                ) -> Tuple[TrainState, List[tuple]]:
     """One epoch: an update every ``batch_accumulation`` micro-batches and a
     flush of a partial accumulation at epoch end. Returns the state and
-    (stats, weight) per micro-batch, still on the device."""
+    (stats, weight) per micro-batch, still on the device; ``logger`` gets
+    each micro-batch with the lr after it (``lr_fn`` of the update count)
+    and the epoch's seconds."""
+    t0 = time.perf_counter()
     rows = []
     count = 0
     for i, batch in enumerate(batches):
@@ -137,8 +157,15 @@ def train_epoch(state: TrainState, batches: Iterable[CrystalBatch],
         count += 1
         if (i + 1) % batch_accumulation == 0:
             state = update_step(state)
+        if logger is not None:
+            logger.update(stats, weight=rows[-1][1],
+                          lr=float(lr_fn(state.step)) if lr_fn else 0.0,
+                          edges=real_edges(batch))
     if count % batch_accumulation != 0:  # epoch-end flush
         state = update_step(state)
+    if logger is not None:
+        _synchronize(device)
+        logger.note_time(time.perf_counter() - t0)
     return state, rows
 
 
@@ -154,16 +181,25 @@ def masked_iou_mean(pred, y, mask, chunk: int = 128):
 
 
 def eval_epoch(state: TrainState, batches: Iterable[CrystalBatch], eval_step,
-               device="cuda", iou: bool = False) -> List[tuple]:
+               device="cuda", iou: bool = False, logger=None) -> List[tuple]:
     """Eval pass -> (stats, weight) per batch; ``iou`` adds the test-time
-    3D IoU stat (ADP targets)."""
-    rows = []
+    3D IoU stat (ADP targets). ``logger`` gets each batch with its masked
+    true/pred values, copied to the host after every batch is queued."""
+    t0 = time.perf_counter()
+    rows, pending = [], []
     for batch in batches:
         b = batch.to(device)
         pred, mask, stats = eval_step(state, b)
         if iou:
             stats = {**stats, "iou": masked_iou_mean(pred.float(), b.y, mask)}
         rows.append((stats, target_weight(batch)))
+        if logger is not None:
+            pending.append((pred, mask, b.y, real_edges(batch)))
+    if logger is not None:
+        for (stats, w), (pred, mask, y, edges) in zip(rows, pending):
+            logger.update(stats, weight=w, true=y[mask].float().cpu().numpy(),
+                          pred=pred[mask].float().cpu().numpy(), edges=edges)
+        logger.note_time(time.perf_counter() - t0)
     return rows
 
 

@@ -4,6 +4,7 @@
   * ellipsoid volume and its relative error, summed with S12 per epoch
     (``adp_stat_sums``);
   * S12 similarity index in its inverse-free, scale-normalized form;
+  * the KL divergence of two zero-mean Gaussians with ADP covariances;
   * voxelized 3D IoU of two ellipsoids on a deterministic 64^3 linspace grid.
 
 All 3x3 algebra is closed form (ops/linalg3); tensors stay on their device.
@@ -57,6 +58,13 @@ def get_similarity_index(pred, true):
     dsum = torch.maximum(det3(true + pred), dt + dp)
     num = 2.0 ** 1.5 * (dt * dp) ** 0.25
     return 100.0 * (1.0 - num / dsum ** 0.5)
+
+
+def get_kl(pred, true):
+    """KL(N(0, true) || N(0, pred)) for batched 3x3 SPD matrices."""
+    tr = torch.diagonal(torch.matmul(inv3(pred), true), dim1=-2,
+                        dim2=-1).sum(-1)
+    return 0.5 * (tr - 3.0 + torch.log(det3(pred) / det3(true)))
 
 
 def _grid(num_points: int, device) -> torch.Tensor:

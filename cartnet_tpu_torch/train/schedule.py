@@ -101,6 +101,15 @@ class OneCycleAdam:
             p.grad = None
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """Adam's moments and step counts, and the update count that
+        drives the schedules."""
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adam.load_state_dict(sd["adam"])
+        self.count = int(sd["count"])
+
 
 def make_optimizer(params, max_lr: float, total_steps: int,
                    pct_start: float = 0.01, div_factor: float = 25.0,

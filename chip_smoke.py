@@ -97,6 +97,15 @@ Phases, one JSON line each (every line names the card and its power limit):
               advanced running stats in all ten BNs; a short training run
               through the CLI; one micro-step through the kernels and
               through the plain versions, in bf16 and in f32
+  8d. adpfix  the README's product path on the in-repo fixture through
+              the CLI (flagship widths, f32, --augment, --limit 8, two
+              epochs, batch_accumulation 2) in a temporary directory: K1,
+              K2, K4, K5 4 launches a micro-step and K1, K2 4 an eval
+              forward, two stats.json lines in train and val and one in
+              test with the JAX package's keys (``iou`` in test),
+              best.ckpt and last.ckpt; ``--resume --epochs 3`` adds
+              exactly epoch 2; two Monte-Carlo rounds on best.ckpt
+              (runner.montecarlo) give finite stats; one bf16 epoch
   9. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
@@ -131,6 +140,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -822,7 +832,8 @@ def plain_cartnet_forward():
         model_mod.edge_phase_fwd, model_mod.sigma_segsum = kept
 
 
-def forward_vs_plain(card, model, batch, plain, expect, tol, **tags) -> None:
+def forward_vs_plain(card, model, batch, plain, expect, tol,
+                     phase="widths_forward", **tags) -> None:
     """One eval forward through the kernels (its launch counts must be
     ``expect``) against the same forward through the plain versions
     (``plain``, a context): finite predictions within ``tol`` normalized."""
@@ -838,7 +849,7 @@ def forward_vs_plain(card, model, batch, plain, expect, tol, **tags) -> None:
     m = mask.bool()
     abs_err, rel = normalized_err(pk[m], pp[m])
     finite = bool(torch.isfinite(pk[m]).all())
-    emit(phase="widths_forward", card=card, **tags, launches=got,
+    emit(phase=phase, card=card, **tags, launches=got,
          expected_launches=expect, max_abs_err=abs_err, max_rel_err=rel,
          tol=tol, finite=finite)
     if got != expect or not finite or not rel <= tol:
@@ -1143,6 +1154,129 @@ def merged_vs_default(card, cfg, model, batch) -> dict:
     return line
 
 
+def adpfix_phase(card: str, dev) -> None:
+    """8d. The README's product path on the adpfix fixture through the CLI
+    (flagship widths, f32, SO(3) augmentation), in the working directory:
+    two epochs of 8 / 2 / 2 crystals with batch_accumulation 2 (K1, K2,
+    K4, K5 4 launches a micro-step, K1, K2 4 an eval forward), its
+    stats.json lines (the JAX package's keys, ``iou`` in test) and both
+    checkpoints; ``--resume --epochs 3`` adds exactly epoch 2; two
+    Monte-Carlo rounds on best.ckpt give finite stats; one bf16 epoch.
+    Then, at the layout of the README's full fixture run (all 240
+    crystals, batch 4: 384 / 6144 pads, unaligned, no RCM relabeling), an
+    eval forward and a train micro-step of the first augmented train batch
+    through K1, K2, K4, K5 against the plain versions, in f32 and bf16."""
+    import numpy as np
+    import torch
+    from cartnet_tpu_torch import cli, runner
+    from cartnet_tpu_torch.interop import load_reference_checkpoint
+    from cartnet_tpu_torch.models.factory import create_model
+    argv = ["--dataset", "adpfix", "--limit", "8", "--augment",
+            "--batch_accumulation", "2", "--name", "smoke"]
+    run_dir = os.path.join("results", "smoke", "0")
+    keys = {"epoch", "time_epoch", "time_iter", "lr", "params", "loss",
+            "MAE", "MSE", "volume_percentage_error", "similarity_index",
+            "edges_per_sec", "gpu_memory"}
+    split_keys = {"train": keys, "val": keys | {"r2", "spearmanr"},
+                  "test": keys | {"r2", "spearmanr", "iou"}}
+
+    def per_step(micro: int, evals: int) -> dict:
+        want = dict.fromkeys(KERNELS, 0)
+        for k in CARTNET_KERNELS:
+            want[k] = 4 * micro
+        want["edge_phase_fwd"] += 4 * evals
+        want["sigma_segsum_fwd"] += 4 * evals
+        return want
+
+    def lines(split: str) -> list:
+        with open(os.path.join(run_dir, split, "stats.json")) as f:
+            return [json.loads(x) for x in f if x.strip()]
+
+    bad = []
+    t0 = time.perf_counter()
+    launch_counts(reset=True)
+    state, test = cli.main(argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect = per_step(2 * 2, 2 + 1)  # 2 epochs x 2 micro; 2 val, 1 test
+    if launches != expect:
+        bad.append(f"launches {launches}, expected {expect}")
+    got = {s: lines(s) for s in split_keys}
+    for s, n in (("train", 2), ("val", 2), ("test", 1)):
+        if len(got[s]) != n or any(set(r) != split_keys[s] for r in got[s]):
+            bad.append(f"{s} stats.json: {got[s]}")
+    best, last = runner.checkpoint_paths(run_dir)
+    if not (os.path.isfile(best) and os.path.isfile(last)):
+        bad.append("best.ckpt or last.ckpt missing")
+    if state.step != 2 or int(state.bad_steps) or not all(
+            math.isfinite(v) for v in test.values()):
+        bad.append(f"{state.step} updates, {int(state.bad_steps)} bad "
+                   f"steps, test {test}")
+    launch_counts(reset=True)
+    cli.main(argv + ["--epochs", "3", "--resume"])
+    launches_resume = launch_counts()
+    if launches_resume != per_step(2, 2):
+        bad.append(f"resume launches {launches_resume}")
+    more = {s: lines(s)[len(got[s]):] for s in split_keys}
+    if [r["epoch"] for r in more["train"]] != [2] or \
+            [r["epoch"] for r in more["val"]] != [2] or \
+            len(more["test"]) != 1:
+        bad.append(f"resume added {more}")
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.args_to_config(args)
+    model = create_model(cfg.model, dev, cfg.seed)
+    model.load_state_dict(load_reference_checkpoint(best), strict=True)
+    test_pipe = runner.pipelines(cfg, cli.load_datasets(cfg.data, 8))[2]
+    launch_counts(reset=True)
+    mc = runner.montecarlo(cfg, model, test_pipe, "montecarlo.pkl",
+                           iterations=2, device=dev)
+    launches_mc = launch_counts()
+    if launches_mc != per_step(0, 2 * 2 * len(test_pipe)) or not all(
+            np.isfinite(v).all() for v in mc.values()):
+        bad.append(f"Monte-Carlo launches {launches_mc}, stats {mc}")
+    launch_counts(reset=True)
+    bstate, btest = cli.main(["--dataset", "adpfix", "--limit", "8",
+                              "--augment", "--batch_accumulation", "2",
+                              "--name", "smoke_bf16", "--epochs", "1",
+                              "--bf16"])
+    launches_bf16 = launch_counts()
+    if launches_bf16 != per_step(2, 2) or int(bstate.bad_steps) or not all(
+            math.isfinite(v) for v in btest.values()):
+        bad.append(f"bf16 run: launches {launches_bf16}, test {btest}")
+    torch.cuda.synchronize()
+    fcfg = cli.args_to_config(cli.build_parser().parse_args(
+        ["--dataset", "adpfix", "--augment", "--batch", "4",
+         "--batch_accumulation", "16"]))
+    train_pipe = runner.pipelines(fcfg, cli.load_datasets(fcfg.data))[0]
+    fbatch = next(iter(train_pipe)).to(dev)
+    layout = dict(nodes=int(fbatch.z.shape[0]),
+                  edges=int(fbatch.edge_src.shape[0]),
+                  edge_align=train_pipe.edge_align)
+    if layout != dict(nodes=384, edges=6144, edge_align=0):
+        bad.append(f"full fixture layout {layout}")
+    want_f = dict.fromkeys(KERNELS, 0)
+    want_f.update(edge_phase_fwd=4, sigma_segsum_fwd=4)
+    for dt, tol in ((torch.float32, F32_STEP_TOL), (torch.bfloat16,
+                                                     PRED_TOL)):
+        c = with_dtype(fcfg, dt)
+        m = create_model(c.model, dev, c.seed)
+        forward_vs_plain(card, m, fbatch, plain_cartnet_forward, want_f,
+                         tol, phase="adpfix_forward", **layout,
+                         compute_dtype=str(dt))
+        train_vs_plain(card, c, m, fbatch, tol)
+    emit(phase="adpfix", card=card, launches=launches,
+         expected_launches=expect, launches_resume=launches_resume,
+         launches_montecarlo=launches_mc, launches_bf16=launches_bf16,
+         optimizer_steps=state.step, bad_steps=int(state.bad_steps),
+         stats_lines={s: len(lines(s)) for s in split_keys},
+         test=test, montecarlo={k: [float(x) for x in v]
+                                for k, v in mc.items()},
+         test_bf16=btest, failed=bad,
+         seconds=round(time.perf_counter() - t0, 3))
+    if bad:
+        fail(f"adpfix phase: {bad}")
+
+
 # ----------------------------------------------------------------- main
 
 def main() -> int:
@@ -1157,6 +1291,17 @@ def main() -> int:
         print(f"chip_smoke: the cartnet_tpu_torch package is not beside this "
               f"script ({err})", file=sys.stderr)
         return 2
+    # the CLI runs write run dirs (results/<name>/<seed>): all of them land
+    # in a temporary directory, removed at exit, never in the checkout
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
+            contextlib.chdir(tmp):
+        return phases(_build)
+
+
+def phases(_build) -> int:
+    """Every phase after the checks of ``main``, in the working
+    directory it set."""
+    import torch
     from cartnet_tpu_torch import cli, runner
     from cartnet_tpu_torch.config import (Config, ModelConfig, OptimConfig,
                                           resolve_device)
@@ -2011,6 +2156,9 @@ def main() -> int:
     def iforward():
         with torch.inference_mode():
             imodel(b0)
+
+    # 8d. the adpfix product path through the CLI
+    adpfix_phase(card, dev)
 
     # 9. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}

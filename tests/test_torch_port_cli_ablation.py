@@ -106,7 +106,8 @@ def test_args_to_config_matches_jax_cli(argv):
             assert np.ndim(a["y"]) == (3 if cfg.model.cholesky else 0)
 
 
-def test_cli_trains_the_scalar_head_on_cpu():
+def test_cli_trains_the_scalar_head_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the run dir lands under results/
     state, test = cli.main(["--device", "cpu", "--dataset", "synthetic",
                             "--limit", "8", "--epochs", "1",
                             "--batch_accumulation", "2", "--dim_in", str(D),
@@ -117,7 +118,8 @@ def test_cli_trains_the_scalar_head_on_cpu():
     assert np.isfinite(test["MAE"]) and "iou" not in test
 
 
-def test_cli_sweep_needs_the_cholesky_head():
+def test_cli_sweep_needs_the_cholesky_head(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(ValueError, match="Cholesky"):
         cli.main(["--device", "cpu", "--dataset", "synthetic", "--limit",
                   "4", "--inference", "--dim_in", str(D), "--dim_rbf",

@@ -50,6 +50,7 @@ from cartnet_tpu_torch.config import ModelConfig
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import ecomformer_params_from_jax
+from cartnet_tpu_torch.models import comformer as cm
 from cartnet_tpu_torch.models.comformer import EComformer, IComformer
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.nn.core import Params, cast_params
@@ -267,7 +268,8 @@ def test_prediction_is_rotation_invariant(batches):
                                rtol=1e-3, atol=1e-5)
 
 
-def test_cli_sweep_matches_jax_runner(tmp_path):
+def test_cli_sweep_matches_jax_runner(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     jcfg = JConfig(model=JModelConfig(name="ecomformer", dim_in=D,
                                       use_temperature=False, cholesky=True),
                    data=JDataConfig(name="synthetic"))
@@ -305,11 +307,12 @@ def test_cli_sweep_matches_jax_runner(tmp_path):
                                        err_msg=k)
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
     """The iComformer, which raised here until it was ported, builds,
     serves and trains through the same entry points (its numbers against
     the JAX package: tests/test_torch_port_icomformer*.py); an unknown
     model still raises."""
+    monkeypatch.chdir(tmp_path)
     ico = create_model(ModelConfig(name="icomformer", dim_in=D), "cpu")
     assert isinstance(ico, IComformer) and not ico.training
     out = cli.main(["--device", "cpu", "--limit", "4", "--inference",
@@ -350,3 +353,55 @@ def test_ecomformer_forward_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# ------------------------------------------------------ F4: -0.75 / dist
+
+def test_bf16_rbf_edge_features_bitwise(jax_kernels, batches, weights,
+                                        monkeypatch):
+    """The eComformer's edge features ``-0.75 / dist``, the RBF head's
+    input, are bitwise the JAX package's in a bf16 forward: one rounded
+    division (``_inv_len``), where torch's scalar / tensor multiplies by a
+    rounded reciprocal and rounds twice (ROADMAP F4). The head's output
+    stays within one bf16 ulp: on the CPU, XLA's exp and its softplus
+    (logaddexp rounded op by op in bf16) round differently from torch's."""
+    tbatch, jbatch = batches
+    jcfg, params, state, _ = weights
+    model = _model(ecomformer_params_from_jax(
+        params, state, ModelConfig(name="ecomformer", dim_in=D)),
+        torch.bfloat16)
+    seen = {}
+
+    def spy(name, fn, pos):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            seen.setdefault(name, (a[pos], out))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(cm, "_rbf_head", spy("port", cm._rbf_head, 2))
+    monkeypatch.setattr(JC, "_rbf_head_apply",
+                        spy("jax", JC._rbf_head_apply, 1))
+    jcfg = JModelConfig(name="ecomformer", dim_in=D, cholesky=True,
+                        compute_dtype=jnp.bfloat16)
+    ref_pred, _, _ = JC.ecomformer_apply(
+        params, jax.tree.map(jnp.asarray, state), jbatch, jcfg,
+        training=False)
+    with torch.no_grad():
+        pred, _ = model(tbatch.to("cpu"))
+    bits = lambda t: (t.view(torch.int16).numpy() if torch.is_tensor(t)
+                      else np.asarray(t).view(np.int16)).astype(np.int32)
+    m = tbatch.edge_mask
+    for (ours, ref), what in zip(zip(seen["port"], seen["jax"]),
+                                 ("efeat", "rbf head")):
+        assert ours.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+        ulps = np.abs(bits(ours) - bits(ref))[m]
+        assert ulps.max() <= (0 if what == "efeat" else 1), what
+    # the multiply by the reciprocal, which the repair replaced, is not
+    efeat = seen["port"][0]
+    dist = torch.clamp(torch.tensor(tbatch.cart_dist).to(torch.bfloat16),
+                       min=1e-6)
+    assert torch.equal(efeat, cm._inv_len(dist))
+    assert (bits(-0.75 / dist) != bits(efeat))[m].any()
+    _close(_np(pred)[tbatch.non_h_mask], _np(ref_pred)[tbatch.non_h_mask],
+           "bf16", "pred")

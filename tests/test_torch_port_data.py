@@ -95,8 +95,9 @@ def test_collate_matches(edge_align):
 
 @pytest.mark.parametrize("mean_atoms", [20, 120])
 def test_pipeline_matches_jax(mean_atoms):
-    """Same pad sizes, alignment and RCM, and the same seeded shuffle per
-    epoch (train) or fixed order (val/test), as the JAX BatchPipeline."""
+    """Same pad sizes, alignment and RCM, the same seeded shuffle per
+    epoch (train) or fixed order (val/test), and the same augmented
+    batches, as the JAX BatchPipeline."""
     from cartnet_tpu.data.pipeline import BatchPipeline as JPipe
     from cartnet_tpu_torch.data.pipeline import BatchPipeline
     recs = tsyn.synthetic_dataset(7, mean_atoms=mean_atoms, adp=True, seed=2)
@@ -113,8 +114,20 @@ def test_pipeline_matches_jax(mean_atoms):
                     np.testing.assert_array_equal(
                         np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
                         err_msg=f)
-    with pytest.raises(NotImplementedError, match="P2"):
-        BatchPipeline(recs, 2, augment=True)
+    # SO(3) augmentation (ported with the adpfix path): the same rotated
+    # records from the same seed, one rotation per record and epoch
+    ours = BatchPipeline(recs, 2, shuffle=True, augment=True, seed=5)
+    ref = JPipe(recs, 2, shuffle=True, augment=True, seed=5, prefetch=0)
+    firsts = []
+    for _ in range(2):
+        got = list(ours)
+        for a, b in zip(got, ref):
+            for f in SHARED_FIELDS:
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
+                    err_msg=f)
+        firsts.append(got[0].cart_dir)
+    assert not np.array_equal(firsts[0], firsts[1])
 
 
 def test_make_batches_aligns_adp_scale():

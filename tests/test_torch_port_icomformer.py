@@ -326,7 +326,8 @@ def test_prediction_is_rotation_invariant(batches):
                                rtol=1e-3, atol=1e-5)
 
 
-def test_cli_sweep_matches_jax_runner(tmp_path):
+def test_cli_sweep_matches_jax_runner(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     from cartnet_tpu.cli import load_datasets
     from cartnet_tpu.models.factory import create_model as jcreate
     jcfg = JConfig(model=JModelConfig(name="icomformer", dim_in=D,

@@ -178,7 +178,8 @@ def test_export_state_dict_loads_strictly(batches):
         assert torch.equal(a(tb)[0], b(tb)[0])
 
 
-def test_cli_sweep_matches_jax_runner(tmp_path):
+def test_cli_sweep_matches_jax_runner(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     jcfg = JConfig(model=JModelConfig(dim_in=D, dim_rbf=RBF, num_layers=L,
                                       use_temperature=False, cholesky=True),
                    data=JDataConfig(name="synthetic"))
@@ -247,7 +248,8 @@ def test_port_forward_runs_without_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_entry_points_default_to_the_card(tmp_path):
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     cfg = ModelConfig(dim_in=128, dim_rbf=16, num_layers=1)

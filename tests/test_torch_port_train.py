@@ -368,8 +368,19 @@ def test_cli_trains_on_cpu(tmp_path, monkeypatch, caplog):
     assert state.step == 1 and int(state.bad_steps) == 0
     assert np.isfinite(test["MAE"]) and 0.0 <= test["iou"] <= 1.0
     assert "best epoch 0" in caplog.text
-    with pytest.raises(NotImplementedError, match="P2"):
-        cli.main(["--device", "cpu", "--limit", "8", "--augment"])
+    # --augment (ported with the adpfix path) trains and writes the run dir
+    astate, atest = cli.main(["--device", "cpu", "--dataset", "adpfix",
+                              "--limit", "8", "--epochs", "1", "--augment",
+                              "--batch_accumulation", "2", "--dim_in", "32",
+                              "--dim_rbf", "16", "--num_layers", "2",
+                              "--name", "aug"])
+    assert astate.step == 1 and int(astate.bad_steps) == 0
+    assert np.isfinite(atest["MAE"]) and 0.0 <= atest["iou"] <= 1.0
+    run = tmp_path / "results" / "aug" / "0"
+    assert (run / "ckpt" / "best.ckpt").is_file()
+    assert (run / "ckpt" / "last.ckpt").is_file()
+    assert all((run / s / "stats.json").is_file()
+               for s in ("train", "val", "test"))
     if not torch.cuda.is_available():  # training defaults to the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["--limit", "8", "--epochs", "1"])
