@@ -1,30 +1,47 @@
 """CLI: training, the ADP inference sweep and the Monte-Carlo audit, on
 the card.
 
-    python -m cartnet_tpu_torch.cli --dataset synthetic|adpfix [--limit N] \
-        --epochs E --batch_accumulation A [--augment] [--name NAME] \
-        [--seed S] [--resume] [--model CartNet|eComformer|iComformer] \
-        [--cholesky] [--invariant] [--disable_temp] [--no_standarize_temp] \
-        [--disable_envelope] [--disable_atom_types] [--bf16] \
+    python -m cartnet_tpu_torch.cli --dataset synthetic|adpfix|jarvis|\
+        dft_3d_2021|megnet [--dataset_path ./datasets] \
+        [--figshare_target formation_energy_peratom] [--max_neighbours 25] \
+        [--limit N] --epochs E --batch B --batch_accumulation A \
+        [--augment] [--buckets K] [--name NAME] [--seed S] [--resume] \
+        [--model CartNet|eComformer|iComformer] [--cholesky] [--invariant] \
+        [--disable_temp] [--no_standarize_temp] [--disable_envelope] \
+        [--disable_atom_types] [--bf16] [--profile] [--no_guard] \
+        [--guard_retries R] [--heartbeat FILE] [--heartbeat_interval S] \
         [--device cuda|cpu]
+    python -m cartnet_tpu_torch.cli --dataset jarvis --verify_ingest
     python -m cartnet_tpu_torch.cli --dataset adpfix --inference|--montecarlo \
         [--checkpoint_path results/NAME/S/ckpt/best.ckpt] \
         [--inference_output out.pkl] [--bf16] [--device cuda|cpu]
 
 Flags, the synthetic splits and the run directory ``results/<name>/<seed>``
 (``stats.json`` per split, ``ckpt/best.ckpt`` and ``ckpt/last.ckpt``)
-mirror cartnet_tpu/cli.py; the ``synthetic`` and ``adpfix`` sources are the
-ones ported. As there, the head follows the dataset: the ADP sources
-(``adpfix``; ``ADP`` is not ported yet) and ``--cholesky`` give the
-Cholesky head on ADP targets; otherwise ``--dataset synthetic`` trains the
-scalar head on scalar targets. The temperature input is on only for the
-ADP sources (and then off with ``--disable_temp``); adpfix temperatures
-are standardized unless ``--no_standarize_temp``. ``--augment`` rotates
-the train split each epoch (forced off for the two Comformers, as in the
-JAX CLI). ``--resume`` continues a run from its ``last.ckpt``.
-``--invariant``, ``--disable_envelope`` and ``--disable_atom_types`` are
-the reference's ablation switches. ``--model`` is case-insensitive;
-CartNet, the eComformer and the iComformer all serve (``--inference`` and
+mirror cartnet_tpu/cli.py; the ``synthetic``, ``adpfix`` and figshare
+(``jarvis`` = ``dft_3d_2021``, ``megnet``) sources are the ones ported
+(``ADP`` is not yet). The figshare sources read
+``<dataset_path>/raw/<name>.json`` (or its zip; fetched from figshare
+where the machine has a network) and cache their graphs under
+``<dataset_path>``; ``--verify_ingest`` checks the payload, reports the
+filter and split sizes and a few graph builds, and exits. As in the JAX
+CLI, the head follows the dataset: the ADP sources and ``--cholesky``
+give the Cholesky head on ADP targets; otherwise the scalar head trains
+on scalar targets. The temperature input is on only for the ADP sources
+(and then off with ``--disable_temp``); adpfix temperatures are
+standardized unless ``--no_standarize_temp``. ``--max_neighbours`` caps
+the radius graph for the Comformers (CartNet takes the uncapped graph).
+``--augment`` rotates the train split each epoch (forced off for the two
+Comformers, as in the JAX CLI). ``--buckets`` pads each edge-count
+quantile to its own shape. ``--resume`` continues a run from its
+``last.ckpt``. ``--profile`` traces the first train epoch into
+``<run dir>/profile``; ``--heartbeat`` writes an atomic liveness file
+every epoch and every ``--heartbeat_interval`` seconds; the guard rolls a
+diverging run back to its last checkpoint up to ``--guard_retries`` times
+(``--no_guard``: no step guard and no rollback). ``--invariant``,
+``--disable_envelope`` and ``--disable_atom_types`` are the reference's
+ablation switches. ``--model`` is case-insensitive; CartNet, the
+eComformer and the iComformer all serve (``--inference`` and
 ``--montecarlo`` need the Cholesky head) and train. Without a checkpoint
 the weights are random, drawn from ``--seed``; with one (a reference or
 port ``best.ckpt``, or a state_dict the port saved), training, the sweep
@@ -39,9 +56,13 @@ import os
 
 import torch
 
-from cartnet_tpu_torch.config import (Config, DataConfig, ModelConfig,
-                                      OptimConfig, resolve_device)
+import numpy as np
+
+from cartnet_tpu_torch.config import (Config, DataConfig, GuardConfig,
+                                      ModelConfig, OptimConfig,
+                                      resolve_device)
 from cartnet_tpu_torch.data.adpfix import load_fixture
+from cartnet_tpu_torch.data import jarvis
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import load_reference_checkpoint
@@ -59,7 +80,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(case-insensitive)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--dataset", type=str, default="synthetic",
-                   help="synthetic or adpfix (the sources ported so far)")
+                   help="synthetic, adpfix, jarvis (= dft_3d_2021) or "
+                        "megnet (the sources ported so far)")
+    p.add_argument("--dataset_path", type=str, default="./datasets",
+                   help="figshare sources: <path>/raw and the graph cache")
+    p.add_argument("--figshare_target", type=str,
+                   default="formation_energy_peratom")
+    p.add_argument("--max_neighbours", type=int, default=25,
+                   help="radius-graph cap of the Comformers (CartNet: none)")
+    p.add_argument("--buckets", type=int, default=1,
+                   help="size-quantile buckets with their own pad shapes")
+    p.add_argument("--verify_ingest", action="store_true",
+                   help="check the figshare payload, report the filter and "
+                        "split sizes and a sample graph build, then exit")
     p.add_argument("--limit", type=int, default=None,
                    help="truncate dataset (smoke runs)")
     p.add_argument("--inference", action="store_true",
@@ -100,6 +133,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force the Cholesky ADP head (e.g. synthetic ADP "
                         "runs; implied by the ADP sources)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the first train epoch (torch.profiler) into "
+                        "<run dir>/profile")
+    p.add_argument("--no_guard", action="store_false", dest="guard",
+                   help="no device-side step guard and no rollback")
+    p.add_argument("--guard_retries", type=int, default=2,
+                   help="checkpoint rollbacks before a diverging run stops")
+    p.add_argument("--heartbeat", type=str, default=None,
+                   help="atomic JSON liveness file, written every epoch "
+                        "and every --heartbeat_interval seconds")
+    p.add_argument("--heartbeat_interval", type=float, default=30.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p
@@ -119,29 +163,48 @@ def args_to_config(args) -> Config:
         use_envelope=args.envelope, use_atom_types=args.use_atom_types,
         cholesky=adp_like or args.cholesky,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
-    data = DataConfig(name=args.dataset, radius=args.radius,
+    # the reference's rule: CartNet takes the uncapped radius graph
+    data = DataConfig(name=args.dataset, path=args.dataset_path,
+                      target=args.figshare_target, radius=args.radius,
+                      max_neighbors=-1 if name == "cartnet"
+                      else args.max_neighbours,
                       batch_size=args.batch,
                       augment=args.augment and name not in ("ecomformer",
                                                             "icomformer"),
-                      standarize_temp=args.standarize_temp)
+                      standarize_temp=args.standarize_temp,
+                      buckets=args.buckets)
     optim = OptimConfig(lr=args.lr, max_epoch=args.epochs,
                         warmup=args.warmup,
                         batch_accumulation=args.batch_accumulation,
                         loss=args.loss)
-    return Config(model=model, data=data, optim=optim, seed=args.seed,
-                  name=args.name,
+    guard = GuardConfig(enabled=args.guard, max_retries=args.guard_retries,
+                        heartbeat_path=args.heartbeat,
+                        heartbeat_interval=args.heartbeat_interval)
+    return Config(model=model, data=data, optim=optim, guard=guard,
+                  seed=args.seed, name=args.name,
                   run_dir=os.path.join("results", args.name, str(args.seed)))
+
+
+FIGSHARE = ("jarvis", "dft_3d_2021", "megnet")
 
 
 def load_datasets(data: DataConfig, limit=None, adp: bool = True):
     """(train, val, test) record lists. ``adpfix``: the frozen fixture
-    (200 / 20 / 20, ``limit`` cuts to limit / k / k). ``synthetic``: the
-    reference CLI's records (seed 123, ~32 atoms per crystal), sizes
-    n / k / k with n = limit (default 128); ADP targets with ``adp`` (the
-    Cholesky head), else one scalar per crystal. k = max(n // 4, 2)."""
+    (200 / 20 / 20, ``limit`` cuts to limit / k / k). The figshare sources
+    (``jarvis`` = ``dft_3d_2021``, ``megnet``): ``jarvis.build_dataset``
+    on ``data.path`` (the seed-123 split, ``limit`` cuts to limit /
+    limit // 8 / limit // 8).
+    ``synthetic``: the reference CLI's records (seed 123, ~32 atoms per
+    crystal), sizes n / k / k with n = limit (default 128); ADP targets
+    with ``adp`` (the Cholesky head), else one scalar per crystal. k =
+    max(n // 4, 2)."""
     if data.name == "adpfix":
         return load_fixture(standarize_temp=data.standarize_temp,
                             limit=limit)
+    if data.name in FIGSHARE:
+        return jarvis.build_dataset(data.name, data.target, data.path,
+                                    data.radius, data.max_neighbors,
+                                    limit=limit)
     if data.name != "synthetic":
         raise ValueError(f"dataset {data.name!r} is not ported yet")
     n = limit or 128
@@ -155,15 +218,18 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
     cfg = args_to_config(args)
+    if args.verify_ingest:
+        return verify_ingest(cfg)
+    device = resolve_device(args.device)
     state_dict = None
     if args.checkpoint_path:
         state_dict = load_reference_checkpoint(args.checkpoint_path)
         logging.info("loaded checkpoint %s", args.checkpoint_path)
     splits = load_datasets(cfg.data, args.limit, adp=cfg.model.cholesky)
     if not (args.inference or args.montecarlo):
-        return run(cfg, splits, device, state_dict, resume=args.resume)
+        return run(cfg, splits, device, state_dict, resume=args.resume,
+                   profile=args.profile)
     model = create_model(cfg.model, device, args.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -172,6 +238,41 @@ def main(argv=None):
                           args.inference_output, device=device)
     batches = make_batches(splits[2], cfg.data.batch_size)
     return inference(model, batches, args.inference_output, device)
+
+
+def verify_ingest(cfg: Config) -> dict:
+    """--verify_ingest: check the raw figshare payload (the archive's
+    checksum or CRC where a zip is there), report the filter and split
+    sizes and three sample graph builds, then exit (no training) ->
+    those sizes."""
+    name = cfg.data.name
+    if name not in FIGSHARE:
+        raise ValueError(f"--verify_ingest supports figshare datasets only "
+                         f"(got {name!r})")
+    raw_name = "dft_3d_2021" if name == "jarvis" else name
+    zip_path = os.path.join(cfg.data.path, "raw", f"{raw_name}.zip")
+    if os.path.exists(zip_path):
+        logging.info("archive integrity: %s",
+                     jarvis.verify_archive(raw_name, zip_path))
+    data = jarvis.load_raw(name, cfg.data.path)
+    logging.info("raw records: %d", len(data))
+    dat, targets = jarvis.filter_by_target(data, cfg.data.target)
+    tr, va, te = jarvis.split_123(len(dat))
+    logging.info("target %r: %d usable -> split %d/%d/%d (seed-123 "
+                 "protocol)", cfg.data.target, len(dat), len(tr), len(va),
+                 len(te))
+    for i in range(min(3, len(dat))):
+        rec = jarvis.atoms_to_record(dat[i]["atoms"],
+                                     np.float32(targets[i]).item()
+                                     if np.ndim(targets[i]) == 0
+                                     else targets[i],
+                                     radius=cfg.data.radius)
+        logging.info("sample %d: %d atoms, %d edges, finite=%s", i,
+                     len(rec["z"]), len(rec["edge_src"]),
+                     bool(np.isfinite(rec["cart_dist"]).all()))
+    logging.info("verify_ingest OK")
+    return {"raw": len(data), "usable": len(dat),
+            "split": (len(tr), len(va), len(te))}
 
 
 if __name__ == "__main__":

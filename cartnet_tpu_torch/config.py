@@ -1,9 +1,10 @@
 """Immutable typed configuration (port of cartnet_tpu/config.py).
 
 What the inference sweep and the trainer read: the model hyperparameters,
-the data settings (synthetic and adpfix sources, augmentation), the
-optimizer/schedule, the device-side step guard, and the run's name and
-directory (``results/<name>/<seed>`` from the CLI: stats.json files and
+the data settings (synthetic, adpfix and figshare sources, augmentation,
+size buckets), the optimizer/schedule, the step guard (device-side skip,
+host-side rollback, heartbeat), and the run's name and directory
+(``results/<name>/<seed>`` from the CLI: stats.json files and
 checkpoints). Dtypes are torch dtypes.
 """
 
@@ -41,14 +42,19 @@ class ModelConfig:
 class DataConfig:
     """Dataset / batching settings."""
 
-    name: str = "synthetic"  # synthetic | adpfix
+    name: str = "synthetic"  # synthetic | adpfix | jarvis | megnet | ...
+    path: str = "./datasets"  # figshare sources: <path>/raw and the cache
+    target: str = "formation_energy_peratom"  # figshare target column
     radius: float = 5.0
+    max_neighbors: int = -1  # radius-graph cap (-1: none; CartNet)
     batch_size: int = 4
     # per-epoch SO(3) augmentation of the train split
     augment: bool = False
     # standardize the adpfix source's temperatures (--no_standarize_temp
     # turns it off)
     standarize_temp: bool = True
+    # size-quantile buckets, each with its own pad shape (1: one shape)
+    buckets: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +76,14 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GuardConfig:
-    """The device-side non-finite step guard (train/guard.py)."""
+    """Failure detection and recovery (train/guard.py): the device-side
+    non-finite step guard, the host-side rollback and the heartbeat."""
 
-    enabled: bool = True
+    enabled: bool = True  # step guard and divergence rollback
+    max_bad_fraction: float = 0.5  # epoch bad-step share that rolls back
+    max_retries: int = 2  # rollbacks before the run raises
+    heartbeat_path: Optional[str] = None  # atomic liveness file (None: off)
+    heartbeat_interval: float = 30.0
 
 
 @dataclasses.dataclass(frozen=True)

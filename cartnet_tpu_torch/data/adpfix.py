@@ -38,7 +38,8 @@ def load_fixture(path: str = FIXTURE_PATH, standarize_temp: bool = True,
             pos = f[f"pos_{i}"].astype(np.float64)
             cell = f[f"cell_{i}"].astype(np.float64)
             temp = float(f[f"temperature_{i}"])
-            src, dst, dist, cart_dir = radius_graph_pbc(pos, cell, RADIUS)
+            src, dst, dist, cart_dir = radius_graph_pbc(pos, cell, RADIUS,
+                                                        backend="numpy")
             t_in = ((temp - TEMP_MEAN) / TEMP_STD) if standarize_temp \
                 else temp
             recs.append({

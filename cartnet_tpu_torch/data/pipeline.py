@@ -1,19 +1,27 @@
-"""Batch pipeline (port of the default path of cartnet_tpu/data/pipeline.py).
+"""Batch pipeline (port of cartnet_tpu/data/pipeline.py).
 
-Pad sizes chosen once for a whole dataset, per-graph edge alignment on
+Pad sizes chosen once for a whole dataset (or, with ``buckets`` > 1, once
+for each edge-count quantile of it), per-graph edge alignment on
 ADP-scale data, RCM relabeling where the edges are aligned, a seeded
 per-epoch shuffle and SO(3) augmentation: the train split shuffles and
 (with ``augment``) rotates each record as its batch is emitted, val/test do
-neither. Shuffle and augmentation draw from one ``np.random.default_rng``
-(``rng``) in the JAX order, so with ``buckets=1`` (the JAX default) this
-emits the same batches, in the same order, as the JAX ``BatchPipeline``
-with the same seed. ``rng``'s bit-generator state is what a resumable
-checkpoint keeps. Size buckets and background prefetch are not ported yet.
+neither and are collated once while they fit ``CACHE_BUDGET_BYTES``.
+Shuffle, bucket visit order and augmentation draw from one
+``np.random.default_rng`` (``rng``) in the JAX order, so this emits the
+same batches, in the same order, as the JAX ``BatchPipeline`` with the same
+seed, buckets or not. ``rng``'s bit-generator state is what a resumable
+checkpoint keeps. With ``prefetch`` > 0 a background thread collates up to
+that many batches ahead of the consumer; every draw an epoch makes is made
+by the time its iteration ends, so ``rng`` read after an epoch is the same
+with prefetch on or off. The fetch pool (``workers``) of the JAX pipeline
+serves lazy ADP-scale sources, which are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -60,21 +68,45 @@ def choose_pad_sizes_from_counts(nodes: np.ndarray, edges: np.ndarray,
 
 
 class BatchPipeline:
-    """Iterates padded host batches over a list of records."""
+    """Iterates padded host batches over a list of records.
+
+    ``buckets`` > 1: records are split into size quantiles by edge count,
+    each padded to its own worst batch (bounds the pad waste a heavy size
+    tail causes under one global shape). Bucket visit order is shuffled
+    each epoch with the records; batches never mix buckets."""
+
+    # eval-batch caching is skipped above this estimated footprint
+    CACHE_BUDGET_BYTES = 2 << 30
 
     def __init__(self, records, batch_size: int,
                  max_nodes: Optional[int] = None,
                  max_edges: Optional[int] = None, shuffle: bool = False,
                  augment: bool = False, rotate_targets: bool = True,
-                 seed: int = 0, edge_align: Optional[int] = None,
+                 seed: int = 0, drop_last: bool = False, prefetch: int = 2,
+                 buckets: int = 1,
+                 edge_align: Optional[int] = None,
                  node_multiple: int = 128, edge_multiple: int = 512):
         self.records = records
         self.batch_size = batch_size
+        self.buckets = max(1, buckets)
+        self._bucket_idx: Optional[List[np.ndarray]] = None
+        self._bucket_sizes: Optional[List[tuple]] = None
         nodes, edges = record_counts(records)
         if edge_align is None:
             edge_align = edge_align_for(edges)
         self.edge_align = edge_align or 0
-        if max_nodes is None or max_edges is None:
+        if self.buckets > 1:
+            order = np.argsort(edges, kind="stable")
+            self._bucket_idx = [b for b in np.array_split(order, self.buckets)
+                                if len(b)]
+            self._bucket_sizes = [
+                choose_pad_sizes_from_counts(nodes[b], edges[b], batch_size,
+                                             node_multiple, edge_multiple,
+                                             edge_align=self.edge_align)
+                for b in self._bucket_idx]
+            max_nodes = max(s[0] for s in self._bucket_sizes)
+            max_edges = max(s[1] for s in self._bucket_sizes)
+        elif max_nodes is None or max_edges is None:
             max_nodes, max_edges = choose_pad_sizes_from_counts(
                 nodes, edges, batch_size, node_multiple, edge_multiple,
                 edge_align=self.edge_align)
@@ -82,31 +114,116 @@ class BatchPipeline:
         self.shuffle = shuffle
         self.augment = augment
         self.rotate_targets = rotate_targets
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.cache = (not shuffle and not augment
+                      and len(self) * self._batch_nbytes()
+                      < self.CACHE_BUDGET_BYTES)
         self.rng = np.random.default_rng(seed)
-        self._cached: Optional[List[CrystalBatch]] = None
+        self._cached: Optional[List[tuple]] = None
+
+    def _batch_nbytes(self) -> int:
+        """Rough collated-batch footprint (f32 fields, masks, indices)."""
+        return self.max_nodes * 64 + self.max_edges * 33
+
+    def _batches_of(self, n: int) -> int:
+        return n // self.batch_size if self.drop_last else \
+            -(-n // self.batch_size)
+
+    def bucket_batch_counts(self) -> List[int]:
+        """Batches per bucket (one pseudo-bucket when unbucketed)."""
+        if self._bucket_idx is not None:
+            return [self._batches_of(len(b)) for b in self._bucket_idx]
+        return [self._batches_of(len(self.records))]
 
     def __len__(self):
-        return -(-len(self.records) // self.batch_size)
+        return sum(self.bucket_batch_counts())
 
-    def _make_batches(self) -> Iterator[CrystalBatch]:
-        order = np.arange(len(self.records))
-        if self.shuffle:
-            self.rng.shuffle(order)
+    def _emit(self, order, mn, me) -> Iterator[CrystalBatch]:
         bs = self.batch_size
-        for i in range(0, len(order), bs):
+        stop = (len(order) // bs) * bs if self.drop_last else len(order)
+        for i in range(0, stop, bs):
             recs = [self.records[j] for j in order[i:i + bs]]
             if self.augment:
                 recs = [augment_record(r, self.rng, self.rotate_targets)
                         for r in recs]
             if self.edge_align:  # RCM only where edges are window-aligned
                 recs = [bandwidth_reorder(r) for r in recs]
-            yield collate(recs, self.max_nodes, self.max_edges, bs,
-                          edge_align=self.edge_align)
+            yield collate(recs, mn, me, bs, edge_align=self.edge_align)
+
+    def _make_batches(self) -> Iterator[tuple]:
+        """(bucket_id, batch) pairs; a bucket's id is stable across epochs
+        (the shuffle permutes the visit order, not the buckets)."""
+        if self._bucket_idx is not None:
+            border = np.arange(len(self._bucket_idx))
+            if self.shuffle:
+                self.rng.shuffle(border)
+            for bi in border:
+                order = self._bucket_idx[bi].copy()
+                if self.shuffle:
+                    self.rng.shuffle(order)
+                for b in self._emit(order, *self._bucket_sizes[bi]):
+                    yield int(bi), b
+            return
+        order = np.arange(len(self.records))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for b in self._emit(order, self.max_nodes, self.max_edges):
+            yield 0, b
+
+    def _prefetched(self) -> Iterator[tuple]:
+        """``_make_batches`` on a producer thread, up to ``prefetch``
+        batches ahead. Its errors reach the consumer; a consumer that stops
+        early stops the producer before the generator is closed."""
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            last = done
+            try:
+                for pair in self._make_batches():
+                    if not put(pair):
+                        return
+            except Exception as err:  # raised again by the consumer
+                last = err
+            finally:
+                put(last)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()
+
+    def iter_with_bucket(self) -> Iterator[tuple]:
+        """(bucket_id, batch) pairs, cached or prefetched as configured."""
+        if self.cache:
+            if self._cached is None:
+                self._cached = list(self._make_batches())
+            yield from self._cached
+        elif self.prefetch > 0:
+            yield from self._prefetched()
+        else:
+            yield from self._make_batches()
 
     def __iter__(self) -> Iterator[CrystalBatch]:
-        if self.shuffle or self.augment:
-            yield from self._make_batches()
-            return
-        if self._cached is None:  # val/test: collate once
-            self._cached = list(self._make_batches())
-        yield from self._cached
+        for _, b in self.iter_with_bucket():
+            yield b

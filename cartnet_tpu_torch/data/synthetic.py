@@ -27,7 +27,8 @@ def random_crystal(rng: np.random.Generator, n_atoms: int, radius: float = 5.0,
     pos = frac @ cell
     z = rng.integers(1, 84, n_atoms)
     src, dst, dist, cart_dir = radius_graph_pbc(pos, cell, radius,
-                                                max_neighbors)
+                                                max_neighbors,
+                                                backend="numpy")
     rec = {
         "z": z.astype(np.int32), "pos": pos.astype(np.float32),
         "cell": cell.astype(np.float32),

@@ -11,8 +11,16 @@ epoch, then the final test from ``best.ckpt`` with the 3D IoU stat on
 Cholesky heads. ``resume`` continues from ``last.ckpt``: the state, the
 epoch, the best val MAE and the train pipeline's random state, so a
 resumed run ends as the unbroken one would (the JAX package re-seeds its
-pipeline on resume instead). wandb, the heartbeat and rollback guard,
-meshes, chunks, fused epochs and the profiler are not ported yet.
+pipeline on resume instead). The guard (train/guard.py) beats the
+heartbeat file at startup, every epoch, on a rollback and at the end
+("stopped"); with ``cfg.guard.enabled`` it reports each epoch to a
+``GuardMonitor`` and, when that asks, rolls the state back to
+``last.ckpt`` (to the starting state before the first one) and retries
+the epoch with the shuffle the train pipeline's generator gives next;
+past ``max_retries`` rollbacks it raises. ``profile`` traces the first
+train epoch with ``torch.profiler`` (host and, on the card, CUDA
+activities) into ``cfg.run_dir/profile``. wandb, meshes, chunks and fused
+epochs are not ported.
 
 ``inference`` runs the eval forward batch by batch and writes one entry per
 structure: pred/true of its non-H atoms, cell, temperature, positions, atom
@@ -24,7 +32,9 @@ layouts and the log lines are the reference's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import logging
 import os
 import pickle
@@ -42,6 +52,7 @@ from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.ops.rotations import random_rotation
 from cartnet_tpu_torch.train import checkpoint as ckpt
+from cartnet_tpu_torch.train.guard import GuardMonitor, Heartbeat
 from cartnet_tpu_torch.train.logger import create_loggers
 from cartnet_tpu_torch.train.loop import (build_lr_fn, build_optimizer,
                                           eval_epoch, init_train_state,
@@ -52,8 +63,9 @@ from cartnet_tpu_torch.train.metrics import (compute_3d_iou,
 
 def pipelines(cfg: Config, splits):
     """(train, val, test) pipelines with one pad shape for all three
-    splits; train shuffles (seeded) and, with ``cfg.data.augment``,
-    rotates (targets too on Cholesky heads); val/test do neither."""
+    splits (with ``cfg.data.buckets`` > 1, one a bucket of each split);
+    train shuffles (seeded) and, with ``cfg.data.augment``, rotates
+    (targets too on Cholesky heads); val/test do neither."""
     counts = [record_counts(s) for s in splits]
     nodes = np.concatenate([c[0] for c in counts])
     edges = np.concatenate([c[1] for c in counts])
@@ -64,12 +76,13 @@ def pipelines(cfg: Config, splits):
                                shuffle=train, augment=train and
                                cfg.data.augment,
                                rotate_targets=cfg.model.cholesky,
-                               seed=cfg.seed, edge_align=align)
+                               seed=cfg.seed, buckets=cfg.data.buckets,
+                               edge_align=align)
                  for recs, train in zip(splits, (True, False, False)))
 
 
 def run(cfg: Config, splits, device="cuda", state_dict=None,
-        resume: bool = False):
+        resume: bool = False, profile: bool = False):
     """Build pipelines, model (random from ``cfg.seed``, or ``state_dict``)
     and optimizer, then ``train``."""
     device = resolve_device(device)
@@ -81,7 +94,7 @@ def run(cfg: Config, splits, device="cuda", state_dict=None,
     logging.info("model %s: %.3fM params", cfg.model.name, n_params / 1e6)
     optimizer = build_optimizer(cfg, model.parameters(), len(pipes[0]))
     return train(cfg, init_train_state(model, optimizer, cfg.seed), pipes,
-                 device, resume)
+                 device, resume, profile)
 
 
 def checkpoint_paths(run_dir: str):
@@ -90,52 +103,119 @@ def checkpoint_paths(run_dir: str):
     return os.path.join(d, "best.ckpt"), os.path.join(d, "last.ckpt")
 
 
-def train(cfg: Config, state, pipes, device="cuda", resume: bool = False):
+def _snapshot(state) -> bytes:
+    """The whole train state, serialized (the epoch-0 rollback target)."""
+    buf = io.BytesIO()
+    torch.save(state.state_dict(), buf)
+    return buf.getvalue()
+
+
+def _profiled(run_dir: str, device):
+    """A ``torch.profiler`` context writing a trace into
+    ``<run_dir>/profile``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    trace_dir = os.path.join(run_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    return torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
+
+
+def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
+          profile: bool = False):
     """Epoch loop -> (state with the best weights, test stats)."""
     device = resolve_device(device)
     train_pipe, val_pipe, test_pipe = pipes
-    micro, update, evals = make_steps(cfg)
-    lr_fn = build_lr_fn(cfg, len(train_pipe))
     loggers = create_loggers(cfg.run_dir, device)
     n_params = sum(p.numel() for p in state.model.parameters())
     for lg in loggers:
         lg.params = n_params
     best_path, last_path = checkpoint_paths(cfg.run_dir)
-    start_epoch, best_val, best_epoch = 0, float("inf"), -1
+    start_epoch, best = 0, (float("inf"), -1)
     if resume and ckpt.latest_step(last_path) is not None:
         state, meta = ckpt.restore_checkpoint(last_path, state)
         start_epoch = meta["epoch"] + 1
-        best_val, best_epoch = meta["best_val"], meta["best_epoch"]
+        best = (meta["best_val"], meta["best_epoch"])
         train_pipe.rng.bit_generator.state = meta["pipeline_rng"]
         logging.info("resumed at epoch %d (best %.5f @ %d)", start_epoch,
-                     best_val, best_epoch)
-    epoch_times = []
-    for epoch in range(start_epoch, cfg.optim.max_epoch):
+                     *best)
+    hb = Heartbeat(cfg.guard.heartbeat_path, cfg.guard.heartbeat_interval)
+    hb.start()
+    hb.beat(status="startup", epoch=start_epoch, name=cfg.name)
+    try:
+        state, best = _epochs(cfg, state, pipes, device, loggers, hb,
+                              start_epoch, best, profile)
+        if os.path.isfile(best_path):
+            state, _ = ckpt.restore_checkpoint(best_path, state)
+        eval_epoch(state, test_pipe, make_steps(cfg)[2], device,
+                   iou=cfg.model.cholesky, logger=loggers[2])
+        test_stats = loggers[2].write_epoch(best[1])
+    except BaseException:
+        hb.stop(status="failed")
+        raise
+    hb.stop()
+    return state, test_stats
+
+
+def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
+            best: tuple, profile: bool):
+    """Epochs ``epoch`` .. max_epoch - 1, with the guard's rollbacks ->
+    (state, (best val MAE, its epoch))."""
+    train_pipe, val_pipe, _ = pipes
+    micro, update, evals = make_steps(cfg)
+    lr_fn = build_lr_fn(cfg, len(train_pipe))
+    best_path, last_path = checkpoint_paths(cfg.run_dir)
+    monitor, state0 = None, None
+    if cfg.guard.enabled:
+        monitor = GuardMonitor(cfg.guard.max_bad_fraction,
+                               cfg.guard.max_retries,
+                               initial_bad_steps=int(state.bad_steps))
+        state0 = _snapshot(state)
+    first, epoch_times = epoch, []
+    while epoch < cfg.optim.max_epoch:
         t0 = time.perf_counter()
-        state, _ = train_epoch(state, train_pipe, micro, update,
-                               cfg.optim.batch_accumulation, device,
-                               loggers[0], lr_fn)
+        with (_profiled(cfg.run_dir, device) if profile and epoch == first
+              else contextlib.nullcontext()):
+            state, _ = train_epoch(state, train_pipe, micro, update,
+                                   cfg.optim.batch_accumulation, device,
+                                   loggers[0], lr_fn)
         loggers[0].write_epoch(epoch)
         eval_epoch(state, val_pipe, evals, device, logger=loggers[1])
         val_mae = loggers[1].write_epoch(epoch)["MAE"]
         epoch_times.append(time.perf_counter() - t0)
-        if val_mae < best_val:
-            best_val, best_epoch = val_mae, epoch
+        if monitor is not None and monitor.epoch_report(
+                int(state.bad_steps), max(len(train_pipe), 1),
+                float(val_mae)):
+            logging.warning("epoch %d diverged (bad steps %d, val MAE %s); "
+                            "rolling back to the last checkpoint (retry "
+                            "%d/%d)", epoch, int(state.bad_steps), val_mae,
+                            monitor.retries, cfg.guard.max_retries)
+            if ckpt.latest_step(last_path) is not None:
+                state, _ = ckpt.restore_checkpoint(last_path, state)
+            else:
+                state.load_state_dict(torch.load(io.BytesIO(state0),
+                                                 weights_only=True))
+            monitor.note_rollback(int(state.bad_steps))
+            hb.beat(status="rollback", epoch=epoch)
+            continue  # the same epoch, on the shuffle the generator gives
+        if val_mae < best[0]:
+            best = (val_mae, epoch)
             ckpt.save_checkpoint(best_path, state)
             logging.info("best checkpoint saved (epoch %d, val MAE %.5f)",
                          epoch, val_mae)
         ckpt.save_checkpoint(last_path, state, {
-            "epoch": epoch, "best_val": best_val, "best_epoch": best_epoch,
+            "epoch": epoch, "best_val": best[0], "best_epoch": best[1],
             "pipeline_rng": train_pipe.rng.bit_generator.state})
         logging.info("> Epoch %d: %.1fs (avg %.1fs) | best epoch %d val_MAE "
                      "%.5f | optimizer steps %d, bad steps %d", epoch,
-                     epoch_times[-1], np.mean(epoch_times), best_epoch,
-                     best_val, state.step, int(state.bad_steps))
-    if os.path.isfile(best_path):
-        state, _ = ckpt.restore_checkpoint(best_path, state)
-    eval_epoch(state, test_pipe, evals, device, iou=cfg.model.cholesky,
-               logger=loggers[2])
-    return state, loggers[2].write_epoch(best_epoch)
+                     epoch_times[-1], np.mean(epoch_times), best[1],
+                     best[0], state.step, int(state.bad_steps))
+        hb.beat(status="training", epoch=epoch, step=state.step,
+                best_val=float(best[0]))
+        epoch += 1
+    return state, best
 
 
 def _per_structure_rows(batch: CrystalBatch, pred, mask):

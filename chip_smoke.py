@@ -106,6 +106,22 @@ Phases, one JSON line each (every line names the card and its power limit):
               best.ckpt and last.ckpt; ``--resume --epochs 3`` adds
               exactly epoch 2; two Monte-Carlo rounds on best.ckpt
               (runner.montecarlo) give finite stats; one bf16 epoch
+  8e. jarvis  the Jarvis/MP scalar-property path on the committed sample
+              (tests/fixtures/jarvis_sample.json staged as a dataset
+              path's raw/dft_3d_2021.json; its radius graphs built with
+              backend="native", src/dst equal to numpy's; jarvis_data):
+              at the batch-64 layouts (640 / 30720 CartNet, 640 / 12800
+              the Comformers, unaligned) a CartNet forward and micro-step
+              against plain in f32 and bf16 and an f32 micro-step of each
+              Comformer against plain; after the time phase (so that the
+              in-process --profile run stays clear of its captures), the
+              CLI at full width (CartNet, dim 256, 4 layers, scalar head,
+              f32, batch 64, batch_accumulation 1, two epochs) with
+              --profile and --heartbeat (K1, K2, K4, K5 4 launches a
+              micro-step, K1, K2 4 an eval forward; finite stats lines,
+              both checkpoints, a trace file, a "stopped" heartbeat),
+              again with --buckets 2, and one epoch of the eComformer and
+              the iComformer with --max_neighbours 25
   9. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
@@ -120,7 +136,8 @@ Phases, one JSON line each (every line names the card and its power limit):
               eComformer, iComformer; bf16, then f32 through the kernels
               against the plain versions) and the train micro-step times
               (CartNet default and merged in turns, eComformer,
-              iComformer; then the f32 micro-steps of the three models),
+              iComformer; then the f32 micro-steps of the three models
+              and the Jarvis batch-64 f32 CartNet micro-step),
               and one profiled forward and micro-step of each model, path
               and dtype (device time by kernel, idle share of the device)
   10. kernels the summary line {"kernels": [...]}
@@ -230,9 +247,10 @@ ICO_K1_BF16_FWD = {**LAUNCHES["edge_phase_fwd"]["bf16"],
                    **{k: 3 * v for k, v in
                       LAUNCHES["edge_phase_fwd"]["f32"].items()}}
 # profiler captures of one timing at most (``cuda_events``), and the spin
-# kernels around each capture's calls (``_capture``): their name and length
+# kernels around each capture's calls (``_capture``): their name, length
+# (~0.1 ms each) and number at each end
 CAPTURES = 10
-GUARD_KERNEL, GUARD_CYCLES = "spin_kernel", 1000
+GUARD_KERNEL, GUARD_CYCLES, GUARDS = "spin_kernel", 200_000, 3
 
 
 def launches_of(kname: str, dt) -> dict:
@@ -284,21 +302,27 @@ def cuda_median_ms(fn, runs: int = RUNS) -> float:
 
 def _capture(fn, calls: int, cpu: bool = False) -> tuple:
     """One torch.profiler (CUPTI) capture of ``calls`` calls of ``fn``
-    between two short spin kernels (``torch.cuda._sleep``), which the
-    profiler's habit of now and then losing the first or the last kernel of
-    a capture takes instead of ``fn``'s -> (``fn``'s CUDA events, the spin
-    kernels caught, wall ms of the calls)."""
+    between ``GUARDS`` spin kernels (``torch.cuda._sleep``) at each end,
+    each end closed by a synchronize: the profiler now and then loses the
+    first or the last kernels of a capture (every capture of a run lost
+    its first two on one machine, PR 14), and the spins are lost instead
+    of ``fn``'s -> (``fn``'s CUDA events, the spin kernels caught, wall ms
+    of the calls to their synchronize)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     with profile(activities=acts) as prof:
-        torch.cuda._sleep(GUARD_CYCLES)
+        for _ in range(GUARDS):
+            torch.cuda._sleep(GUARD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
-        torch.cuda._sleep(GUARD_CYCLES)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(GUARDS):
+            torch.cuda._sleep(GUARD_CYCLES)
+        torch.cuda.synchronize()
     evs = [ev for ev in prof.events()
            if ev.device_type == torch.autograd.DeviceType.CUDA]
     kept = [ev for ev in evs if GUARD_KERNEL not in ev.name]
@@ -1277,6 +1301,203 @@ def adpfix_phase(card: str, dev) -> None:
         fail(f"adpfix phase: {bad}")
 
 
+JARVIS_TARGET = "formation_energy_peratom"
+
+
+def jarvis_argv(data: str) -> list:
+    """The CLI flags of the Jarvis path at batch 64 (full width: the
+    CLI's defaults, f32)."""
+    return ["--dataset", "jarvis", "--dataset_path", data,
+            "--figshare_target", JARVIS_TARGET, "--batch", "64",
+            "--batch_accumulation", "1"]
+
+
+def jarvis_layouts(card: str, dev):
+    """8e. The Jarvis/MP scalar-property path's data and kernels: the
+    committed sample (tests/fixtures/jarvis_sample.json, 100 records)
+    staged as ``jarvis_data/raw/dft_3d_2021.json``, its graphs built
+    through the native radius graph (``backend="native"``, which raises
+    if g++ fails here; src/dst equal to the numpy graph's, dir within
+    1e-5), cached for the CLI runs (``jarvis_cli``). At the batch-64
+    layouts (CartNet's uncapped graph 640 / 30720, the Comformers' 25
+    neighbours 640 / 12800, unaligned, 64 graphs), on the first train
+    batch: a CartNet eval forward and micro-step through the kernels
+    against the plain versions in f32 and bf16 (scalar head, no
+    temperature), and an f32 micro-step of each Comformer. -> (the
+    dataset path, the f32 CartNet micro-step on that batch for the time
+    phase, its layout)."""
+    import shutil
+    import numpy as np
+    import torch
+    from cartnet_tpu_torch import cli, native, runner
+    from cartnet_tpu_torch.data import jarvis
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.train import loop
+    data, data_np = os.path.abspath("jarvis_data"), os.path.abspath(
+        "jarvis_data_numpy")
+    for root in (data, data_np):
+        os.makedirs(os.path.join(root, "raw"), exist_ok=True)
+        shutil.copy(os.path.join(REPO, "tests", "fixtures",
+                                 "jarvis_sample.json"),
+                    os.path.join(root, "raw", "dft_3d_2021.json"))
+
+    def no_download(url, dest):
+        raise RuntimeError(f"chip_smoke fetches nothing ({url})")
+
+    jarvis._fetch_with_resume = no_download  # the payload is staged
+    bad = []
+    t_phase = t0 = time.perf_counter()
+    for mn in (-1, 25):  # the caches the CLI runs read
+        recs = jarvis.build_dataset("jarvis", JARVIS_TARGET, data, 5.0, mn,
+                                    backend="native")
+        numpy_recs = jarvis.build_dataset("jarvis", JARVIS_TARGET, data_np,
+                                          5.0, mn, backend="numpy")
+        for a, b in zip(recs[0], numpy_recs[0]):
+            if not (np.array_equal(a["edge_src"], b["edge_src"])
+                    and np.array_equal(a["edge_dst"], b["edge_dst"])
+                    and np.allclose(a["cart_dir"], b["cart_dir"],
+                                    rtol=1e-5, atol=1e-6)):
+                bad.append(f"native graph differs from numpy (cap {mn})")
+                break
+    ingest_s = time.perf_counter() - t0
+    layouts, batch_of = {}, {}
+    for net, extra in (("cartnet", []), ("ecomformer",
+                                         ["--model", "eComformer"]),
+                       ("icomformer", ["--model", "iComformer"])):
+        cfg = cli.args_to_config(cli.build_parser().parse_args(
+            jarvis_argv(data) + extra))
+        pipe = runner.pipelines(cfg, cli.load_datasets(cfg.data))[0]
+        b = next(iter(pipe)).to(dev)
+        batch_of[net] = (cfg, b)
+        layouts[net] = dict(nodes=int(b.z.shape[0]),
+                            edges=int(b.edge_src.shape[0]),
+                            real_edges=int(b.edge_mask.sum()),
+                            graphs=int(b.graph_mask.sum()),
+                            edge_align=pipe.edge_align)
+    want_layouts = {"cartnet": (640, 30720), "ecomformer": (640, 12800),
+                    "icomformer": (640, 12800)}
+    for net, (n, e) in want_layouts.items():
+        lo = layouts[net]
+        if (lo["nodes"], lo["edges"], lo["graphs"], lo["edge_align"]) != (
+                n, e, 64, 0):
+            bad.append(f"{net} layout {lo}")
+    emit(phase="jarvis_data", card=card, ingest_seconds=round(ingest_s, 3),
+         native_library=os.path.relpath(native.LIB, REPO),
+         layouts=layouts, failed=bad)
+    if bad:
+        fail(f"jarvis data: {bad}")
+    cfg, b = batch_of["cartnet"]
+    want_f = dict.fromkeys(KERNELS, 0)
+    want_f.update(edge_phase_fwd=4, sigma_segsum_fwd=4)
+    for dt, tol in ((torch.float32, F32_STEP_TOL), (torch.bfloat16,
+                                                     PRED_TOL)):
+        c = with_dtype(cfg, dt)
+        m = create_model(c.model, dev, c.seed)
+        forward_vs_plain(card, m, b, plain_cartnet_forward, want_f, tol,
+                         phase="jarvis_forward", **layouts["cartnet"],
+                         compute_dtype=str(dt))
+        train_vs_plain(card, c, m, b, tol)
+    for net in ("ecomformer", "icomformer"):
+        c, cb = batch_of[net]
+        train_vs_plain(card, c, create_model(c.model, dev, c.seed), cb,
+                       F32_STEP_TOL, plain_ecomformer_kernels)
+    emit(phase="jarvis_checks", card=card,
+         seconds=round(time.perf_counter() - t_phase, 3))
+    m32 = create_model(cfg.model, dev, cfg.seed)
+    st32 = loop.init_train_state(m32, loop.build_optimizer(
+        cfg, m32.parameters(), 1))
+    micro32 = loop.make_steps(cfg)[0]
+    return data, (lambda: micro32(st32, b)), layouts["cartnet"]
+
+
+def jarvis_cli(card: str, data: str) -> dict:
+    """8e (after the time phase, so that the in-process --profile run
+    stays clear of its captures). The Jarvis path through the CLI on the
+    staged sample (``jarvis_layouts``) at full width (CartNet, dim 256,
+    64 RBF, 4 layers, scalar head, f32, batch 64, batch_accumulation 1,
+    two epochs) with --profile and --heartbeat: K1, K2, K4, K5 4 launches
+    a micro-step and K1, K2 4 an eval forward, finite stats lines, both
+    checkpoints, a trace file and a "stopped" heartbeat; the same with
+    --buckets 2; one epoch of the eComformer and the iComformer with
+    --max_neighbours 25 (their launches a micro-step and a forward). ->
+    the first run's launches."""
+    import glob
+    import torch
+    from cartnet_tpu_torch import cli, runner
+    from cartnet_tpu_torch.train.guard import read_heartbeat
+    argv = jarvis_argv(data)
+    bad = []
+
+    def run_cli(extra, micro_k, fwd_k):
+        """One CLI run -> (state, test, launches, expected, run dir)."""
+        args = cli.build_parser().parse_args(argv + extra)
+        cfg = cli.args_to_config(args)
+        pipes = runner.pipelines(cfg, cli.load_datasets(cfg.data))
+        micro = args.epochs * len(pipes[0])
+        evals = args.epochs * len(pipes[1]) + len(pipes[2])
+        want = dict.fromkeys(KERNELS, 0)
+        for k, n in micro_k.items():
+            want[k] += n * micro
+        for k, n in fwd_k.items():
+            want[k] += n * evals
+        launch_counts(reset=True)
+        state, test = cli.main(argv + extra)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        if got != want:
+            bad.append(f"{extra}: launches {got}, expected {want}")
+        if int(state.bad_steps) or not all(
+                math.isfinite(v) for v in test.values()):
+            bad.append(f"{extra}: bad steps {int(state.bad_steps)}, "
+                       f"test {test}")
+        return state, test, got, want, cfg.run_dir
+
+    cartnet_micro = dict.fromkeys(CARTNET_KERNELS, 4)
+    cartnet_fwd = dict(edge_phase_fwd=4, sigma_segsum_fwd=4)
+    t_phase = t0 = time.perf_counter()
+    state, test, launches, expect, run_dir = run_cli(
+        ["--epochs", "2", "--name", "jarvis_smoke", "--profile",
+         "--heartbeat", "heartbeat.json"], cartnet_micro, cartnet_fwd)
+    cli_s = time.perf_counter() - t0
+    lines = {}
+    for split, n in (("train", 2), ("val", 2), ("test", 1)):
+        with open(os.path.join(run_dir, split, "stats.json")) as f:
+            lines[split] = [json.loads(x) for x in f if x.strip()]
+        if len(lines[split]) != n or not all(
+                math.isfinite(r["MAE"]) for r in lines[split]):
+            bad.append(f"{split} stats.json: {lines[split]}")
+    if not all(os.path.isfile(p) for p in runner.checkpoint_paths(run_dir)):
+        bad.append("best.ckpt or last.ckpt missing")
+    traces = glob.glob(os.path.join(run_dir, "profile", "*.json"))
+    trace_mb = sum(os.path.getsize(t) for t in traces) / 2 ** 20
+    heartbeat = read_heartbeat("heartbeat.json") or {}
+    if not traces or heartbeat.get("status") != "stopped":
+        bad.append(f"trace files {traces}, heartbeat {heartbeat}")
+    bstate, btest, blaunches, bexpect, _ = run_cli(
+        ["--epochs", "2", "--name", "jarvis_buckets", "--buckets", "2"],
+        cartnet_micro, cartnet_fwd)
+    comformer_runs = {}
+    for net, micro_k, fwd_k in (("eComformer", ECO_MICRO, ECO_FWD),
+                                ("iComformer", ICO_MICRO, ICO_FWD)):
+        _, ctest, clo, _, _ = run_cli(
+            ["--epochs", "1", "--name", f"jarvis_{net}", "--model", net,
+             "--max_neighbours", "25"], micro_k, fwd_k)
+        comformer_runs[net] = dict(launches=clo, test_MAE=ctest["MAE"])
+    emit(phase="jarvis", card=card, launches=launches,
+         expected_launches=expect, launches_buckets=blaunches,
+         expected_launches_buckets=bexpect, comformers=comformer_runs,
+         optimizer_steps=state.step, optimizer_steps_buckets=bstate.step,
+         stats_lines={k: len(v) for k, v in lines.items()},
+         val_MAE=[r["MAE"] for r in lines["val"]], test=test,
+         test_buckets=btest, trace_files=len(traces),
+         trace_mb=round(trace_mb, 3), heartbeat=heartbeat.get("status"),
+         cli_seconds=round(cli_s, 3),
+         seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
+    if bad:
+        fail(f"jarvis phase: {bad}")
+    return launches
+
+
 # ----------------------------------------------------------------- main
 
 def main() -> int:
@@ -2160,6 +2381,10 @@ def phases(_build) -> int:
     # 8d. the adpfix product path through the CLI
     adpfix_phase(card, dev)
 
+    # 8e. the Jarvis/MP scalar-property path: data and kernels (its CLI
+    # runs follow the time phase)
+    jdata, jstep, jlayout = jarvis_layouts(card, dev)
+
     # 9. times at the main paths' shapes
     rows_t = {k: {} for k in KERNELS}
 
@@ -2524,6 +2749,21 @@ def phases(_build) -> int:
                   f"train_micro_step_f32", **profile_call(step32))
         del m32, st32
 
+    # the Jarvis batch-64 f32 CartNet micro-step (640 / 30720, scalar head)
+    jstep_ms = cuda_median_ms(jstep, 20)
+    with plain_kernels():
+        jstep_plain_ms = cuda_median_ms(jstep, 20)
+    emit(phase="train_step", card=card, model="cartnet", path="jarvis",
+         compute_dtype="f32", micro_step_ms=jstep_ms,
+         micro_step_ms_plain=jstep_plain_ms, runs=20, **jlayout,
+         edges_per_s=jlayout["real_edges"] / (jstep_ms / 1e3),
+         edges_per_s_plain=jlayout["real_edges"] / (jstep_plain_ms / 1e3))
+    emit(phase="profile", card=card, what="jarvis_train_micro_step_f32",
+         **profile_call(jstep))
+    # 8e. the Jarvis path through the CLI (its --profile run after the
+    # time phase's captures)
+    launches_jarvis = jarvis_cli(card, jdata)
+
     # 10. summary: K1, K2, K4, K5 per launch on the CartNet training path
     # (all four run in every micro-step, in the bf16 training case), K6 on
     # the merged CartNet training path (its 16 micro-steps); K3 and
@@ -2563,6 +2803,7 @@ def phases(_build) -> int:
             "launches_inference": launches_inf[kname],
             "launches_icomformer_inference": launches_ico[kname],
             "launches_icomformer_train": launches_itrain[kname],
+            "launches_jarvis_cli": launches_jarvis[kname],
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
@@ -2588,6 +2829,7 @@ def phases(_build) -> int:
             "launches_ecomformer_train": launches_etrain[kname],
             "launches_icomformer_inference": launches_ico[kname],
             "launches_icomformer_train": launches_itrain[kname],
+            "launches_jarvis_cli": launches_jarvis[kname],
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

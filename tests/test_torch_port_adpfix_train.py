@@ -12,6 +12,21 @@ augmented batches are bitwise the same on both sides
 only: sums in other orders, amplified where Adam's first update divides a
 gradient by its own magnitude. Stated tolerances: the MAE lines within
 1e-4 relative, eval forwards within 1e-5 of the largest prediction.
+
+``val_mae_both`` is the F5 comparison: one checkpoint's val MAE through
+the port's eval forward and through the JAX package's (which reads the
+checkpoint with ``load_torch_checkpoint``), in bf16 and in f32, on the
+same val batches. A test runs it on a port ``best.ckpt`` at dim 32; run
+as a script it takes a full-width checkpoint of the README's fixture
+run on the CPU:
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_port_adpfix_train.py \
+        f5_audit/bf16_last.pt
+
+(one JSON line: each package's val MAE per dtype, their relative
+difference, and the largest per-structure prediction difference over the
+largest prediction). Limits: the MAEs within 2% of each other, the
+predictions within the bf16 forward tolerance, 3e-2.
 """
 
 import json
@@ -140,6 +155,55 @@ def test_best_ckpt_loads_in_jax(runs):
     m = mask.numpy()
     a, r = pred.numpy()[m], np.asarray(ref)[m]
     assert np.abs(a - r).max() <= PRED_TOL * np.abs(r).max()
+
+
+def val_mae_both(ckpt, argv, dtype: str) -> dict:
+    """``ckpt``'s val MAE (the weighted mean of |pred - y| over non-H
+    atoms) through both packages' eval forwards in ``dtype`` ("bf16" or
+    "f32"), on the val batches the CLI of ``argv`` builds."""
+    extra = ["--bf16"] if dtype == "bf16" else []
+    cfg = cli.args_to_config(cli.build_parser().parse_args(argv + extra))
+    jcfg = jcli.args_to_config(jcli.build_parser().parse_args(argv + extra))
+    splits = load_fixture(limit=cli.build_parser().parse_args(argv).limit)
+    model = CartNet(cfg.model, device="cpu")
+    model.load_state_dict(load_reference_checkpoint(ckpt), strict=True)
+    params, bn = load_torch_checkpoint(ckpt, jcfg.model)
+    err = {"port": 0.0, "jax": 0.0}
+    n, pred_err, scale = 0, 0.0, 0.0
+    for tb, jb in zip(runner.pipelines(cfg, splits)[1],
+                      jrunner._pipelines(jcfg, splits)[1]):
+        with torch.no_grad():
+            pred, mask = model(tb.to("cpu"))
+        ref, _, _ = M.cartnet_apply(params, bn, jax.tree.map(jnp.asarray,
+                                                             jb),
+                                    jcfg.model, training=False)
+        m = mask.numpy()
+        ours = pred.float().numpy()[m]
+        theirs = np.asarray(ref.astype(jnp.float32))[m]
+        y = np.asarray(tb.y)[m]
+        err["port"] += float(np.abs(ours - y).sum())
+        err["jax"] += float(np.abs(theirs - y).sum())
+        n += y.size
+        pred_err = max(pred_err, float(np.abs(ours - theirs).max()))
+        scale = max(scale, float(np.abs(theirs).max()))
+    mae = {k: v / n for k, v in err.items()}
+    return {"dtype": dtype, "val_MAE_port": mae["port"],
+            "val_MAE_jax": mae["jax"],
+            "rel_diff": abs(mae["port"] - mae["jax"]) / mae["jax"],
+            "pred_max_rel": pred_err / scale}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_val_mae_matches_jax_on_a_port_checkpoint(runs, dtype):
+    """F5's comparison on a port best.ckpt at dim 32: the two packages'
+    eval forwards give the same val MAE within 2% and the same
+    predictions within 3e-2 (bf16) / PRED_TOL (f32)."""
+    root, _, _ = runs
+    best, _ = runner.checkpoint_paths(str(root / "results" / "port" / "0"))
+    out = val_mae_both(best, SMALL, dtype)
+    assert out["rel_diff"] <= 2e-2, out
+    assert out["pred_max_rel"] <= (3e-2 if dtype == "bf16" else PRED_TOL), \
+        out
 
 
 def test_montecarlo_round_matches_jax(runs, tmp_path, monkeypatch):
@@ -296,3 +360,11 @@ def test_train_epoch_feeds_the_logger(tmp_path):
     assert "r2" in vline and "spearmanr" in vline
     assert vline["edges_per_sec"] > 0 and vline["time_epoch"] > 0
     assert abs(vline["MAE"] - loop.epoch_means(vrows)["MAE"]) <= 1e-6
+
+
+if __name__ == "__main__":
+    import sys
+    jax.config.update("jax_platforms", "cpu")
+    full = ["--dataset", "adpfix", "--augment", "--batch", "4"]
+    print(json.dumps([val_mae_both(sys.argv[1], full, dt)
+                      for dt in ("bf16", "f32")]))
