@@ -1,26 +1,32 @@
 """CLI: training, the ADP inference sweep and the Monte-Carlo audit, on
 the card.
 
-    python -m cartnet_tpu_torch.cli --dataset synthetic|adpfix|jarvis|\
-        dft_3d_2021|megnet [--dataset_path ./datasets] \
+    python -m cartnet_tpu_torch.cli [--dataset ADP|synthetic|adpfix|jarvis|\
+        dft_3d_2021|megnet] [--dataset_path ./datasets] \
         [--figshare_target formation_energy_peratom] [--max_neighbours 25] \
         [--limit N] --epochs E --batch B --batch_accumulation A \
         [--augment] [--buckets K] [--name NAME] [--seed S] [--resume] \
         [--model CartNet|eComformer|iComformer] [--cholesky] [--invariant] \
         [--disable_temp] [--no_standarize_temp] [--disable_envelope] \
-        [--disable_atom_types] [--bf16] [--profile] [--no_guard] \
-        [--guard_retries R] [--heartbeat FILE] [--heartbeat_interval S] \
-        [--device cuda|cpu]
+        [--disable_H] [--disable_atom_types] [--bf16] [--profile] \
+        [--no_guard] [--guard_retries R] [--heartbeat FILE] \
+        [--heartbeat_interval S] [--wandb [--wandb_project P] \
+        [--wandb_entity E]] [--dp N] [--coordinator HOST:PORT \
+        --num_processes P --process_id I] [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset jarvis --verify_ingest
-    python -m cartnet_tpu_torch.cli --dataset adpfix --inference|--montecarlo \
+    python -m cartnet_tpu_torch.cli --dataset ADP --inference|--montecarlo \
         [--checkpoint_path results/NAME/S/ckpt/best.ckpt] \
         [--inference_output out.pkl] [--bf16] [--device cuda|cpu]
 
 Flags, the synthetic splits and the run directory ``results/<name>/<seed>``
 (``stats.json`` per split, ``ckpt/best.ckpt`` and ``ckpt/last.ckpt``)
-mirror cartnet_tpu/cli.py; the ``synthetic``, ``adpfix`` and figshare
-(``jarvis`` = ``dft_3d_2021``, ``megnet``) sources are the ones ported
-(``ADP`` is not yet). The figshare sources read
+mirror cartnet_tpu/cli.py, and so does the default source, ``ADP``: the
+CSD thermal-ellipsoid graphs, ``<dataset_path>/csv/{train,val,test}_files.csv``
+(one refcode a line) and ``<dataset_path>/data/<refcode>.pt`` (the
+reference's per-structure graphs), loaded lazily (``data/adp.py``) and
+fetched by a pool of 4 threads; ``--disable_H`` drops the H atoms, the
+Comformers re-edge under ``--max_neighbours``, and the iComformer
+canonicalizes each cell. The figshare sources read
 ``<dataset_path>/raw/<name>.json`` (or its zip; fetched from figshare
 where the machine has a network) and cache their graphs under
 ``<dataset_path>``; ``--verify_ingest`` checks the payload, reports the
@@ -40,8 +46,16 @@ every epoch and every ``--heartbeat_interval`` seconds; the guard rolls a
 diverging run back to its last checkpoint up to ``--guard_retries`` times
 (``--no_guard``: no step guard and no rollback). ``--invariant``,
 ``--disable_envelope`` and ``--disable_atom_types`` are the reference's
-ablation switches. ``--model`` is case-insensitive; CartNet, the
-eComformer and the iComformer all serve (``--inference`` and
+ablation switches. ``--wandb`` logs the epochs to wandb (a warning and
+nothing else when wandb is missing or offline). ``--dp N`` trains
+data-parallel on N ranks, one card each: without ``--coordinator`` it
+starts N processes on this host (rank r on ``cuda:r``; fewer cards than N
+is an error); with ``--coordinator host:port --num_processes P
+--process_id I`` this process is rank I of P (one per card, on
+``cuda:<I mod the host's cards>``), joined over TCP. ``--ep``, ``--halo``
+and ``--chunks`` are accepted and raise: they are not ported yet.
+``--model`` is case-insensitive; CartNet, the eComformer and the
+iComformer all serve (``--inference`` and
 ``--montecarlo`` need the Cholesky head) and train. Without a checkpoint
 the weights are random, drawn from ``--seed``; with one (a reference or
 port ``best.ckpt``, or a state_dict the port saved), training, the sweep
@@ -51,23 +65,29 @@ and the audit start from it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 import numpy as np
 
 from cartnet_tpu_torch.config import (Config, DataConfig, GuardConfig,
                                       ModelConfig, OptimConfig,
-                                      resolve_device)
+                                      ParallelConfig, resolve_device)
+from cartnet_tpu_torch.data.adp import ADPDataset, LazyRecords
 from cartnet_tpu_torch.data.adpfix import load_fixture
 from cartnet_tpu_torch.data import jarvis
 from cartnet_tpu_torch.data.batching import make_batches
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import load_reference_checkpoint
 from cartnet_tpu_torch.models.factory import create_model
-from cartnet_tpu_torch.runner import inference, montecarlo, pipelines, run
+from cartnet_tpu_torch.parallel import dist as pdist
+from cartnet_tpu_torch.runner import (check_parallel, inference, montecarlo,
+                                      pipelines, rank0_first, run)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,11 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CartNet, eComformer or iComformer "
                         "(case-insensitive)")
     p.add_argument("--batch", type=int, default=4)
-    p.add_argument("--dataset", type=str, default="synthetic",
-                   help="synthetic, adpfix, jarvis (= dft_3d_2021) or "
-                        "megnet (the sources ported so far)")
+    p.add_argument("--dataset", type=str, default="ADP",
+                   help="ADP, synthetic, adpfix, jarvis (= dft_3d_2021) or "
+                        "megnet")
     p.add_argument("--dataset_path", type=str, default="./datasets",
-                   help="figshare sources: <path>/raw and the graph cache")
+                   help="ADP: <path>/csv and <path>/data; figshare "
+                        "sources: <path>/raw and the graph cache")
     p.add_argument("--figshare_target", type=str,
                    default="formation_energy_peratom")
     p.add_argument("--max_neighbours", type=int, default=25,
@@ -124,9 +145,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no temperature input (ADP sources only)")
     p.add_argument("--no_standarize_temp", action="store_false",
                    dest="standarize_temp",
-                   help="raw temperatures for the adpfix source")
+                   help="raw temperatures for the ADP sources")
     p.add_argument("--disable_envelope", action="store_false",
                    dest="envelope", help="no cosine cutoff envelope")
+    p.add_argument("--disable_H", action="store_false", dest="use_H",
+                   help="drop H atoms and their edges (ADP source)")
     p.add_argument("--disable_atom_types", action="store_false",
                    dest="use_atom_types", help="no atom-type embedding")
     p.add_argument("--cholesky", action="store_true",
@@ -144,6 +167,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="atomic JSON liveness file, written every epoch "
                         "and every --heartbeat_interval seconds")
     p.add_argument("--heartbeat_interval", type=float, default=30.0)
+    p.add_argument("--wandb_project", type=str, default="ADP")
+    p.add_argument("--wandb_entity", type=str, default="")
+    p.add_argument("--wandb", action="store_true", help="enable wandb logging")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
+    p.add_argument("--ep", type=int, default=1, help="edge-parallel mesh axis")
+    p.add_argument("--halo", action="store_true",
+                   help="halo edge partitioning: shard nodes over ep too; "
+                        "per-layer comms = boundary-atom all_to_all instead "
+                        "of a full [N,d] all-reduce")
+    p.add_argument("--halo_max", type=int, default=None,
+                   help="static per-owner halo row cap (default: nodes/ep)")
+    p.add_argument("--chunks", type=int, default=1,
+                   help="chunked single-device execution (not ported yet)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="multi-host: torch.distributed coordinator address "
+                        "(host:port); omit on single host")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p
@@ -172,6 +213,8 @@ def args_to_config(args) -> Config:
                       augment=args.augment and name not in ("ecomformer",
                                                             "icomformer"),
                       standarize_temp=args.standarize_temp,
+                      use_hydrogens=args.use_H,
+                      optimize_cell=name == "icomformer",
                       buckets=args.buckets)
     optim = OptimConfig(lr=args.lr, max_epoch=args.epochs,
                         warmup=args.warmup,
@@ -180,8 +223,10 @@ def args_to_config(args) -> Config:
     guard = GuardConfig(enabled=args.guard, max_retries=args.guard_retries,
                         heartbeat_path=args.heartbeat,
                         heartbeat_interval=args.heartbeat_interval)
-    return Config(model=model, data=data, optim=optim, guard=guard,
-                  seed=args.seed, name=args.name,
+    par = ParallelConfig(dp=args.dp, ep=args.ep, halo=args.halo,
+                         halo_max=args.halo_max, chunks=args.chunks)
+    return Config(model=model, data=data, optim=optim, parallel=par,
+                  guard=guard, seed=args.seed, name=args.name,
                   run_dir=os.path.join("results", args.name, str(args.seed)))
 
 
@@ -189,7 +234,9 @@ FIGSHARE = ("jarvis", "dft_3d_2021", "megnet")
 
 
 def load_datasets(data: DataConfig, limit=None, adp: bool = True):
-    """(train, val, test) record lists. ``adpfix``: the frozen fixture
+    """(train, val, test) record sources. ``ADP``: a ``LazyRecords`` over
+    each split's csv of refcodes and their ``.pt`` graphs under
+    ``data.path`` (the first ``limit`` of each split). ``adpfix``: the frozen fixture
     (200 / 20 / 20, ``limit`` cuts to limit / k / k). The figshare sources
     (``jarvis`` = ``dft_3d_2021``, ``megnet``): ``jarvis.build_dataset``
     on ``data.path`` (the seed-123 split, ``limit`` cuts to limit /
@@ -198,6 +245,14 @@ def load_datasets(data: DataConfig, limit=None, adp: bool = True):
     crystal), sizes n / k / k with n = limit (default 128); ADP targets
     with ``adp`` (the Cholesky head), else one scalar per crystal. k =
     max(n // 4, 2)."""
+    if data.name == "ADP":
+        return tuple(LazyRecords(ADPDataset(
+            os.path.join(data.path, "data"),
+            os.path.join(data.path, "csv", f"{split}_files.csv"),
+            standarize_temp=data.standarize_temp,
+            hydrogens=data.use_hydrogens, optimize_cell=data.optimize_cell,
+            max_neighbors=data.max_neighbors, radius=data.radius),
+            limit=limit) for split in ("train", "val", "test"))
     if data.name == "adpfix":
         return load_fixture(standarize_temp=data.standarize_temp,
                             limit=limit)
@@ -206,7 +261,7 @@ def load_datasets(data: DataConfig, limit=None, adp: bool = True):
                                     data.radius, data.max_neighbors,
                                     limit=limit)
     if data.name != "synthetic":
-        raise ValueError(f"dataset {data.name!r} is not ported yet")
+        raise ValueError(f"dataset {data.name!r} not implemented")
     n = limit or 128
     k = max(n // 4, 2)
     recs = synthetic_dataset(n + 2 * k, mean_atoms=32, radius=data.radius,
@@ -214,14 +269,55 @@ def load_datasets(data: DataConfig, limit=None, adp: bool = True):
     return recs[:n], recs[n:n + k], recs[n + k:n + 2 * k]
 
 
+def _dp_rank(rank: int, coordinator: str, argv: list, nprocs: int) -> None:
+    """Rank ``rank`` of a one-host ``--dp`` run (``pdist.spawn``)."""
+    main(list(argv) + ["--coordinator", coordinator, "--num_processes",
+                       str(nprocs), "--process_id", str(rank)])
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
     if args.verify_ingest:
         return verify_ingest(cfg)
-    device = resolve_device(args.device)
+    check_parallel(cfg)
+    dp = cfg.parallel.dp
+    if args.coordinator is None and dp > 1:
+        # one host: start the ranks, one card each, and wait for them
+        resolve_device(args.device)
+        pdist.check_cards(dp, args.device)
+        if args.montecarlo:
+            raise ValueError("--montecarlo runs in one process (--dp 1)")
+        pdist.spawn(_dp_rank, dp, (argv, dp))
+        return None
+    device, group = args.device, None
+    if args.coordinator is not None:
+        if dp not in (1, args.num_processes):
+            raise ValueError(f"--dp {dp} differs from --num_processes "
+                             f"{args.num_processes}")
+        if args.montecarlo:
+            raise ValueError("--montecarlo runs in one process (--dp 1)")
+        device = resolve_device(pdist.rank_device(args.device,
+                                                  args.process_id))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        group = pdist.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id, device)
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, dp=pdist.world(group)))
+    try:
+        return _serve_or_train(args, cfg, resolve_device(device), group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _serve_or_train(args, cfg: Config, device, group):
+    """Training, the inference sweep or the Monte-Carlo audit (``main``
+    after the process group is set up)."""
     state_dict = None
     if args.checkpoint_path:
         state_dict = load_reference_checkpoint(args.checkpoint_path)
@@ -229,15 +325,22 @@ def main(argv=None):
     splits = load_datasets(cfg.data, args.limit, adp=cfg.model.cholesky)
     if not (args.inference or args.montecarlo):
         return run(cfg, splits, device, state_dict, resume=args.resume,
-                   profile=args.profile)
+                   profile=args.profile, group=group,
+                   wandb=dict(project=args.wandb_project,
+                              entity=args.wandb_entity)
+                   if args.wandb else None)
     model = create_model(cfg.model, device, args.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     if args.montecarlo:
         return montecarlo(cfg, model, pipelines(cfg, splits)[2],
                           args.inference_output, device=device)
-    batches = make_batches(splits[2], cfg.data.batch_size)
-    return inference(model, batches, args.inference_output, device)
+    # a lazy source streams through its pipeline; a record list is
+    # batched as it is
+    batches = (make_batches(splits[2], cfg.data.batch_size)
+               if isinstance(splits[2], list)
+               else rank0_first(group, lambda: pipelines(cfg, splits))[2])
+    return inference(model, batches, args.inference_output, device, group)
 
 
 def verify_ingest(cfg: Config) -> dict:

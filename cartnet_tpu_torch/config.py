@@ -1,9 +1,11 @@
 """Immutable typed configuration (port of cartnet_tpu/config.py).
 
 What the inference sweep and the trainer read: the model hyperparameters,
-the data settings (synthetic, adpfix and figshare sources, augmentation,
-size buckets), the optimizer/schedule, the step guard (device-side skip,
-host-side rollback, heartbeat), and the run's name and directory
+the data settings (synthetic, adpfix, CSD ADP and figshare sources,
+hydrogens, the iComformer's cell canonicalization, augmentation, size
+buckets), the optimizer/schedule, the parallel layout (data-parallel
+ranks), the step guard (device-side skip, host-side rollback, heartbeat),
+and the run's name and directory
 (``results/<name>/<seed>`` from the CLI: stats.json files and
 checkpoints). Dtypes are torch dtypes.
 """
@@ -42,17 +44,21 @@ class ModelConfig:
 class DataConfig:
     """Dataset / batching settings."""
 
-    name: str = "synthetic"  # synthetic | adpfix | jarvis | megnet | ...
-    path: str = "./datasets"  # figshare sources: <path>/raw and the cache
+    name: str = "synthetic"  # synthetic | adpfix | ADP | jarvis | megnet ...
+    path: str = "./datasets"  # ADP: <path>/{csv,data}; figshare: <path>/raw
     target: str = "formation_energy_peratom"  # figshare target column
     radius: float = 5.0
     max_neighbors: int = -1  # radius-graph cap (-1: none; CartNet)
     batch_size: int = 4
     # per-epoch SO(3) augmentation of the train split
     augment: bool = False
-    # standardize the adpfix source's temperatures (--no_standarize_temp
+    # standardize the ADP sources' temperatures (--no_standarize_temp
     # turns it off)
     standarize_temp: bool = True
+    # ADP source: keep H atoms (--disable_H drops them and their edges)
+    use_hydrogens: bool = True
+    # ADP source: canonicalize each lattice (the iComformer's)
+    optimize_cell: bool = False
     # size-quantile buckets, each with its own pad shape (1: one shape)
     buckets: int = 1
 
@@ -75,6 +81,19 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The parallel layout: ``dp`` data-parallel ranks, one card each
+    (parallel/). ``ep``, ``halo`` and ``chunks`` > 1 are the JAX package's
+    edge-parallel, halo and chunked layouts, not ported yet."""
+
+    dp: int = 1
+    ep: int = 1
+    halo: bool = False
+    halo_max: Optional[int] = None
+    chunks: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class GuardConfig:
     """Failure detection and recovery (train/guard.py): the device-side
     non-finite step guard, the host-side rollback and the heartbeat."""
@@ -91,6 +110,8 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
     guard: GuardConfig = dataclasses.field(default_factory=GuardConfig)
     seed: int = 0
     name: str = "CartNet"

@@ -13,8 +13,11 @@ seed, buckets or not. ``rng``'s bit-generator state is what a resumable
 checkpoint keeps. With ``prefetch`` > 0 a background thread collates up to
 that many batches ahead of the consumer; every draw an epoch makes is made
 by the time its iteration ends, so ``rng`` read after an epoch is the same
-with prefetch on or off. The fetch pool (``workers``) of the JAX pipeline
-serves lazy ADP-scale sources, which are not ported yet.
+with prefetch on or off. With ``workers`` > 1 a thread pool fetches each
+batch's records (lazy sources such as ``data/adp.LazyRecords``, which load
+a ``.pt`` file per record); the records come back in order and are
+augmented after the fetch, in order, so the batches are bitwise those of
+``workers=0``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -33,7 +37,11 @@ from cartnet_tpu_torch.data.schema import CrystalBatch
 
 
 def record_counts(records) -> tuple:
-    """(node_counts, edge_counts) arrays of a record list."""
+    """(node_counts, edge_counts) arrays of a record source; a lazy source
+    answers from its own ``counts()`` (a sidecar file) without loading its
+    records."""
+    if hasattr(records, "counts"):
+        return records.counts()
     nodes = np.array([len(r["z"]) for r in records])
     edges = np.array([len(r["edge_src"]) for r in records])
     return nodes, edges
@@ -83,7 +91,7 @@ class BatchPipeline:
                  max_edges: Optional[int] = None, shuffle: bool = False,
                  augment: bool = False, rotate_targets: bool = True,
                  seed: int = 0, drop_last: bool = False, prefetch: int = 2,
-                 buckets: int = 1,
+                 workers: int = 0, buckets: int = 1,
                  edge_align: Optional[int] = None,
                  node_multiple: int = 128, edge_multiple: int = 512):
         self.records = records
@@ -116,6 +124,8 @@ class BatchPipeline:
         self.rotate_targets = rotate_targets
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.workers = workers
+        self._pool: Optional[ThreadPoolExecutor] = None
         self.cache = (not shuffle and not augment
                       and len(self) * self._batch_nbytes()
                       < self.CACHE_BUDGET_BYTES)
@@ -139,11 +149,20 @@ class BatchPipeline:
     def __len__(self):
         return sum(self.bucket_batch_counts())
 
+    def _fetch(self, idxs) -> List[dict]:
+        """The records at ``idxs``, in order (a thread pool with
+        ``workers`` > 1)."""
+        if self.workers > 1:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(self.workers)
+            return list(self._pool.map(self.records.__getitem__, idxs))
+        return [self.records[j] for j in idxs]
+
     def _emit(self, order, mn, me) -> Iterator[CrystalBatch]:
         bs = self.batch_size
         stop = (len(order) // bs) * bs if self.drop_last else len(order)
         for i in range(0, stop, bs):
-            recs = [self.records[j] for j in order[i:i + bs]]
+            recs = self._fetch(order[i:i + bs])
             if self.augment:
                 recs = [augment_record(r, self.rng, self.rotate_targets)
                         for r in recs]

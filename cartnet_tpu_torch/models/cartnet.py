@@ -175,11 +175,11 @@ class CartNetLayer(nn.Module):
                 cast(a1.weight).t().contiguous(), cast(a1.bias))
 
     def forward(self, x, e, batch: CrystalBatch,
-                env: Optional[torch.Tensor], cast: Cast):
+                env: Optional[torch.Tensor], cast: Cast, group=None):
         """One message-passing layer -> (x_out, e_out); train mode when
-        ``self.training``."""
+        ``self.training`` (sync BN over ``group``'s ranks with one)."""
         if self.training:
-            return self._train_forward(x, e, batch, env, cast)
+            return self._train_forward(x, e, batch, env, cast, group)
         eps = self.cfg.bn_eps
         wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
         pdt = torch.promote_types(x.dtype, wi.dtype)
@@ -203,7 +203,7 @@ class CartNetLayer(nn.Module):
         return F.silu(aggr) + x, e_out
 
     def _train_forward(self, x, e, batch: CrystalBatch,
-                       env: Optional[torch.Tensor], cast: Cast):
+                       env: Optional[torch.Tensor], cast: Cast, group=None):
         """The train-mode layer (the JAX package's ``fused_edge_sigma``:
         the ``_fes_plain`` composition, or ``_fes_op`` under
         ``CARTNET_MERGED=1``); advances norm/norm2's running stats."""
@@ -219,20 +219,20 @@ class CartNetLayer(nn.Module):
         if os.environ.get("CARTNET_MERGED", "0") == "1":
             e_out, aggr, mean, var, n = FusedEdgeSigma.apply(
                 xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env_col,
-                *idx, eps)
+                *idx, eps, group)
             bn_state_update(self.norm, mean, var, n, mom)
         else:
             gate, sender, e_res, s1w, m2w = EdgePhase.apply(
                 xi, xj, e, we, b, w1g, b1g, w1a, b1a, *idx)
             scale, shift = bn_scale_shift_from_window_moments(
                 self.norm, gamma, beta, s1w, m2w, batch.edge_mask,
-                TILE_EDGES, mom, eps)
+                TILE_EDGES, mom, eps, group)
             e_out, aggr = SigmaSegsum.apply(
                 gate, scale, shift, env_col, sender, e_res, batch.edge_dst,
                 batch.edge_mask, batch.dst_rowptr, batch.num_nodes)
         aggr, (mean, var, n) = masked_batch_norm_train(
             aggr, cast(self.norm2.weight), cast(self.norm2.bias),
-            batch.node_mask, eps)
+            batch.node_mask, eps, group)
         bn_state_update(self.norm2, mean, var, n, mom)
         return F.silu(aggr) + x, e_out
 
@@ -280,7 +280,9 @@ class CartNet(nn.Module):
     ``device`` (the card unless the caller passes ``device="cpu"``), in
     eval mode. ``forward`` -> (pred, pred_mask), where pred is [N, 3, 3]
     (Cholesky, mask = non-H real nodes) or [G] (scalar, mask = real
-    graphs); after ``model.train()`` it is the train forward.
+    graphs); after ``model.train()`` it is the train forward, whose BNs
+    are sync BN over the ranks of ``group`` when one is given (data
+    parallelism, parallel/step.py).
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
@@ -310,11 +312,11 @@ class CartNet(nn.Module):
         return rbf_ops.cosine_cutoff(batch.cart_dist.to(dtype),
                                      self.cfg.radius)
 
-    def forward(self, batch: CrystalBatch):
+    def forward(self, batch: CrystalBatch, group=None):
         x, e = self.encoder(batch, self.cast)
         env = self.envelope(batch, x.dtype)
         for layer in self.layers:
-            x, e = layer(x, e, batch, env, self.cast)
+            x, e = layer(x, e, batch, env, self.cast, group)
         if self.cfg.cholesky:
             return self.head(x, self.cast), batch.non_h_mask
         return self.head(x, batch, self.cast), batch.graph_mask

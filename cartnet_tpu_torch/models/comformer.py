@@ -104,9 +104,11 @@ class ComformerConv(nn.Module):
         self.bn_att = nn.BatchNorm1d(d, eps=cfg.bn_eps,
                                      momentum=cfg.bn_momentum, dtype=dt)
 
-    def forward(self, x, edge_attr, batch: CrystalBatch, p: Params):
+    def forward(self, x, edge_attr, batch: CrystalBatch, p: Params,
+                group=None):
         """x [N, d], edge_attr [E, d] -> x [N, d]; train mode when
-        ``self.training`` (advances bn/bn_att's running stats)."""
+        ``self.training`` (advances bn/bn_att's running stats; sync BN
+        over ``group``'s ranks with one)."""
         d, eps, mom = x.shape[1], self.cfg.bn_eps, self.cfg.bn_momentum
         k, q, v = (_lin(p, n, x) for n in ("lin_key", "lin_query",
                                             "lin_value"))
@@ -137,7 +139,7 @@ class ComformerConv(nn.Module):
         if self.training:
             (scale, shift), (mean, var, n) = masked_bn_scale_shift_train(
                 alpha, p["bn_att.weight"], p["bn_att.bias"], batch.edge_mask,
-                eps)
+                eps, group)
             bn_state_update(self.bn_att, mean, var, n, mom)
             sigma = SigmaSegsum.apply
         else:
@@ -154,7 +156,8 @@ class ComformerConv(nn.Module):
         out = _lin(p, "lin_concate", out)
         if self.training:
             out, (mean, var, n) = masked_batch_norm_train(
-                out, p["bn.weight"], p["bn.bias"], batch.node_mask, eps)
+                out, p["bn.weight"], p["bn.bias"], batch.node_mask, eps,
+                group)
             bn_state_update(self.bn, mean, var, n, mom)
         else:
             out = masked_batch_norm(out, p["bn.weight"], p["bn.bias"],
@@ -192,20 +195,22 @@ class ComformerConvEdge(nn.Module):
         self.bn_att = nn.BatchNorm1d(d, eps=cfg.bn_eps,
                                      momentum=cfg.bn_momentum, dtype=dt)
 
-    def _norm(self, bn: nn.BatchNorm1d, name: str, x, mask, p: Params):
+    def _norm(self, bn: nn.BatchNorm1d, name: str, x, mask, p: Params,
+              group=None):
         eps = self.cfg.bn_eps
         if not self.training:
             return masked_batch_norm(x, p[f"{name}.weight"], p[f"{name}.bias"],
                                      bn.running_mean, bn.running_var, eps)
         y, (mean, var, n) = masked_batch_norm_train(
-            x, p[f"{name}.weight"], p[f"{name}.bias"], mask, eps)
+            x, p[f"{name}.weight"], p[f"{name}.bias"], mask, eps, group)
         bn_state_update(bn, mean, var, n, self.cfg.bn_momentum)
         return y
 
-    def forward(self, edge_attr, nei_len, nei_ang, edge_mask, p: Params):
+    def forward(self, edge_attr, nei_len, nei_ang, edge_mask, p: Params,
+                group=None):
         """edge_attr [E, d], nei_len / nei_ang [3E, d] channel-major ->
         edge_attr [E, d]; train mode when ``self.training`` (advances bn
-        and bn_att's running stats)."""
+        and bn_att's running stats; sync BN over ``group``'s ranks)."""
         E, d = edge_attr.shape
         q, kx, vx = (_lin(p, n, edge_attr) for n in ("lin_query", "lin_key",
                                                       "lin_value"))
@@ -223,11 +228,11 @@ class ComformerConvEdge(nn.Module):
         key = _lin(p, "key_update.2", F.silu(pre3("key_update", kx, ky)))
         alpha = (q.repeat(3, 1) * key) / math.sqrt(d)
         alpha = self._norm(self.bn_att, "bn_att", alpha, edge_mask.repeat(3),
-                           p)
+                           p, group)
         msg = _lin(p, "msg_update.2", F.silu(pre3("msg_update", vx, vy)))
         out3 = _lin(p, "lin_concate", msg * torch.sigmoid(alpha))
         out = (out3[:E] + out3[E:2 * E]) + out3[2 * E:]
-        out = self._norm(self.bn, "bn", out, edge_mask, p)
+        out = self._norm(self.bn, "bn", out, edge_mask, p, group)
         return F.softplus(edge_attr + out)
 
 
@@ -336,7 +341,8 @@ class EComformer(_Comformer):
     Built on the CPU from ``seed`` with a torch.Generator, then moved to
     ``device`` (the card unless the caller passes ``device="cpu"``), in
     eval mode. ``forward`` -> (pred, pred_mask) as ``CartNet``'s; after
-    ``model.train()`` the conv and block layers run their train forward.
+    ``model.train()`` the conv and block layers run their train forward
+    (sync BN over the ranks of ``group`` when one is given).
     """
 
     NAME = "ecomformer"
@@ -358,13 +364,13 @@ class EComformer(_Comformer):
         self.to(device)
         self.eval()
 
-    def forward(self, batch: CrystalBatch):
+    def forward(self, batch: CrystalBatch, group=None):
         p, x, dist = self._encode(batch)
         e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
-        x = self.conv0(x, e, batch, p.sub("conv0"))
-        x = self.equi(x, e, batch, p.sub("equi"))
-        x = self.conv1(x, e, batch, p.sub("conv1"))
-        x = self.conv2(x, e, batch, p.sub("conv2"))
+        x = self.conv0(x, e, batch, p.sub("conv0"), group)
+        x = self.equi(x, e, batch, p.sub("equi"), group)
+        x = self.conv1(x, e, batch, p.sub("conv1"), group)
+        x = self.conv2(x, e, batch, p.sub("conv2"), group)
         return self._head(x, batch)
 
 
@@ -397,7 +403,7 @@ class IComformer(_Comformer):
         self.to(device)
         self.eval()
 
-    def forward(self, batch: CrystalBatch):
+    def forward(self, batch: CrystalBatch, group=None):
         p, x, dist = self._encode(batch)
         e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
         nei_len_feat, cosang = lattice_features(batch, self.cfg.compute_dtype)
@@ -406,9 +412,10 @@ class IComformer(_Comformer):
                             "rbf_centers", "rbf_gamma")
         nei_ang = _rbf_head(p, "rbf_angle", cosang.t().reshape(-1),
                             "rbfa_centers", "rbfa_gamma")
-        x = self.conv0(x, e, batch, p.sub("conv0"))
+        x = self.conv0(x, e, batch, p.sub("conv0"), group)
         e = self.edge_update(e, nei_len, nei_ang, batch.edge_mask,
-                             p.sub("edge_update"))
+                             p.sub("edge_update"), group)
         for i in (1, 2, 3):
-            x = getattr(self, f"conv{i}")(x, e, batch, p.sub(f"conv{i}"))
+            x = getattr(self, f"conv{i}")(x, e, batch, p.sub(f"conv{i}"),
+                                          group)
         return self._head(x, batch)

@@ -100,7 +100,8 @@ class EquiBlock(nn.Module):
         self.bn = nn.BatchNorm1d(NS, eps=cfg.bn_eps, momentum=cfg.bn_momentum,
                                  dtype=dt)
 
-    def forward(self, x, edge_attr, batch: CrystalBatch, p: Params):
+    def forward(self, x, edge_attr, batch: CrystalBatch, p: Params,
+                group=None):
         src_perm, dst = batch.edge_src_perm, batch.edge_dst
         E = dst.shape[0]
         y0, y1, y2 = spherical_harmonics_l012(batch.cart_dir.to(x.dtype))
@@ -135,7 +136,7 @@ class EquiBlock(nn.Module):
         if self.training:
             out, (mean, var, n) = masked_batch_norm_train(
                 out, p["bn.weight"], p["bn.bias"], batch.node_mask,
-                self.cfg.bn_eps)
+                self.cfg.bn_eps, group)
             bn_state_update(self.bn, mean, var, n, self.cfg.bn_momentum)
         else:
             out = masked_batch_norm(out, p["bn.weight"], p["bn.bias"],

@@ -628,19 +628,21 @@ class FusedEdgeSigma(torch.autograd.Function):
     window-moment merge through autograd on the same
     ``combine_window_moments`` the forward ran, then K6; gradients come back
     in the primal dtypes, denv only when autograd asks for it (the model's
-    env has no gradient). env [E, 1] is in gate's dtype."""
+    env has no gradient). env [E, 1] is in gate's dtype. With a process
+    ``group`` the merge is sync BN (nn/norm.py), and the backward runs it
+    again, its all-reduces included, on every rank of the group."""
 
     @staticmethod
     def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env,
                 dst, src, emask, dst_rowptr, src_perm, src_rowptr,
-                eps: float):
+                eps: float, group=None):
         gate, sender, pre, s1w, m2w = edge_phase_fwd(
             xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
             saved=True, pre_only=True, moments=True)
         nt = s1w.shape[0]
         n_w = emask.reshape(nt, -1).sum(dim=1, dtype=torch.float32)[:, None]
         (scale, shift), (mean, var, n) = combine_window_moments(
-            gamma, beta, s1w, m2w, n_w, eps)
+            gamma, beta, s1w, m2w, n_w, eps, group)
         scale, shift = scale.float().contiguous(), shift.float().contiguous()
         e_out, aggr = sk.sigma_segsum(gate, scale, shift, env, sender, e, dst,
                                       emask, dst_rowptr,
@@ -648,7 +650,7 @@ class FusedEdgeSigma(torch.autograd.Function):
         ctx.save_for_backward(e, we, w1g, w1a, gamma, beta, env, dst, src,
                               emask, dst_rowptr, src_perm, src_rowptr, pre,
                               gate, sender, s1w, m2w, scale, shift)
-        ctx.eps = eps
+        ctx.eps, ctx.group = eps, group
         ctx.dtypes = [t.dtype for t in (xi, xj, e, we, b, w1g, b1g, w1a,
                                         b1a)]
         ctx.mark_non_differentiable(mean, var, n)
@@ -677,7 +679,8 @@ class FusedEdgeSigma(torch.autograd.Function):
         with torch.enable_grad():
             prim = [t.detach().requires_grad_()
                     for t in (gamma, beta, s1w, m2w)]
-            (sc, sh), _ = combine_window_moments(*prim, n_w, ctx.eps)
+            (sc, sh), _ = combine_window_moments(*prim, n_w, ctx.eps,
+                                                 ctx.group)
             dgamma, dbeta, ds1w, dm2w = torch.autograd.grad(
                 (sc, sh), prim, (dscale.to(sc.dtype), dshift.to(sh.dtype)))
         meanw = s1w / torch.clamp(n_w, min=1.0)
@@ -688,4 +691,4 @@ class FusedEdgeSigma(torch.autograd.Function):
         # in the primal order: xi, xj, e, we, b, w1g, b1g, w1a, b1a
         primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
         return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
-            + (dgamma, dbeta, denv) + (None,) * 7
+            + (dgamma, dbeta, denv) + (None,) * 8

@@ -1,0 +1,83 @@
+"""Data-parallel training steps over a ``torch.distributed`` group (port of
+cartnet_tpu/parallel/step.py's ``make_parallel_steps`` with ep = 1).
+
+Each rank holds the whole model and a batch of its own crystals (member r
+of each group of dp consecutive batches, ``runner.ShardedPipeline``). A
+micro-step on every rank:
+
+  * the train forward with sync BN over the group: each BN sums its masked
+    count and moments over the ranks (nn/norm.py), so every rank normalizes
+    with the union batch's moments and advances the same running stats;
+  * the masked loss sums and count (and, on Cholesky heads, the ADP stat
+    sums) summed over the ranks in one all-reduce: the loss is the global
+    sum over the global count, its value the same on every rank, its
+    gradient flowing through this rank's own sums only;
+  * the backward (the BNs' all-reduces sum their cotangents over the
+    ranks), then one all-reduce (sum) of the flattened gradients: every
+    rank holds the gradient of the union batch, with no factor of the
+    group's size (the JAX package's loss is likewise global);
+  * the step guard on the global loss and the summed gradients, so its
+    decision, and the accumulation count, agree on every rank.
+
+The update and the eval step are the single-process ones: every rank
+applies the same gradients to the same weights, and eval BN reads the
+running stats, which agree. Edge parallelism (ep > 1), halo partitioning
+and chunked execution are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from cartnet_tpu_torch.config import Config
+from cartnet_tpu_torch.data.schema import CrystalBatch
+from cartnet_tpu_torch.train.loop import (accumulate, bn_buffers, make_steps,
+                                          param_grads)
+from cartnet_tpu_torch.train.metrics import adp_stat_sums, masked_sums
+from cartnet_tpu_torch.train.state import TrainState
+
+
+def all_reduce_flat(tensors, group) -> None:
+    """Sums same-dtype ``tensors`` over the ranks of ``group`` in place,
+    in one all-reduce of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def make_parallel_steps(cfg: Config, group):
+    """-> (micro_step, update_step, eval_step) of data parallelism over
+    ``group``; each rank calls them on its own device batch."""
+    _, update_step, eval_step = make_steps(cfg)
+
+    def micro_step(state: TrainState, batch: CrystalBatch):
+        model = state.model
+        model.train()
+        bufs = bn_buffers(model)
+        old_bn = [b.clone() for b in bufs] if cfg.guard.enabled else None
+        pred, mask = model(batch, group=group)
+        sums = list(masked_sums(pred, batch.y, mask))
+        if cfg.model.cholesky:
+            sums += list(adp_stat_sums(pred.detach(), batch.y, mask))
+        tot = torch.stack([s.detach() for s in sums])
+        dist.all_reduce(tot, group=group)
+        cnt = torch.clamp(tot[2], min=1.0)
+        # the global sums' values, with the gradient of this rank's own
+        sa = tot[0] + (sums[0] - sums[0].detach())
+        sq = tot[1] + (sums[1] - sums[1].detach())
+        mae, mse = sa / cnt, sq / cnt
+        loss = mae if cfg.optim.loss == "MAE" else mse
+        grads = param_grads(loss, state.optimizer.params)
+        all_reduce_flat(grads, group)
+        accumulate(state, cfg, loss, grads, bufs, old_bn)
+        stats = {"loss": loss.detach(), "MAE": mae.detach(),
+                 "MSE": mse.detach()}
+        if cfg.model.cholesky:
+            n = torch.clamp(tot[5], min=1.0)
+            stats["volume_percentage_error"] = tot[3] / n
+            stats["similarity_index"] = tot[4] / n
+        return state, stats
+
+    return micro_step, update_step, eval_step

@@ -19,13 +19,28 @@ heartbeat file at startup, every epoch, on a rollback and at the end
 the epoch with the shuffle the train pipeline's generator gives next;
 past ``max_retries`` rollbacks it raises. ``profile`` traces the first
 train epoch with ``torch.profiler`` (host and, on the card, CUDA
-activities) into ``cfg.run_dir/profile``. wandb, meshes, chunks and fused
-epochs are not ported.
+activities) into ``cfg.run_dir/profile``. ``wandb`` logs each epoch's
+stats and the test stats to a wandb run (``train/logger.WandbLogger``).
+
+Data parallelism (a ``torch.distributed`` group of ``cfg.parallel.dp``
+ranks, one card each; parallel/): every rank iterates the same seeded
+pipelines and takes member r of each group of dp consecutive batches
+(``ShardedPipeline``; a short last group gives the ranks past its end an
+all-masked batch, so that every rank reaches each collective), so an
+epoch has ``sharded_steps_per_epoch`` optimizer micro-steps on every rank
+and the OneCycle schedule is built from that count, as in the JAX
+package. The steps are ``parallel/step.make_parallel_steps``; the loggers
+sum the epoch's stats over the ranks. Rank 0 alone writes ``stats.json``,
+the checkpoints, the heartbeat, the profile and the inference pickle;
+``resume`` and a rollback restore every rank from the same file. Edge
+parallelism, halo partitioning, chunked execution and fused epochs are not
+ported yet (ROADMAP M1).
 
 ``inference`` runs the eval forward batch by batch and writes one entry per
 structure: pred/true of its non-H atoms, cell, temperature, positions, atom
 types, its index as ``refcode``, and its MAE, per-atom 3D IoU and per-atom
-S12. ``montecarlo`` repeats the sweep under random rotations of the edge
+S12 (under data parallelism each rank sweeps its member batches and rank 0
+gathers the entries in the single-process order). ``montecarlo`` repeats the sweep under random rotations of the edge
 directions, against the unrotated prediction rotated as Rᵀ U R. The pickle
 layouts and the log lines are the reference's.
 """
@@ -39,10 +54,11 @@ import logging
 import os
 import pickle
 import time
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cartnet_tpu_torch.config import Config, resolve_device
 from cartnet_tpu_torch.data.pipeline import (BatchPipeline,
@@ -51,9 +67,11 @@ from cartnet_tpu_torch.data.pipeline import (BatchPipeline,
 from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.ops.rotations import random_rotation
+from cartnet_tpu_torch.parallel import dist as pdist
+from cartnet_tpu_torch.parallel.step import make_parallel_steps
 from cartnet_tpu_torch.train import checkpoint as ckpt
 from cartnet_tpu_torch.train.guard import GuardMonitor, Heartbeat
-from cartnet_tpu_torch.train.logger import create_loggers
+from cartnet_tpu_torch.train.logger import WandbLogger, create_loggers
 from cartnet_tpu_torch.train.loop import (build_lr_fn, build_optimizer,
                                           eval_epoch, init_train_state,
                                           make_steps, train_epoch)
@@ -61,40 +79,140 @@ from cartnet_tpu_torch.train.metrics import (compute_3d_iou,
                                              get_similarity_index)
 
 
+def sharded_steps_per_epoch(unsharded_len: int, dp: int) -> int:
+    """Micro-steps per epoch of ``dp`` ranks over a pipeline of
+    ``unsharded_len`` batches (one bucket)."""
+    return -(-unsharded_len // max(dp, 1))
+
+
+def all_masked(batch: CrystalBatch) -> CrystalBatch:
+    """``batch`` with every mask off: it adds nothing to a loss, a BN
+    moment or a gradient, and keeps valid indices for the kernels."""
+    off = lambda a: None if a is None else np.zeros_like(a)
+    return dataclasses.replace(
+        batch, node_mask=off(batch.node_mask),
+        non_h_mask=off(batch.non_h_mask), edge_mask=off(batch.edge_mask),
+        graph_mask=off(batch.graph_mask),
+        edge_mask_src_sorted=off(batch.edge_mask_src_sorted),
+        src_degree=off(batch.src_degree))
+
+
+class ShardedPipeline:
+    """Rank ``rank``'s view of a pipeline under ``dp`` data-parallel ranks
+    (host batches): member ``rank`` of each group of ``dp`` consecutive
+    batches. A group never spans a bucket boundary, and a rank past the end
+    of a short group gets that group's last batch with every mask off
+    (``all_masked``), so that every rank takes the same number of steps.
+    Every rank iterates (and collates) the whole pipeline, as the JAX
+    package's single controller does, so the shuffle and the augmentation
+    draws stay those of one process."""
+
+    def __init__(self, pipe, dp: int, rank: int = 0):
+        self.pipe = pipe
+        self.dp = max(dp, 1)
+        self.rank = rank
+
+    @property
+    def rng(self):
+        return self.pipe.rng
+
+    def __len__(self):
+        if hasattr(self.pipe, "bucket_batch_counts"):
+            return sum(sharded_steps_per_epoch(c, self.dp)
+                       for c in self.pipe.bucket_batch_counts())
+        return sharded_steps_per_epoch(len(self.pipe), self.dp)
+
+    def _pairs(self):
+        if hasattr(self.pipe, "iter_with_bucket"):
+            yield from self.pipe.iter_with_bucket()
+        else:
+            for b in self.pipe:
+                yield 0, b
+
+    def _member(self, group: list) -> CrystalBatch:
+        return (group[self.rank] if self.rank < len(group)
+                else all_masked(group[-1]))
+
+    def __iter__(self):
+        group, cur = [], None
+        for bid, b in self._pairs():
+            if group and bid != cur:
+                yield self._member(group)
+                group = []
+            cur = bid
+            group.append(b)
+            if len(group) == self.dp:
+                yield self._member(group)
+                group = []
+        if group:
+            yield self._member(group)
+
+
+def check_parallel(cfg: Config) -> None:
+    """Raises for the JAX package's parallel layouts that are not ported
+    yet, rather than running without them."""
+    par = cfg.parallel
+    for flag, on in (("--ep > 1", par.ep > 1), ("--halo", par.halo),
+                     ("--chunks > 1", par.chunks > 1)):
+        if on:
+            raise ValueError(f"{flag} is not ported yet (ROADMAP M1)")
+
+
+def rank0_first(group, fn):
+    """``fn()`` on rank 0, then on the other ranks (what it writes beside
+    the data, caches and sidecars, is written once)."""
+    if group is None:
+        return fn()
+    if pdist.is_main(group):
+        out = fn()
+        dist.barrier(group)
+        return out
+    dist.barrier(group)
+    return fn()
+
+
 def pipelines(cfg: Config, splits):
     """(train, val, test) pipelines with one pad shape for all three
     splits (with ``cfg.data.buckets`` > 1, one a bucket of each split);
     train shuffles (seeded) and, with ``cfg.data.augment``, rotates
-    (targets too on Cholesky heads); val/test do neither."""
+    (targets too on Cholesky heads); val/test do neither. Lazy sources
+    (the ADP ``LazyRecords``) are fetched by a pool of 4 threads."""
     counts = [record_counts(s) for s in splits]
     nodes = np.concatenate([c[0] for c in counts])
     edges = np.concatenate([c[1] for c in counts])
     align = edge_align_for(edges)
     mn, me = choose_pad_sizes_from_counts(nodes, edges, cfg.data.batch_size,
                                           edge_align=align)
+    workers = 0 if isinstance(splits[0], list) else 4
     return tuple(BatchPipeline(recs, cfg.data.batch_size, mn, me,
                                shuffle=train, augment=train and
                                cfg.data.augment,
                                rotate_targets=cfg.model.cholesky,
-                               seed=cfg.seed, buckets=cfg.data.buckets,
-                               edge_align=align)
+                               seed=cfg.seed, workers=workers,
+                               buckets=cfg.data.buckets, edge_align=align)
                  for recs, train in zip(splits, (True, False, False)))
 
 
 def run(cfg: Config, splits, device="cuda", state_dict=None,
-        resume: bool = False, profile: bool = False):
+        resume: bool = False, profile: bool = False, group=None,
+        wandb: Optional[dict] = None):
     """Build pipelines, model (random from ``cfg.seed``, or ``state_dict``)
-    and optimizer, then ``train``."""
+    and optimizer, then ``train``; ``group``: the data-parallel ranks
+    (this process is one of them); ``wandb``: the wandb project and entity
+    to log to (None: no wandb)."""
     device = resolve_device(device)
-    pipes = pipelines(cfg, splits)
+    check_parallel(cfg)
+    pipes = rank0_first(group, lambda: pipelines(cfg, splits))
     model = create_model(cfg.model, device, cfg.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     n_params = sum(p.numel() for p in model.parameters())
     logging.info("model %s: %.3fM params", cfg.model.name, n_params / 1e6)
-    optimizer = build_optimizer(cfg, model.parameters(), len(pipes[0]))
+    steps = (len(ShardedPipeline(pipes[0], pdist.world(group)))
+             if group is not None else len(pipes[0]))
+    optimizer = build_optimizer(cfg, model.parameters(), steps)
     return train(cfg, init_train_state(model, optimizer, cfg.seed), pipes,
-                 device, resume, profile)
+                 device, resume, profile, group, wandb)
 
 
 def checkpoint_paths(run_dir: str):
@@ -124,14 +242,24 @@ def _profiled(run_dir: str, device):
 
 
 def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
-          profile: bool = False):
-    """Epoch loop -> (state with the best weights, test stats)."""
+          profile: bool = False, group=None, wandb: Optional[dict] = None):
+    """Epoch loop -> (state with the best weights, test stats); under
+    data parallelism (``group``) on this rank's member batches."""
     device = resolve_device(device)
+    check_parallel(cfg)
+    main = pdist.is_main(group)
+    if group is not None:
+        dp, r = pdist.world(group), pdist.rank(group)
+        pipes = tuple(ShardedPipeline(p, dp, r) for p in pipes)
+        logging.info("data parallel: rank %d of %d", r, dp)
     train_pipe, val_pipe, test_pipe = pipes
-    loggers = create_loggers(cfg.run_dir, device)
+    loggers = create_loggers(cfg.run_dir, device, group)
     n_params = sum(p.numel() for p in state.model.parameters())
     for lg in loggers:
         lg.params = n_params
+    wb = WandbLogger(**(wandb or {}), name=cfg.name,
+                     config=dataclasses.asdict(cfg),
+                     enabled=main and wandb is not None)
     best_path, last_path = checkpoint_paths(cfg.run_dir)
     start_epoch, best = 0, (float("inf"), -1)
     if resume and ckpt.latest_step(last_path) is not None:
@@ -141,17 +269,20 @@ def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
         train_pipe.rng.bit_generator.state = meta["pipeline_rng"]
         logging.info("resumed at epoch %d (best %.5f @ %d)", start_epoch,
                      *best)
-    hb = Heartbeat(cfg.guard.heartbeat_path, cfg.guard.heartbeat_interval)
+    hb = Heartbeat(cfg.guard.heartbeat_path if main else None,
+                   cfg.guard.heartbeat_interval)
     hb.start()
     hb.beat(status="startup", epoch=start_epoch, name=cfg.name)
     try:
         state, best = _epochs(cfg, state, pipes, device, loggers, hb,
-                              start_epoch, best, profile)
+                              start_epoch, best, profile and main, group, wb)
         if os.path.isfile(best_path):
             state, _ = ckpt.restore_checkpoint(best_path, state)
         eval_epoch(state, test_pipe, make_steps(cfg)[2], device,
                    iou=cfg.model.cholesky, logger=loggers[2])
         test_stats = loggers[2].write_epoch(best[1])
+        wb.log({f"test/{k}": v for k, v in test_stats.items()})
+        wb.finish()
     except BaseException:
         hb.stop(status="failed")
         raise
@@ -160,11 +291,13 @@ def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
 
 
 def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
-            best: tuple, profile: bool):
+            best: tuple, profile: bool, group=None, wb=None):
     """Epochs ``epoch`` .. max_epoch - 1, with the guard's rollbacks ->
     (state, (best val MAE, its epoch))."""
     train_pipe, val_pipe, _ = pipes
-    micro, update, evals = make_steps(cfg)
+    micro, update, evals = (make_steps(cfg) if group is None
+                            else make_parallel_steps(cfg, group))
+    main = pdist.is_main(group)
     lr_fn = build_lr_fn(cfg, len(train_pipe))
     best_path, last_path = checkpoint_paths(cfg.run_dir)
     monitor, state0 = None, None
@@ -181,9 +314,10 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
             state, _ = train_epoch(state, train_pipe, micro, update,
                                    cfg.optim.batch_accumulation, device,
                                    loggers[0], lr_fn)
-        loggers[0].write_epoch(epoch)
+        train_stats = loggers[0].write_epoch(epoch)
         eval_epoch(state, val_pipe, evals, device, logger=loggers[1])
-        val_mae = loggers[1].write_epoch(epoch)["MAE"]
+        val_stats = loggers[1].write_epoch(epoch)
+        val_mae = val_stats["MAE"]
         epoch_times.append(time.perf_counter() - t0)
         if monitor is not None and monitor.epoch_report(
                 int(state.bad_steps), max(len(train_pipe), 1),
@@ -202,12 +336,21 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
             continue  # the same epoch, on the shuffle the generator gives
         if val_mae < best[0]:
             best = (val_mae, epoch)
-            ckpt.save_checkpoint(best_path, state)
-            logging.info("best checkpoint saved (epoch %d, val MAE %.5f)",
-                         epoch, val_mae)
-        ckpt.save_checkpoint(last_path, state, {
-            "epoch": epoch, "best_val": best[0], "best_epoch": best[1],
-            "pipeline_rng": train_pipe.rng.bit_generator.state})
+            if main:
+                ckpt.save_checkpoint(best_path, state)
+                logging.info("best checkpoint saved (epoch %d, val MAE "
+                             "%.5f)", epoch, val_mae)
+        if main:
+            ckpt.save_checkpoint(last_path, state, {
+                "epoch": epoch, "best_val": best[0], "best_epoch": best[1],
+                "pipeline_rng": train_pipe.rng.bit_generator.state})
+        if group is not None:  # the files are there before any rank reads
+            dist.barrier(group)
+        if wb is not None:
+            wb.log({**{f"train/{k}": v for k, v in train_stats.items()},
+                    **{f"val/{k}": v for k, v in val_stats.items()},
+                    "best/epoch": best[1], "best/val_MAE": best[0]},
+                   step=epoch)
         logging.info("> Epoch %d: %.1fs (avg %.1fs) | best epoch %d val_MAE "
                      "%.5f | optimizer steps %d, bad steps %d", epoch,
                      epoch_times[-1], np.mean(epoch_times), best[1],
@@ -231,45 +374,82 @@ def _per_structure_rows(batch: CrystalBatch, pred, mask):
                "atoms": np.asarray(batch.z)[sel]}
 
 
-def _add_rows(out: dict, batch: CrystalBatch, pred, mask, device) -> None:
-    """Appends one entry per structure of a host batch to ``out`` (its
-    keys pick the fields; ``temp`` only where ``out`` has it), with the
-    per-structure MAE and the per-atom IoU and S12 computed on
-    ``device``."""
+def _entries(batch: CrystalBatch, pred, mask, device) -> list:
+    """One entry per structure of a host batch, with the per-structure MAE
+    and the per-atom IoU and S12 computed on ``device``."""
+    rows = []
     for row in _per_structure_rows(batch, pred, mask):
         p, t = row["pred"], row["true"]
-        for k in ("pred", "true", "cell", "temp", "pos", "atoms"):
+        pt = torch.as_tensor(p, device=device)
+        tt = torch.as_tensor(t, device=device)
+        rows.append({**row, "mae": float(np.abs(p - t).mean()),
+                     "iou": compute_3d_iou(pt, tt).cpu().numpy(),
+                     "similarity_index":
+                         get_similarity_index(pt, tt).cpu().numpy()})
+    return rows
+
+
+def _append(out: dict, rows: list) -> None:
+    """Appends entries to ``out`` (its keys pick the fields; ``temp`` only
+    where ``out`` has it), each with its running index as ``refcode``."""
+    for row in rows:
+        for k in ("pred", "true", "cell", "temp", "pos", "atoms", "mae",
+                  "iou", "similarity_index"):
             if k in out:
                 out[k].append(row[k])
         out["refcode"].append(len(out["refcode"]))
-        out["mae"].append(float(np.abs(p - t).mean()))
-        pt = torch.as_tensor(p, device=device)
-        tt = torch.as_tensor(t, device=device)
-        out["iou"].append(compute_3d_iou(pt, tt).cpu().numpy())
-        out["similarity_index"].append(
-            get_similarity_index(pt, tt).cpu().numpy())
+
+
+def _add_rows(out: dict, batch: CrystalBatch, pred, mask, device) -> None:
+    """Appends one entry per structure of a host batch to ``out``."""
+    _append(out, _entries(batch, pred, mask, device))
+
+
+def _gathered(per_batch: list, group):
+    """Each rank's per-batch entry lists -> on rank 0, every entry in the
+    single-process order (step by step, rank by rank); None elsewhere."""
+    if group is None:
+        return [r for rows in per_batch for r in rows]
+    main = pdist.is_main(group)
+    everyone = [None] * pdist.world(group) if main else None
+    dist.gather_object(per_batch, everyone,
+                       dst=dist.get_global_rank(group, 0), group=group)
+    if not main:
+        return None
+    return [r for step in zip(*everyone) for rows in step for r in rows]
 
 
 def inference(model, batches: Iterable[CrystalBatch], output_path: str,
-              device="cuda"):
+              device="cuda", group=None):
     """Per-structure test sweep with ADP metrics on ``device`` (the card
     unless the caller passes ``device="cpu"``).
 
     ``batches`` are host (numpy) batches; each is moved to the device, run
     through ``model`` (pred [N, 3, 3]) and split per structure. Returns the
-    dict that is pickled to ``output_path``."""
+    dict that is pickled to ``output_path``. Under data parallelism
+    (``group``) each rank sweeps its member batches of ``batches``
+    (``ShardedPipeline``) and rank 0 gathers, writes and returns the
+    entries; the other ranks return None."""
     if not model.cfg.cholesky:
         raise ValueError("the inference sweep needs the Cholesky ADP head")
     device = resolve_device(device)
     model = model.to(device)
-    out = {"pred": [], "true": [], "temp": [], "cell": [], "refcode": [],
-           "pos": [], "atoms": [], "iou": [], "mae": [],
-           "similarity_index": []}
+    if group is not None:
+        batches = ShardedPipeline(batches, pdist.world(group),
+                                  pdist.rank(group))
+    per_batch = []
     for batch in batches:
         with torch.inference_mode():
             pred, mask = model(batch.to(device))
-        _add_rows(out, batch, pred.float().cpu().numpy(),
-                  mask.cpu().numpy(), device)
+        per_batch.append(_entries(batch, pred.float().cpu().numpy(),
+                                  mask.cpu().numpy(), device))
+    rows = _gathered(per_batch, group)
+    if rows is None:
+        return None
+    out = {"pred": [], "true": [], "temp": [], "cell": [], "refcode": [],
+           "pos": [], "atoms": [], "iou": [], "mae": [],
+           "similarity_index": []}
+    _append(out, rows)
     for k in ("iou", "similarity_index"):
         v = np.concatenate(out[k]) if out[k] else np.zeros(0)
         logging.info("Mean %s: %s +/- %s", k, v.mean(), v.std())

@@ -16,7 +16,14 @@ line with the JAX package's keys and weighting: ``epoch``, ``time_epoch``,
     from the JAX package's fused kernels to its XLA path, and the port has
     no such fallback (a wrapper runs its kernel or raises).
 
-The wandb sink is not ported yet (ROADMAP P2b).
+Under data parallelism (a process ``group``) each rank's logger holds its
+own batches (each weighted by its own targets; a train step's stats are
+already the union batch's): ``write_epoch`` sums the weighted stats, the
+weights and the edges over the ranks in one all-reduce, gathers the
+true/pred values on rank 0 for r2 and Spearman, and only rank 0 writes
+``stats.json``. ``WandbLogger`` is the optional wandb sink: off unless
+asked for, and a single warning, then nothing, when wandb is missing or
+cannot start.
 """
 
 from __future__ import annotations
@@ -66,11 +73,15 @@ def _host_floats(values) -> List[float]:
 
 class EpochLogger:
     """One split's accumulator (train/val/test); ``device`` is where the
-    run lives (``gpu_memory`` is read on the card only)."""
+    run lives (``gpu_memory`` is read on the card only); ``group`` the
+    data-parallel ranks whose batches it sums (the file is rank 0's)."""
 
     def __init__(self, name: str, out_dir: Optional[str] = None,
-                 device=None):
+                 device=None, group=None):
         self.name = name
+        self.group = group
+        if group is not None and torch.distributed.get_rank(group) != 0:
+            out_dir = None
         self.out_dir = out_dir
         self.device = torch.device(device) if device is not None else None
         if out_dir:
@@ -111,14 +122,40 @@ class EpochLogger:
         return round(torch.cuda.max_memory_allocated(self.device)
                      / (1024 ** 3), 4)
 
+    def _over_ranks(self, sums: Dict[str, float]) -> None:
+        """Sums ``sums``, the weights and the edges over the group's ranks
+        (in place), and gathers the true/pred values on rank 0."""
+        dev = self.device or torch.device("cpu")
+        keys = list(sums)
+        flat = torch.tensor([self._size, self._edges]
+                            + [sums[k] for k in keys], dtype=torch.float64,
+                            device=dev)
+        torch.distributed.all_reduce(flat, group=self.group)
+        vals = flat.cpu().tolist()
+        self._size, self._edges = vals[0], vals[1]
+        sums.update(zip(keys, vals[2:]))
+        mine = (np.concatenate(self._true) if self._true else None,
+                np.concatenate(self._pred) if self._pred else None)
+        main = torch.distributed.get_rank(self.group) == 0
+        everyone = ([None] * torch.distributed.get_world_size(self.group)
+                    if main else None)
+        torch.distributed.gather_object(
+            mine, everyone, dst=torch.distributed.get_global_rank(
+                self.group, 0), group=self.group)
+        parts = [p for p in everyone if p[0] is not None] if main else []
+        self._true = [t for t, _ in parts]
+        self._pred = [p for _, p in parts]
+
     def write_epoch(self, epoch: int) -> Dict:
-        size = max(self._size, 1.0)
         keys = list(dict.fromkeys(k for s, _ in self._pending for k in s))
         sums: Dict[str, float] = {}
         for k in keys:  # one device copy per key, summed in batch order
             rows = [(s[k], w) for s, w in self._pending if k in s]
             for v, (_, w) in zip(_host_floats([v for v, _ in rows]), rows):
                 sums[k] = sums.get(k, 0.0) + v * w
+        if self.group is not None:
+            self._over_ranks(sums)
+        size = max(self._size, 1.0)
         stats = {"epoch": epoch,
                  "time_epoch": round(self._time_used, 5),
                  "time_iter": round(self._time_used / max(self._iters, 1), 6),
@@ -144,8 +181,36 @@ class EpochLogger:
         return stats
 
 
-def create_loggers(run_dir: Optional[str] = None, device=None):
+def create_loggers(run_dir: Optional[str] = None, device=None, group=None):
     """Train/val/test loggers writing under ``run_dir/{train,val,test}``."""
     return [EpochLogger(n, os.path.join(run_dir, n) if run_dir else None,
-                        device)
+                        device, group)
             for n in ("train", "val", "test")]
+
+
+class WandbLogger:
+    """The optional wandb sink (``--wandb``): one run, a ``log`` per epoch
+    and a ``finish``. Off unless ``enabled``; wandb is imported only then,
+    and when it is missing or cannot start, one warning is logged and every
+    call does nothing."""
+
+    def __init__(self, project: str = "", entity: str = "", name: str = "",
+                 config=None, enabled: bool = False):
+        self.run = None
+        if not enabled:
+            return
+        try:
+            import wandb
+            self.run = wandb.init(project=project or None,
+                                  entity=entity or None, name=name or None,
+                                  config=config)
+        except Exception as err:  # missing, offline or refused
+            logging.warning("wandb disabled: %s", err)
+
+    def log(self, data: Dict, step: Optional[int] = None):
+        if self.run is not None:
+            self.run.log(data, step=step)
+
+    def finish(self):
+        if self.run is not None:
+            self.run.finish()

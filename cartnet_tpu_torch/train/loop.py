@@ -78,30 +78,43 @@ def init_train_state(model, optimizer, seed: int = 0) -> TrainState:
         generator=torch.Generator().manual_seed(seed))
 
 
+def param_grads(loss, params) -> List[torch.Tensor]:
+    """d loss / d params, zeros for parameters the loss does not use."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+def accumulate(state: TrainState, cfg: Config, loss, grads, bufs,
+               old_bn) -> None:
+    """The micro-step's tail: with the guard on, a non-finite step adds
+    nothing and puts back the BN buffers ``bufs`` had (``old_bn``); the
+    gradients are summed into the accumulator and the counters advance."""
+    ok = torch.ones((), dtype=torch.bool, device=loss.device)
+    if cfg.guard.enabled:
+        ok, grads, bn = guard_contribution(loss.detach(), grads, bufs,
+                                           old_bn)
+        with torch.no_grad():
+            for b, v in zip(bufs, bn):
+                b.copy_(v)
+    with torch.no_grad():
+        for a, g in zip(state.grad_accum, grads):
+            a.add_(g)
+    state.accum_count += ok.int()
+    state.bad_steps += (~ok).int()
+
+
 def make_steps(cfg: Config):
     """-> (micro_step, update_step, eval_step); batches are on the device."""
 
     def micro_step(state: TrainState, batch: CrystalBatch):
-        model, params = state.model, state.optimizer.params
+        model = state.model
         model.train()
         bufs = bn_buffers(model)
         old_bn = [b.clone() for b in bufs] if cfg.guard.enabled else None
         loss, (mae, mse, pred, mask) = loss_fn(model, batch, cfg)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        ok = torch.ones((), dtype=torch.bool, device=loss.device)
-        if cfg.guard.enabled:
-            ok, grads, bn = guard_contribution(loss.detach(), grads, bufs,
-                                               old_bn)
-            with torch.no_grad():
-                for b, v in zip(bufs, bn):
-                    b.copy_(v)
-        with torch.no_grad():
-            for a, g in zip(state.grad_accum, grads):
-                a.add_(g)
-        state.accum_count += ok.int()
-        state.bad_steps += (~ok).int()
+        grads = param_grads(loss, state.optimizer.params)
+        accumulate(state, cfg, loss, grads, bufs, old_bn)
         stats = _stats_with_adp(cfg, {"loss": loss.detach(),
                                       "MAE": mae.detach(),
                                       "MSE": mse.detach()},

@@ -22,14 +22,21 @@ from cartnet_tpu_torch.ops.linalg3 import det3, frobenius3, inv3
 SMOOTH = 1e-8
 
 
-def masked_mae_mse(pred, true, mask):
-    """Masked elementwise MAE/MSE means; mask [M] aligns with pred's lead."""
+def masked_sums(pred, true, mask):
+    """f32 (sum |diff|, sum diff², element count) over the real elements;
+    mask [M] aligns with pred's lead."""
     m = mask.float()
     m = m.reshape(m.shape + (1,) * (pred.dim() - m.dim()))
     diff = (pred.float() - true.float()) * m
-    count = torch.clamp(torch.sum(m) * math.prod(pred.shape[mask.dim():]),
-                        min=1.0)
-    return torch.sum(torch.abs(diff)) / count, torch.sum(diff * diff) / count
+    return (torch.sum(torch.abs(diff)), torch.sum(diff * diff),
+            torch.sum(m) * math.prod(pred.shape[mask.dim():]))
+
+
+def masked_mae_mse(pred, true, mask):
+    """Masked elementwise MAE/MSE means."""
+    sa, sq, count = masked_sums(pred, true, mask)
+    count = torch.clamp(count, min=1.0)
+    return sa / count, sq / count
 
 
 def get_volume(u):

@@ -122,6 +122,31 @@ Phases, one JSON line each (every line names the card and its power limit):
               both checkpoints, a trace file, a "stopped" heartbeat),
               again with --buckets 2, and one epoch of the eComformer and
               the iComformer with --max_neighbours 25
+  8f. adp     the CSD ADP source (--dataset ADP, the CLI's default) on
+              reference-layout .pt files written in the working directory
+              (24 / 4 / 4 of the main path's ADP-scale crystals, a third of
+              the atoms H): the JAX README's ADP command through the CLI
+              at full width (batch 4, batch_accumulation 16, --augment,
+              two f32 epochs: K1, K2, K4, K5 4 launches a micro-step and
+              K1, K2 4 an eval forward; stats lines with the JAX keys, both
+              checkpoints), one bf16 epoch, an --inference sweep on
+              best.ckpt, one epoch with --disable_H (the node counts drop
+              by the H share; the kernels against the plain versions at
+              that layout, f32 and bf16), one epoch each of the eComformer
+              (re-edged to 25 neighbours) and the iComformer (cells
+              canonicalized); the seconds per epoch, LazyRecords' sizing
+              seconds (scan, sidecar), one train pass with 0 and 4 fetch
+              workers (the same batches)
+  8g. dp      data parallelism, two ranks on the card in an explicit gloo
+              group (NCCL takes one rank a device): one micro-step each on
+              the main path's two batches and the update, CartNet f32 and
+              bf16 and the eComformer f32, against a single-process step
+              on the union batch (loss, BN stats, each layer's summed
+              gradients within 1e-4, bf16 through bf16_grad_gate; the
+              ranks' updated weights equal to the bit and to the update
+              of the summed gradients), launches per rank; a world = 1
+              NCCL group's step against the single process; the dp step's
+              wall time beside the single-process step's
   9. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
@@ -1498,6 +1523,469 @@ def jarvis_cli(card: str, data: str) -> dict:
     return launches
 
 
+ADP_SPLITS = {"train": 24, "val": 4, "test": 4}
+
+
+def write_adp_dataset(root: str, seed: int = 0) -> dict:
+    """The CSD source's layout under ``root`` from the main path's
+    ADP-scale synthetic crystals (``ADP_SPLITS``): ``data/<refcode>.pt``
+    (the reference's attribute layout, in a SimpleNamespace) and
+    ``csv/<split>_files.csv``; about a third of each crystal's atoms are
+    hydrogen (z = 1), as in organic CSD crystals. -> the H share."""
+    from types import SimpleNamespace
+    import numpy as np
+    import torch
+    from cartnet_tpu_torch.data.synthetic import synthetic_dataset
+    recs = synthetic_dataset(sum(ADP_SPLITS.values()), mean_atoms=194,
+                             radius=5.0, adp=True, seed=seed)
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    os.makedirs(os.path.join(root, "csv"), exist_ok=True)
+    names, n_h, n_all = [], 0, 0
+    for i, r in enumerate(recs):
+        z = np.where(rng.uniform(size=len(r["z"])) < 1 / 3, 1, r["z"])
+        n_h, n_all = n_h + int((z == 1).sum()), n_all + len(z)
+        names.append(f"SMOKE{i:03d}")
+        torch.save(SimpleNamespace(
+            x=torch.tensor(z, dtype=torch.long), pos=torch.tensor(r["pos"]),
+            cell=torch.tensor(r["cell"]).reshape(1, 3, 3),
+            edge_index=torch.tensor(np.stack([r["edge_src"],
+                                              r["edge_dst"]])),
+            cart_dist=torch.tensor(r["cart_dist"]).unsqueeze(-1),
+            cart_dir=torch.tensor(r["cart_dir"]), y=torch.tensor(r["y"]),
+            temperature=torch.tensor([r["temperature"]])),
+            os.path.join(root, "data", names[-1] + ".pt"))
+    i = 0
+    for split, n in ADP_SPLITS.items():
+        with open(os.path.join(root, "csv", f"{split}_files.csv"), "w") as f:
+            f.write("\n".join(names[i:i + n]) + "\n")
+        i += n
+    return {"h_share": n_h / n_all, "atoms": n_all}
+
+
+def adp_phase(card: str, dev) -> dict:
+    """8f. The CSD ADP source (``--dataset ADP``, the CLI's default) on
+    reference-layout ``.pt`` files written here (``write_adp_dataset``:
+    24 / 4 / 4 ADP-scale crystals, a third of the atoms H), through the
+    CLI: the JAX README's ADP command at full width (dim 256, 64 RBF, 4
+    layers, Cholesky head, batch 4, batch_accumulation 16, --augment), f32,
+    two epochs (K1, K2, K4, K5 4 launches a micro-step and K1, K2 4 an
+    eval forward; finite stats lines with the JAX keys; both
+    checkpoints), then one bf16 epoch; an --inference sweep on best.ckpt;
+    one epoch with --disable_H (the node counts drop by the H share; the
+    first train batch's forward and micro-step through the kernels against
+    the plain versions at that layout, f32 and bf16); one epoch each of
+    the eComformer (re-edged to 25 neighbours) and the iComformer (its
+    cells canonicalized). Also: LazyRecords' sizing seconds (a scan of the
+    train split, then from the sidecar) and one train pass of the
+    pipeline with the fetch pool off and with 4 workers (the same batches).
+    -> the first run's launches."""
+    import numpy as np
+    import torch
+    from cartnet_tpu_torch import cli, runner
+    from cartnet_tpu_torch.models.factory import create_model
+    t_phase = time.perf_counter()
+    data = os.path.abspath("adp_smoke_data")
+    written = write_adp_dataset(data)
+    write_s = time.perf_counter() - t_phase
+    argv = ["--dataset", "ADP", "--dataset_path", data, "--batch", "4",
+            "--batch_accumulation", "16", "--augment"]
+    keys = {"epoch", "time_epoch", "time_iter", "lr", "params", "loss",
+            "MAE", "MSE", "volume_percentage_error", "similarity_index",
+            "edges_per_sec", "gpu_memory"}
+    split_keys = {"train": keys, "val": keys | {"r2", "spearmanr"},
+                  "test": keys | {"r2", "spearmanr", "iou"}}
+    micro = ADP_SPLITS["train"] // 4
+    evals = ADP_SPLITS["val"] // 4
+    bad = []
+
+    def expect(micro_k, fwd_k, micro_steps, forwards) -> dict:
+        want = dict.fromkeys(KERNELS, 0)
+        for k, n in micro_k.items():
+            want[k] += n * micro_steps
+        for k, n in fwd_k.items():
+            want[k] += n * forwards
+        return want
+
+    def run(extra, epochs, micro_k, fwd_k, name):
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        state, test = cli.main(argv + extra + ["--epochs", str(epochs),
+                                               "--name", name])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = launch_counts()
+        want = expect(micro_k, fwd_k, epochs * micro, epochs * evals + 1)
+        if got != want:
+            bad.append(f"{name}: launches {got}, expected {want}")
+        if int(state.bad_steps) or not all(math.isfinite(v)
+                                           for v in test.values()):
+            bad.append(f"{name}: bad steps {int(state.bad_steps)}, test "
+                       f"{test}")
+        run_dir = os.path.join("results", name, "0")
+        lines = {}
+        for split, n in (("train", epochs), ("val", epochs), ("test", 1)):
+            with open(os.path.join(run_dir, split, "stats.json")) as f:
+                lines[split] = [json.loads(x) for x in f if x.strip()]
+            if len(lines[split]) != n or any(
+                    set(r) != split_keys[split] or not all(
+                        math.isfinite(v) for v in r.values()
+                        if isinstance(v, float)) for r in lines[split]):
+                bad.append(f"{name} {split} stats.json: {lines[split]}")
+        return dict(state=state, test=test, launches=got, seconds=seconds,
+                    lines=lines, run_dir=run_dir,
+                    epoch_s=[r["time_epoch"] for r in lines["train"]])
+
+    cartnet_micro = dict.fromkeys(CARTNET_KERNELS, 4)
+    cartnet_fwd = dict(edge_phase_fwd=4, sigma_segsum_fwd=4)
+    f32 = run([], 2, cartnet_micro, cartnet_fwd, "adp_smoke")
+    best, last = runner.checkpoint_paths(f32["run_dir"])
+    if not (os.path.isfile(best) and os.path.isfile(last)):
+        bad.append("best.ckpt or last.ckpt missing")
+    bf16 = run(["--bf16"], 1, cartnet_micro, cartnet_fwd, "adp_smoke_bf16")
+    # the inference sweep on best.ckpt
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = cli.main(argv + ["--inference", "--checkpoint_path", best,
+                           "--inference_output", "adp_inference.pkl"])
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    inf_launches = launch_counts()
+    if (inf_launches != expect({}, cartnet_fwd, 0, 1)
+            or len(out["pred"]) != ADP_SPLITS["test"]
+            or not all(np.isfinite(p).all() for p in out["pred"])):
+        bad.append(f"inference: launches {inf_launches}, "
+                   f"{len(out['pred'])} structures")
+    # --disable_H: fewer nodes, the kernels against plain at that layout
+    noh = run(["--disable_H"], 1, cartnet_micro, cartnet_fwd, "adp_smoke_noh")
+    cfg_h = cli.args_to_config(cli.build_parser().parse_args(argv))
+    cfg_noh = cli.args_to_config(cli.build_parser().parse_args(
+        argv + ["--disable_H"]))
+    nodes_h, edges_h = (int(np.sum(x)) for x in
+                        cli.load_datasets(cfg_h.data)[0].counts())
+    noh_pipe = runner.pipelines(cfg_noh, cli.load_datasets(cfg_noh.data))[0]
+    nodes_noh, edges_noh = (int(np.sum(x)) for x in
+                            noh_pipe.records.counts())
+    drop = 1 - nodes_noh / nodes_h
+    if abs(drop - written["h_share"]) > 0.05:
+        bad.append(f"--disable_H removed {drop:.3f} of the nodes, the H "
+                   f"share is {written['h_share']:.3f}")
+    nbatch = next(iter(noh_pipe)).to(dev)
+    nlayout = dict(nodes=int(nbatch.z.shape[0]),
+                   edges=int(nbatch.edge_src.shape[0]),
+                   real_nodes=int(nbatch.node_mask.sum()),
+                   real_edges=int(nbatch.edge_mask.sum()))
+    want_f = dict.fromkeys(KERNELS, 0)
+    want_f.update(edge_phase_fwd=4, sigma_segsum_fwd=4)
+    for dt, tol in ((torch.float32, F32_STEP_TOL),
+                    (torch.bfloat16, PRED_TOL)):
+        c = with_dtype(cfg_noh, dt)
+        m = create_model(c.model, dev, c.seed)
+        forward_vs_plain(card, m, nbatch, plain_cartnet_forward, want_f,
+                         tol, phase="adp_noh_forward", **nlayout,
+                         compute_dtype=str(dt))
+        train_vs_plain(card, c, m, nbatch, tol)
+    # the Comformers: re-edged to 25 neighbours; the iComformer's cells
+    # canonicalized
+    eco = run(["--model", "eComformer"], 1, ECO_MICRO, ECO_FWD,
+              "adp_smoke_ecomformer")
+    ico = run(["--model", "iComformer"], 1, ICO_MICRO, ICO_FWD,
+              "adp_smoke_icomformer")
+    if not os.listdir(os.path.join(data, "data_25_5.0")):
+        bad.append("no re-edge cache for the Comformers")
+    # LazyRecords sizing: a scan (the sidecar removed), then the sidecar
+    train_recs = cli.load_datasets(cfg_h.data)[0]
+    os.remove(train_recs.sidecar_path())
+    t0 = time.perf_counter()
+    scanned = train_recs.counts()
+    scan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cached = train_recs.counts()
+    sidecar_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(scanned, cached)):
+        bad.append("the sidecar's counts differ from the scan's")
+    # one train pass with the fetch pool off and with 4 workers
+    pass_s, firsts = {}, {}
+    for workers in (0, 4):
+        pipe = runner.pipelines(cfg_h, cli.load_datasets(cfg_h.data))[0]
+        pipe.workers = workers
+        t0 = time.perf_counter()
+        got = list(pipe)
+        pass_s[workers] = time.perf_counter() - t0
+        firsts[workers] = got
+    if any(not np.array_equal(getattr(a, f), getattr(b, f))
+           for a, b in zip(firsts[0], firsts[4])
+           for f in ("z", "pos", "cart_dir", "edge_src", "y")):
+        bad.append("workers 4 gave other batches than workers 0")
+    emit(phase="adp", card=card, crystals=ADP_SPLITS, atoms=written["atoms"],
+         h_share=round(written["h_share"], 4), write_seconds=round(write_s, 3),
+         launches=f32["launches"],
+         expected_launches=expect(cartnet_micro, cartnet_fwd, 2 * micro,
+                                  2 * evals + 1),
+         epoch_seconds_f32=f32["epoch_s"], epoch_seconds_bf16=bf16["epoch_s"],
+         cli_seconds_f32=round(f32["seconds"], 3),
+         cli_seconds_bf16=round(bf16["seconds"], 3),
+         val_MAE=[r["MAE"] for r in f32["lines"]["val"]], test=f32["test"],
+         test_bf16=bf16["test"], inference_launches=inf_launches,
+         inference_seconds=round(inf_s, 3),
+         inference_mean_mae=float(np.mean(out["mae"])),
+         disable_h=dict(nodes=nodes_noh, nodes_with_h=nodes_h,
+                        dropped=round(drop, 4), edges=edges_noh,
+                        edges_with_h=edges_h, launches=noh["launches"],
+                        layout=nlayout, test=noh["test"]),
+         ecomformer=dict(launches=eco["launches"], test_MAE=eco["test"]["MAE"],
+                         epoch_seconds=eco["epoch_s"]),
+         icomformer=dict(launches=ico["launches"], test_MAE=ico["test"]["MAE"],
+                         epoch_seconds=ico["epoch_s"]),
+         sizing_seconds=dict(scan=round(scan_s, 4),
+                             sidecar=round(sidecar_s, 5)),
+         train_pass_seconds={f"workers_{k}": round(v, 3)
+                             for k, v in pass_s.items()},
+         seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
+    if bad:
+        fail(f"adp phase: {bad}")
+    return f32["launches"]
+
+
+DP_CASES = (("cartnet", "f32"), ("cartnet", "bf16"), ("ecomformer", "f32"))
+DP_TIMED = 5
+
+
+def dp_config(net: str, dt: str):
+    """The dp phase's configs: flagship widths, Cholesky head."""
+    import torch
+    from cartnet_tpu_torch.config import Config, ModelConfig, OptimConfig
+    return Config(model=ModelConfig(
+        name=net, dim_in=256, dim_rbf=64, num_layers=4, cholesky=True,
+        compute_dtype=torch.bfloat16 if dt == "bf16" else torch.float32),
+        optim=OptimConfig(max_epoch=1, batch_accumulation=TRAIN_ACCUM))
+
+
+def dp_rank(rank: int, coordinator: str, batches, out_dir: str,
+            device: str) -> None:
+    """One of the dp phase's two ranks (a process of its own on the one
+    card, in an explicit gloo group): for each case, one micro-step on
+    batch ``rank`` from seed 0 and the update, its launches, then the wall
+    time of ``DP_TIMED`` more micro-steps; saved to ``out_dir``."""
+    import torch
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.parallel import dist as pdist
+    from cartnet_tpu_torch.parallel.step import make_parallel_steps
+    from cartnet_tpu_torch.train import loop
+    from cartnet_tpu_torch.config import resolve_device
+    dev = resolve_device(pdist.rank_device(device, 0))  # both on card 0
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    group = pdist.initialize_distributed(coordinator, 2, rank, dev,
+                                         backend="gloo")
+    batch = batches[rank].to(dev)
+    res = {}
+    for net, dt in DP_CASES:
+        cfg = dp_config(net, dt)
+        model = create_model(cfg.model, dev, 0)
+        opt = loop.build_optimizer(cfg, model.parameters(), 1)
+        state = loop.init_train_state(model, opt)
+        micro, update, _ = make_parallel_steps(cfg, group)
+        launch_counts(reset=True)
+        state, stats = micro(state, batch)
+        torch.cuda.synchronize()
+        host = lambda ts: [t.detach().to("cpu", copy=True) for t in ts]
+        r = {"launches": launch_counts(), "loss": float(stats["loss"]),
+             "grads": host(state.grad_accum),
+             "bn": host(loop.bn_buffers(model))}
+        state = update(state)
+        r["params"] = host(state.optimizer.params)
+        times = []
+        for _ in range(DP_TIMED + 1):
+            torch.distributed.barrier(group)
+            t0 = time.perf_counter()
+            state, _ = micro(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        r["step_ms"] = statistics.median(times[1:])
+        # the collectives of one micro-step: their number and elements
+        sizes, real = [], torch.distributed.all_reduce
+
+        def counted(t, *a, **k):
+            sizes.append(t.numel())
+            return real(t, *a, **k)
+        torch.distributed.all_reduce = counted
+        try:
+            micro(state, batch)
+        finally:
+            torch.distributed.all_reduce = real
+        r["collectives"], r["collective_elems"] = len(sizes), sum(sizes)
+        res[f"{net}_{dt}"] = r
+    # one small gloo all-reduce of a CUDA tensor, synchronized
+    t, times = torch.ones(513, device=dev), []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["all_reduce_ms"] = statistics.median(times[5:])
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"dp_rank{rank}.pt"))
+
+
+def dp_phase(card: str, dev, recs) -> dict:
+    """8g. Data parallelism (parallel/step.py) with two ranks on the one
+    card: NCCL takes one rank a device, so the ranks join an explicit gloo
+    group (which all-reduces CUDA tensors). Each rank takes one micro-step
+    on one of the main path's two batches (4 crystals each) through the
+    kernels, and the update: CartNet (flagship widths) in f32 and bf16 and
+    the eComformer in f32. Held against a single-process step on the union
+    batch (the 8 crystals in one batch): the loss, the BN running stats
+    and the summed gradients (each over its layer's largest) within 1e-4
+    (f32), or through bf16_grad_gate (bf16: the plain versions' union step
+    as the second implementation, the f32 union step as the scale); the
+    two ranks' updated weights equal to the bit and equal to the update of
+    the summed gradients. Launches per rank: one micro-step's. Then one
+    step of a world = 1 NCCL group, which must equal the single-process
+    step. The dp step's wall time (median of 5, rank 0) beside the
+    single-process union step's. -> rank 0's launches per case."""
+    import torch
+    from cartnet_tpu_torch.data.batching import make_batches
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.parallel import dist as pdist
+    from cartnet_tpu_torch.parallel.step import make_parallel_steps
+    from cartnet_tpu_torch.train import loop
+    t_phase = time.perf_counter()
+    halves = make_batches(recs, 4)
+    union = make_batches(recs, 8)[0].to(dev)
+    out_dir = os.path.abspath("dp_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    pdist.spawn(dp_rank, 2, (halves, out_dir, str(dev)))
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"dp_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    bad, lines = [], {}
+
+    def fresh(cfg):
+        model = create_model(cfg.model, dev, 0)
+        return loop.init_train_state(model, loop.build_optimizer(
+            cfg, model.parameters(), 1))
+
+    def single(cfg, plain=None) -> dict:
+        """The single-process micro-step on the union batch from seed 0
+        (``plain``: through the plain versions), then the update."""
+        state = fresh(cfg)
+        micro, update, _ = loop.make_steps(cfg)
+        with (plain() if plain else contextlib.nullcontext()):
+            state, stats = micro(state, union)
+        torch.cuda.synchronize()
+        out = dict(loss=stats["loss"].reshape(1).float(),
+                   grads=[g.clone() for g in state.grad_accum],
+                   bn=[b.clone() for b in loop.bn_buffers(state.model)],
+                   names=[n for n, _ in state.model.named_parameters()],
+                   state=state, micro=micro)
+        update(state)
+        return out
+
+    for net, dt in DP_CASES:
+        case = f"{net}_{dt}"
+        cfg = dp_config(net, dt)
+        a, b = ranks[0][case], ranks[1][case]
+        ref = single(cfg)
+        loss, grads, bn, names = (ref[k] for k in ("loss", "grads", "bn",
+                                                     "names"))
+        same = all(torch.equal(x, y) for k in ("grads", "bn", "params")
+                   for x, y in zip(a[k], b[k]))
+        # the update of the summed gradients, here
+        upd = fresh(cfg)
+        for acc, g in zip(upd.grad_accum, a["grads"]):
+            acc.copy_(g)
+        loop.make_steps(cfg)[1](upd)
+        update_same = all(torch.equal(p.detach().cpu(), q) for p, q in
+                          zip(upd.optimizer.params, a["params"]))
+        dev_grads = [g.to(dev) for g in a["grads"]]
+        loss_err = normalized_err(torch.tensor([a["loss"]]), loss.cpu())[1]
+        bn_err = max(normalized_err(x.to(dev), y)[1]
+                     for x, y in zip(a["bn"], bn))
+        g_err = grad_errors(names, dev_grads, grads)
+        line = dict(model=net, compute_dtype=dt, loss=a["loss"],
+                    loss_single=float(loss), loss_rel_err=loss_err,
+                    bn_stats_max_rel_err=bn_err,
+                    grads_max_rel_err_per_layer=max(g_err.values()),
+                    grads_worst=max(g_err, key=g_err.get),
+                    ranks_bitwise_equal=same,
+                    update_equals_single_process_update=update_same,
+                    launches_per_rank=a["launches"],
+                    dp_step_ms=a["step_ms"], rank1_step_ms=b["step_ms"],
+                    collectives_per_step=a["collectives"],
+                    collective_elems=a["collective_elems"],
+                    small_all_reduce_ms=ranks[0]["all_reduce_ms"])
+        tol = 1e-4 if dt == "f32" else PRED_TOL
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(dict.fromkeys(CARTNET_KERNELS, 4) if net == "cartnet"
+                    else ECO_MICRO)
+        fails = []
+        if a["launches"] != want or b["launches"] != want:
+            fails.append(f"launches {a['launches']}, {b['launches']}")
+        if not (same and update_same):
+            fails.append("ranks or update differ")
+        if loss_err > tol or bn_err > tol:
+            fails.append(f"loss {loss_err}, bn {bn_err}")
+        if dt == "f32":
+            fails += [n for n, e in g_err.items() if e > tol]
+        else:
+            r_grads = single(with_dtype(cfg, torch.float32))["grads"]
+            p_grads = single(cfg, plain_kernels)["grads"]
+            gate = bf16_grad_gate(names, dev_grads, grads, p_grads, r_grads,
+                                  tol)
+            worst = gate["groups"][gate["worst"]]
+            line.update(grads_gate_worst_group=gate["worst"],
+                        grads_gate_share_of_limit=worst["share"],
+                        grads_vs_single=worst["kernels_vs_plain"],
+                        grads_single_vs_plain=worst["plain_vs_alt"])
+            fails += gate["failed"]
+        # the single-process union step's wall time
+        times, state = [], ref["state"]
+        for _ in range(DP_TIMED + 1):
+            t0 = time.perf_counter()
+            state, _ = ref["micro"](state, union)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        line["single_union_step_ms"] = statistics.median(times[1:])
+        lines[case] = line
+        emit(phase="dp", card=card, **line, tol=tol, failed=fails)
+        bad += [f"{case}: {f}" for f in fails]
+    # a world = 1 NCCL group: initializes, and equals the single process
+    cfg = dp_config("cartnet", "f32")
+    ref = single(cfg)
+    loss, grads, names = ref["loss"], ref["grads"], ref["names"]
+    group = pdist.initialize_distributed(f"localhost:{pdist.free_port()}", 1,
+                                         0, dev)
+    try:
+        backend = torch.distributed.get_backend(group)
+        state = fresh(cfg)
+        micro, _, _ = make_parallel_steps(cfg, group)
+        launch_counts(reset=True)
+        state, stats = micro(state, union)
+        torch.cuda.synchronize()
+        nccl_launches = launch_counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    nccl_err = max([normalized_err(stats["loss"].reshape(1), loss)[1]]
+                   + list(grad_errors(names, state.grad_accum,
+                                      grads).values()))
+    nccl_bitwise = bool(torch.equal(stats["loss"].reshape(1), loss) and all(
+        torch.equal(x, y) for x, y in zip(state.grad_accum, grads)))
+    nccl_fail = backend != "nccl" or nccl_err > 1e-4
+    emit(phase="dp_nccl", card=card, backend=backend, world=1,
+         launches=nccl_launches, max_rel_err=nccl_err, bitwise=nccl_bitwise,
+         failed=nccl_fail)
+    if nccl_fail:
+        bad.append(f"nccl world 1: backend {backend}, err {nccl_err}")
+    emit(phase="dp_summary", card=card, spawn_seconds=round(spawn_s, 3),
+         seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
+    if bad:
+        fail(f"dp phase: {bad}")
+    return {f"{n}_{d}": ranks[0][f"{n}_{d}"]["launches"]
+            for n, d in DP_CASES}
+
+
 # ----------------------------------------------------------------- main
 
 def main() -> int:
@@ -2763,6 +3251,10 @@ def phases(_build) -> int:
     # 8e. the Jarvis path through the CLI (its --profile run after the
     # time phase's captures)
     launches_jarvis = jarvis_cli(card, jdata)
+    # 8f. the CSD ADP source through the CLI; 8g. data parallelism, two
+    # ranks on the card
+    launches_adp = adp_phase(card, dev)
+    launches_dp = dp_phase(card, dev, recs)
 
     # 10. summary: K1, K2, K4, K5 per launch on the CartNet training path
     # (all four run in every micro-step, in the bf16 training case), K6 on
@@ -2804,6 +3296,9 @@ def phases(_build) -> int:
             "launches_icomformer_inference": launches_ico[kname],
             "launches_icomformer_train": launches_itrain[kname],
             "launches_jarvis_cli": launches_jarvis[kname],
+            "launches_adp_cli": launches_adp[kname],
+            "launches_dp_per_rank": {k: v[kname]
+                                     for k, v in launches_dp.items()},
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
@@ -2830,6 +3325,9 @@ def phases(_build) -> int:
             "launches_icomformer_inference": launches_ico[kname],
             "launches_icomformer_train": launches_itrain[kname],
             "launches_jarvis_cli": launches_jarvis[kname],
+            "launches_adp_cli": launches_adp[kname],
+            "launches_dp_per_rank": {k: v[kname]
+                                     for k, v in launches_dp.items()},
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

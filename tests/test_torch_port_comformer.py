@@ -315,14 +315,15 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     ico = create_model(ModelConfig(name="icomformer", dim_in=D), "cpu")
     assert isinstance(ico, IComformer) and not ico.training
-    out = cli.main(["--device", "cpu", "--limit", "4", "--inference",
-                    "--cholesky", "--model", "iComformer", "--dim_in",
-                    str(D), "--inference_output", str(tmp_path / "x.pkl")])
+    out = cli.main(["--device", "cpu", "--dataset", "synthetic", "--limit",
+                    "4", "--inference", "--cholesky", "--model",
+                    "iComformer", "--dim_in", str(D), "--inference_output",
+                    str(tmp_path / "x.pkl")])
     assert len(out["pred"]) == 2 and (tmp_path / "x.pkl").exists()
     assert all(np.isfinite(p).all() for p in out["pred"])
-    state, test = cli.main(["--device", "cpu", "--limit", "4", "--epochs",
-                            "1", "--model", "ICOMFORMER", "--dim_in",
-                            str(D)])  # training
+    state, test = cli.main(["--device", "cpu", "--dataset", "synthetic",
+                            "--limit", "4", "--epochs", "1", "--model",
+                            "ICOMFORMER", "--dim_in", str(D)])  # training
     assert isinstance(state.model, IComformer) and state.step == 1
     assert np.isfinite(test["MAE"])
     model = create_model(ModelConfig(name="eComformer", dim_in=D), "cpu")

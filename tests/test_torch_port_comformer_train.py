@@ -321,9 +321,9 @@ def test_cli_trains_ecomformer_on_cpu(tmp_path, monkeypatch, caplog):
     assert np.isfinite(test["MAE"]) and 0.0 <= test["iou"] <= 1.0
     assert "model ecomformer" in caplog.text
     # the iComformer, which raised here until it was ported, trains too
-    istate, itest = cli.main(["--device", "cpu", "--limit", "8", "--epochs",
-                              "1", "--model", "iComformer", "--dim_in",
-                              str(D)])
+    istate, itest = cli.main(["--device", "cpu", "--dataset", "synthetic",
+                              "--limit", "8", "--epochs", "1", "--model",
+                              "iComformer", "--dim_in", str(D)])
     assert isinstance(istate.model, IComformer) and istate.step == 1
     assert int(istate.bad_steps) == 0 and np.isfinite(itest["MAE"])
     assert "model icomformer" in caplog.text
