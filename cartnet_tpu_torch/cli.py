@@ -5,7 +5,8 @@ the card.
         dft_3d_2021|megnet] [--dataset_path ./datasets] \
         [--figshare_target formation_energy_peratom] [--max_neighbours 25] \
         [--limit N] --epochs E --batch B --batch_accumulation A \
-        [--augment] [--buckets K] [--name NAME] [--seed S] [--resume] \
+        [--augment] [--buckets K] [--fused_steps K] [--name NAME] \
+        [--seed S] [--resume] \
         [--model CartNet|eComformer|iComformer] [--cholesky] [--invariant] \
         [--disable_temp] [--no_standarize_temp] [--disable_envelope] \
         [--disable_H] [--disable_atom_types] [--bf16] [--profile] \
@@ -39,7 +40,10 @@ standardized unless ``--no_standarize_temp``. ``--max_neighbours`` caps
 the radius graph for the Comformers (CartNet takes the uncapped graph).
 ``--augment`` rotates the train split each epoch (forced off for the two
 Comformers, as in the JAX CLI). ``--buckets`` pads each edge-count
-quantile to its own shape. ``--resume`` continues a run from its
+quantile to its own shape. ``--fused_steps K`` (K > 1) runs each train
+epoch in chunks of K micro-steps, each chunk one CUDA-graph replay on the
+card (one graph per pad shape; under ``--dp`` it needs NCCL) and run
+eagerly on the CPU. ``--resume`` continues a run from its
 ``last.ckpt``. ``--profile`` traces the first train epoch into
 ``<run dir>/profile``; ``--heartbeat`` writes an atomic liveness file
 every epoch and every ``--heartbeat_interval`` seconds; the guard rolls a
@@ -109,6 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="formation_energy_peratom")
     p.add_argument("--max_neighbours", type=int, default=25,
                    help="radius-graph cap of the Comformers (CartNet: none)")
+    p.add_argument("--fused_steps", type=int, default=0,
+                   help="K > 1: K micro-steps per device launch (one CUDA "
+                        "graph replay on the card)")
     p.add_argument("--buckets", type=int, default=1,
                    help="size-quantile buckets with their own pad shapes")
     p.add_argument("--verify_ingest", action="store_true",
@@ -219,7 +226,7 @@ def args_to_config(args) -> Config:
     optim = OptimConfig(lr=args.lr, max_epoch=args.epochs,
                         warmup=args.warmup,
                         batch_accumulation=args.batch_accumulation,
-                        loss=args.loss)
+                        loss=args.loss, fused_steps=args.fused_steps)
     guard = GuardConfig(enabled=args.guard, max_retries=args.guard_retries,
                         heartbeat_path=args.heartbeat,
                         heartbeat_interval=args.heartbeat_interval)

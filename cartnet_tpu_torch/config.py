@@ -78,6 +78,9 @@ class OptimConfig:
     base_momentum: float = 0.85
     max_momentum: float = 0.95
     grad_clip: Optional[float] = None
+    # fused epochs: K > 1 micro-steps per device launch (one CUDA-graph
+    # replay on the card, train/graphs.py); K <= 1 runs unfused epochs
+    fused_steps: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

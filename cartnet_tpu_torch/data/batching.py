@@ -8,6 +8,7 @@ CSR offsets ``dst_rowptr`` computed here.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -184,3 +185,16 @@ def make_batches(records: Sequence[dict], batch_size: int,
     max_edges = rnd(max(need_e, 1), edge_multiple)
     return [collate(g, max_nodes, max_edges, batch_size, edge_align=align)
             for g in groups]
+
+
+def all_masked(batch: CrystalBatch) -> CrystalBatch:
+    """``batch`` with every mask off: it adds nothing to a loss, a BN
+    moment or a gradient, and keeps valid indices for the kernels (a
+    short data-parallel group's pad member, a fused chunk's pad step)."""
+    off = lambda a: None if a is None else np.zeros_like(a)
+    return dataclasses.replace(
+        batch, node_mask=off(batch.node_mask),
+        non_h_mask=off(batch.non_h_mask), edge_mask=off(batch.edge_mask),
+        graph_mask=off(batch.graph_mask),
+        edge_mask_src_sorted=off(batch.edge_mask_src_sorted),
+        src_degree=off(batch.src_degree))

@@ -269,8 +269,10 @@ def lattice_features(batch: CrystalBatch, dt):
 def _inv_len(t):
     """-0.75 / t, rounded once: torch's scalar / tensor multiplies by the
     rounded reciprocal, which rounds twice in bf16 where the JAX package
-    divides."""
-    return torch.div(t.new_tensor(-0.75), t)
+    divides. The numerator is filled on t's device (a host tensor would
+    be a copy to the card a forward, which a CUDA graph cannot capture)."""
+    return torch.div(torch.full((), -0.75, dtype=t.dtype, device=t.device),
+                     t)
 
 
 class RBFHead(nn.Module):

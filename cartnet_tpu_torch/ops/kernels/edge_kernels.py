@@ -79,6 +79,9 @@ TILE_EDGES = 64
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# launch counters: one a wrapper call that launches its kernel, also
+# while a CUDA graph captures it (train/graphs.py); a replay calls no
+# wrapper and counts nothing
 launches = 0  # forward kernel launches (CUDA path only)
 bwd_launches = 0  # backward kernel launches (CUDA path only)
 merged_launches = 0  # merged backward (K6) launches (CUDA path only)

@@ -39,6 +39,9 @@ from cartnet_tpu_torch.ops.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# launch counters: one a wrapper call that launches its kernel, also
+# while a CUDA graph captures it (train/graphs.py); a replay calls no
+# wrapper and counts nothing
 launches = 0  # forward kernel launches (CUDA path only)
 bwd_launches = 0  # backward kernel launches (CUDA path only)
 

@@ -26,6 +26,9 @@ from cartnet_tpu_torch.ops.kernels import _build
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 512  # the kernel's features per row (4 per thread, 128 threads)
 
+# launch counters: one a wrapper call that launches its kernel, also
+# while a CUDA graph captures it (train/graphs.py); a replay calls no
+# wrapper and counts nothing
 launches = 0  # kernel launches (CUDA path only)
 
 

@@ -21,8 +21,11 @@ micro-step on every rank:
 
 The update and the eval step are the single-process ones: every rank
 applies the same gradients to the same weights, and eval BN reads the
-running stats, which agree. Edge parallelism (ep > 1), halo partitioning
-and chunked execution are not ported yet.
+running stats, which agree. The fused chunk (``--fused_steps``) runs the
+same forward inside the single-process chunk; on the card its collectives
+are captured in the chunk's CUDA graph, which needs NCCL (train/graphs.py).
+Edge parallelism (ep > 1), halo partitioning and chunked execution are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch.distributed as dist
 
 from cartnet_tpu_torch.config import Config
 from cartnet_tpu_torch.data.schema import CrystalBatch
-from cartnet_tpu_torch.train.loop import (accumulate, bn_buffers, make_steps,
+from cartnet_tpu_torch.train.loop import (make_fused_chunk, make_steps,
                                           param_grads)
 from cartnet_tpu_torch.train.metrics import adp_stat_sums, masked_sums
 from cartnet_tpu_torch.train.state import TrainState
@@ -47,21 +50,21 @@ def all_reduce_flat(tensors, group) -> None:
         t.copy_(part.view_as(t))
 
 
-def make_parallel_steps(cfg: Config, group):
-    """-> (micro_step, update_step, eval_step) of data parallelism over
-    ``group``; each rank calls them on its own device batch."""
-    _, update_step, eval_step = make_steps(cfg)
+def parallel_forward(cfg: Config, group):
+    """The micro-step's forward and backward over ``group`` (a forward for
+    ``loop.make_steps``) -> (loss, stats, summed gradients, live: a device
+    bool, some rank's batch holds a real graph)."""
 
-    def micro_step(state: TrainState, batch: CrystalBatch):
+    def forward(state: TrainState, batch: CrystalBatch):
         model = state.model
         model.train()
-        bufs = bn_buffers(model)
-        old_bn = [b.clone() for b in bufs] if cfg.guard.enabled else None
         pred, mask = model(batch, group=group)
         sums = list(masked_sums(pred, batch.y, mask))
         if cfg.model.cholesky:
             sums += list(adp_stat_sums(pred.detach(), batch.y, mask))
-        tot = torch.stack([s.detach() for s in sums])
+        # the live flag rides on the loss sums' all-reduce
+        tot = torch.stack([s.detach() for s in sums]
+                          + [batch.graph_mask.any().float()])
         dist.all_reduce(tot, group=group)
         cnt = torch.clamp(tot[2], min=1.0)
         # the global sums' values, with the gradient of this rank's own
@@ -71,13 +74,29 @@ def make_parallel_steps(cfg: Config, group):
         loss = mae if cfg.optim.loss == "MAE" else mse
         grads = param_grads(loss, state.optimizer.params)
         all_reduce_flat(grads, group)
-        accumulate(state, cfg, loss, grads, bufs, old_bn)
         stats = {"loss": loss.detach(), "MAE": mae.detach(),
                  "MSE": mse.detach()}
         if cfg.model.cholesky:
             n = torch.clamp(tot[5], min=1.0)
             stats["volume_percentage_error"] = tot[3] / n
             stats["similarity_index"] = tot[4] / n
-        return state, stats
+        return loss, stats, grads, tot[-1] > 0
 
-    return micro_step, update_step, eval_step
+    return forward
+
+
+def make_parallel_steps(cfg: Config, group):
+    """-> (micro_step, update_step, eval_step) of data parallelism over
+    ``group``; each rank calls them on its own device batch."""
+    return make_steps(cfg, parallel_forward(cfg, group))
+
+
+def make_parallel_fused_chunk(cfg: Config, group, num_steps: int):
+    """The fused chunk (``loop.make_fused_chunk``) over ``group``: each
+    rank runs ``num_steps`` micro-steps on its own stacked member batches,
+    with the data-parallel forward; a micro-step is valid where any rank's
+    batch holds a real graph (a short group's ranks past its end hold
+    fully masked batches) and the guard passes the summed gradients, so
+    the accumulation cadence agrees on every rank (port of
+    cartnet_tpu/parallel/step.py's ``make_parallel_fused_chunk``)."""
+    return make_fused_chunk(cfg, num_steps, parallel_forward(cfg, group))

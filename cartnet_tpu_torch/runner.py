@@ -33,8 +33,20 @@ package. The steps are ``parallel/step.make_parallel_steps``; the loggers
 sum the epoch's stats over the ranks. Rank 0 alone writes ``stats.json``,
 the checkpoints, the heartbeat, the profile and the inference pickle;
 ``resume`` and a rollback restore every rank from the same file. Edge
-parallelism, halo partitioning, chunked execution and fused epochs are not
-ported yet (ROADMAP M1).
+parallelism, halo partitioning and chunked execution are not ported yet
+(ROADMAP M1).
+
+Fused epochs (``cfg.optim.fused_steps`` K > 1, the JAX runner's wiring):
+each train epoch runs ``loop.train_epoch_fused`` over K micro-steps a
+device launch (``loop.make_fused_chunk``, under data parallelism
+``parallel/step.make_parallel_fused_chunk``), each chunk one CUDA-graph
+replay on the card (``train/graphs.ChunkRunner``; NCCL under data
+parallelism) and run eagerly on the CPU. The optimizer steps on the device
+once ``batch_accumulation`` valid micro-steps are in; the host update count
+is read back once an epoch, before the checkpoints are written, so the
+guard, the heartbeat, the rollback, the checkpoints, ``resume`` and
+``profile`` work as they do around unfused epochs, and a run may resume
+with ``fused_steps`` on or off.
 
 ``inference`` runs the eval forward batch by batch and writes one entry per
 structure: pred/true of its non-H atoms, cell, temperature, positions, atom
@@ -61,6 +73,7 @@ import torch
 import torch.distributed as dist
 
 from cartnet_tpu_torch.config import Config, resolve_device
+from cartnet_tpu_torch.data.batching import all_masked
 from cartnet_tpu_torch.data.pipeline import (BatchPipeline,
                                              choose_pad_sizes_from_counts,
                                              edge_align_for, record_counts)
@@ -68,13 +81,16 @@ from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.ops.rotations import random_rotation
 from cartnet_tpu_torch.parallel import dist as pdist
-from cartnet_tpu_torch.parallel.step import make_parallel_steps
+from cartnet_tpu_torch.parallel.step import (make_parallel_fused_chunk,
+                                             make_parallel_steps)
 from cartnet_tpu_torch.train import checkpoint as ckpt
+from cartnet_tpu_torch.train.graphs import ChunkRunner
 from cartnet_tpu_torch.train.guard import GuardMonitor, Heartbeat
 from cartnet_tpu_torch.train.logger import WandbLogger, create_loggers
 from cartnet_tpu_torch.train.loop import (build_lr_fn, build_optimizer,
                                           eval_epoch, init_train_state,
-                                          make_steps, train_epoch)
+                                          make_fused_chunk, make_steps,
+                                          train_epoch, train_epoch_fused)
 from cartnet_tpu_torch.train.metrics import (compute_3d_iou,
                                              get_similarity_index)
 
@@ -83,18 +99,6 @@ def sharded_steps_per_epoch(unsharded_len: int, dp: int) -> int:
     """Micro-steps per epoch of ``dp`` ranks over a pipeline of
     ``unsharded_len`` batches (one bucket)."""
     return -(-unsharded_len // max(dp, 1))
-
-
-def all_masked(batch: CrystalBatch) -> CrystalBatch:
-    """``batch`` with every mask off: it adds nothing to a loss, a BN
-    moment or a gradient, and keeps valid indices for the kernels."""
-    off = lambda a: None if a is None else np.zeros_like(a)
-    return dataclasses.replace(
-        batch, node_mask=off(batch.node_mask),
-        non_h_mask=off(batch.non_h_mask), edge_mask=off(batch.edge_mask),
-        graph_mask=off(batch.graph_mask),
-        edge_mask_src_sorted=off(batch.edge_mask_src_sorted),
-        src_degree=off(batch.src_degree))
 
 
 class ShardedPipeline:
@@ -299,6 +303,23 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
                             else make_parallel_steps(cfg, group))
     main = pdist.is_main(group)
     lr_fn = build_lr_fn(cfg, len(train_pipe))
+    k = cfg.optim.fused_steps
+    run_chunk = None
+    if k > 1:
+        run_chunk = ChunkRunner(
+            make_fused_chunk(cfg, k) if group is None
+            else make_parallel_fused_chunk(cfg, group, k), k, device, group)
+        logging.info("fused epochs: %d micro-steps per device launch", k)
+
+    def train_pass(state):
+        if run_chunk is not None:
+            return train_epoch_fused(state, train_pipe, run_chunk, k, update,
+                                     cfg.optim.batch_accumulation, device,
+                                     loggers[0], lr_fn)
+        return train_epoch(state, train_pipe, micro, update,
+                           cfg.optim.batch_accumulation, device, loggers[0],
+                           lr_fn)
+
     best_path, last_path = checkpoint_paths(cfg.run_dir)
     monitor, state0 = None, None
     if cfg.guard.enabled:
@@ -311,9 +332,7 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
         t0 = time.perf_counter()
         with (_profiled(cfg.run_dir, device) if profile and epoch == first
               else contextlib.nullcontext()):
-            state, _ = train_epoch(state, train_pipe, micro, update,
-                                   cfg.optim.batch_accumulation, device,
-                                   loggers[0], lr_fn)
+            state, _ = train_pass(state)
         train_stats = loggers[0].write_epoch(epoch)
         eval_epoch(state, val_pipe, evals, device, logger=loggers[1])
         val_stats = loggers[1].write_epoch(epoch)

@@ -39,12 +39,24 @@ def tree_all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(oks).all()
 
 
+def step_finite(loss, grads) -> torch.Tensor:
+    """Scalar bool tensor: the loss and every gradient are finite."""
+    return torch.isfinite(loss) & tree_all_finite(grads)
+
+
+def select_step(keep, grads, new_bn, old_bn):
+    """-> (grads', bn'): the step's gradients and BN stats where the device
+    bool ``keep`` holds, else zero gradients and the old BN stats."""
+    grads = [torch.where(keep, g, 0.0) for g in grads]
+    bn = [torch.where(keep, a, b) for a, b in zip(new_bn, old_bn)]
+    return grads, bn
+
+
 def guard_contribution(loss, grads, new_bn, old_bn):
     """-> (ok, grads', bn'): zero grads and the old BN stats where the step
     is not finite."""
-    ok = torch.isfinite(loss) & tree_all_finite(grads)
-    grads = [torch.where(ok, g, torch.zeros_like(g)) for g in grads]
-    bn = [torch.where(ok, a, b) for a, b in zip(new_bn, old_bn)]
+    ok = step_finite(loss, grads)
+    grads, bn = select_step(ok, grads, new_bn, old_bn)
     return ok, grads, bn
 
 

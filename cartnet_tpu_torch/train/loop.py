@@ -13,10 +13,25 @@ one copy to the host per epoch). A logger passed to ``train_epoch`` gets
 each micro-batch's stats, weight, lr and real edges, and the epoch's time
 closed by a device synchronize; one passed to ``eval_epoch`` also gets the
 masked true/pred values for r2 and Spearman.
+
+Fused epochs (``--fused_steps K``, the JAX ``make_fused_chunk`` /
+``train_epoch_fused``): a chunk runs K micro-steps with everything on the
+device, the accumulation cadence included. Gradients are summed per
+valid micro-batch (one holding a real graph that the guard passes), the
+optimizer steps where the device count reaches ``batch_accumulation``
+(``OneCycleAdam.step_where``), and fully masked pad batches fill a ragged
+chunk without advancing the cadence; unlike ``train_epoch``, which counts
+iterations on the host, as the JAX package's two loops differ. The host
+reads the update count and ``accum_count`` once an epoch (the flush) and
+the stats once for the logger, stamping each micro-step with the lr after
+it. ``make_fused_steps`` is the accumulation-1 variant. On the card a
+chunk is one CUDA-graph replay (train/graphs.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -24,8 +39,9 @@ import numpy as np
 import torch
 
 from cartnet_tpu_torch.config import Config
+from cartnet_tpu_torch.data.batching import all_masked
 from cartnet_tpu_torch.data.schema import CrystalBatch
-from cartnet_tpu_torch.train.guard import guard_contribution
+from cartnet_tpu_torch.train.guard import select_step, step_finite
 from cartnet_tpu_torch.train.metrics import (adp_stat_sums, compute_3d_iou,
                                              masked_mae_mse)
 from cartnet_tpu_torch.train.schedule import (make_optimizer, onecycle_lr,
@@ -86,39 +102,53 @@ def param_grads(loss, params) -> List[torch.Tensor]:
 
 
 def accumulate(state: TrainState, cfg: Config, loss, grads, bufs,
-               old_bn) -> None:
+               old_bn, live=None) -> torch.Tensor:
     """The micro-step's tail: with the guard on, a non-finite step adds
     nothing and puts back the BN buffers ``bufs`` had (``old_bn``); the
-    gradients are summed into the accumulator and the counters advance."""
+    gradients are summed into the accumulator and the counters advance.
+    ``live`` (a fused chunk's micro-step): a device bool, False on a fully
+    masked pad batch, which then adds nothing either and counts neither as
+    accumulated nor as bad. -> the device bool: the step was accumulated."""
     ok = torch.ones((), dtype=torch.bool, device=loss.device)
     if cfg.guard.enabled:
-        ok, grads, bn = guard_contribution(loss.detach(), grads, bufs,
-                                           old_bn)
+        ok = step_finite(loss.detach(), grads)
+    keep, bad = (ok, ~ok) if live is None else (ok & live, ~ok & live)
+    if cfg.guard.enabled or live is not None:
+        grads, bn = select_step(keep, grads, bufs, old_bn)
         with torch.no_grad():
             for b, v in zip(bufs, bn):
                 b.copy_(v)
     with torch.no_grad():
-        for a, g in zip(state.grad_accum, grads):
-            a.add_(g)
-    state.accum_count += ok.int()
-    state.bad_steps += (~ok).int()
+        torch._foreach_add_(state.grad_accum, grads)
+    state.accum_count += keep.int()
+    state.bad_steps += bad.int()
+    return keep
 
 
-def make_steps(cfg: Config):
-    """-> (micro_step, update_step, eval_step); batches are on the device."""
+def train_forward(cfg: Config, state: TrainState, batch: CrystalBatch):
+    """The train forward and backward of one device micro-batch -> (loss,
+    stats, gradients aligned with the optimizer's params, live: a device
+    bool, the batch holds a real graph)."""
+    model = state.model
+    model.train()
+    loss, (mae, mse, pred, mask) = loss_fn(model, batch, cfg)
+    grads = param_grads(loss, state.optimizer.params)
+    stats = _stats_with_adp(cfg, {"loss": loss.detach(), "MAE": mae.detach(),
+                                  "MSE": mse.detach()}, pred, batch.y, mask)
+    return loss, stats, grads, batch.graph_mask.any()
+
+
+def make_steps(cfg: Config, forward=None):
+    """-> (micro_step, update_step, eval_step); batches are on the device.
+    ``forward(state, batch)``: the micro-step's forward and backward
+    (``train_forward`` by default, or data parallelism's)."""
+    forward = forward or functools.partial(train_forward, cfg)
 
     def micro_step(state: TrainState, batch: CrystalBatch):
-        model = state.model
-        model.train()
-        bufs = bn_buffers(model)
+        bufs = bn_buffers(state.model)
         old_bn = [b.clone() for b in bufs] if cfg.guard.enabled else None
-        loss, (mae, mse, pred, mask) = loss_fn(model, batch, cfg)
-        grads = param_grads(loss, state.optimizer.params)
+        loss, stats, grads, _ = forward(state, batch)
         accumulate(state, cfg, loss, grads, bufs, old_bn)
-        stats = _stats_with_adp(cfg, {"loss": loss.detach(),
-                                      "MAE": mae.detach(),
-                                      "MSE": mse.detach()},
-                                pred, batch.y, mask)
         return state, stats
 
     def update_step(state: TrainState):
@@ -176,6 +206,170 @@ def train_epoch(state: TrainState, batches: Iterable[CrystalBatch],
                           edges=real_edges(batch))
     if count % batch_accumulation != 0:  # epoch-end flush
         state = update_step(state)
+    if logger is not None:
+        _synchronize(device)
+        logger.note_time(time.perf_counter() - t0)
+    return state, rows
+
+
+# ------------------------------------------------------------ fused epochs
+
+def update_where(state: TrainState, pred) -> None:
+    """``update_step`` where the device bool ``pred`` holds (the JAX
+    chunk's ``lax.cond``), with no host sync: Adam from the device count
+    (``OneCycleAdam.step_where``), the accumulator and its count zeroed.
+    The host ``state.step`` follows at the epoch's end (``sync_step``)."""
+    state.optimizer.step_where(state.grad_accum, pred)
+    with torch.no_grad():
+        torch._foreach_mul_(state.grad_accum,
+                            (~pred).to(state.grad_accum[0].dtype))
+    state.accum_count.masked_fill_(pred, 0)
+
+
+def sync_step(state: TrainState) -> int:
+    """The host update count from the device one (one host read)."""
+    state.step = state.optimizer.sync_count()
+    return state.step
+
+
+def member(stacked: CrystalBatch, k: int) -> CrystalBatch:
+    """Micro-batch ``k`` of a stacked batch (views of its fields)."""
+    return dataclasses.replace(stacked, **{
+        f.name: getattr(stacked, f.name)[k]
+        for f in dataclasses.fields(stacked)
+        if getattr(stacked, f.name) is not None})
+
+
+def stack_batches(batches: List[CrystalBatch]) -> CrystalBatch:
+    """Host batches of one pad shape -> one host batch whose fields carry
+    a leading K axis. (The JAX package's flag normalisation for its TPU
+    kernels has no counterpart: the Hopper kernels take every batch.)"""
+    return dataclasses.replace(batches[0], **{
+        f.name: np.stack([np.asarray(getattr(b, f.name)) for b in batches])
+        for f in dataclasses.fields(batches[0])
+        if getattr(batches[0], f.name) is not None})
+
+
+def fused_micro_step(cfg: Config, state: TrainState, batch: CrystalBatch,
+                     forward) -> Stats:
+    """One micro-step of a fused chunk (the JAX ``make_fused_chunk``'s
+    ``one``), all on the device: the forward and backward, the guard, a
+    micro-step that is valid (its batch holds a real graph, and the guard
+    passes) accumulates and advances the cadence, an invalid one adds
+    nothing and puts back the BN buffers (a pad step is not counted bad);
+    then the update where the count reaches ``batch_accumulation`` ->
+    the step's stats times valid, and valid."""
+    bufs = bn_buffers(state.model)
+    old_bn = [b.clone() for b in bufs]
+    loss, stats, grads, live = forward(state, batch)
+    valid = accumulate(state, cfg, loss, grads, bufs, old_bn, live)
+    update_where(state, state.accum_count >= cfg.optim.batch_accumulation)
+    v = valid.float()
+    return {**{k: s * v for k, s in stats.items()}, "valid": v}
+
+
+def make_fused_chunk(cfg: Config, num_steps: int, forward=None):
+    """-> chunk(state, stacked): ``num_steps`` micro-steps over a stacked
+    device batch (``stack_batches``) with the reference cadence of the JAX
+    ``make_fused_chunk``: gradients summed per valid micro-batch, the
+    optimizer stepping on the device once ``batch_accumulation`` of them
+    are in, fully masked pad batches and guard-rejected steps leaving the
+    cadence where it was -> the per-step stats, [num_steps] each
+    (``fused_micro_step``). ``forward``: as in ``make_steps``. On the
+    card a ``graphs.ChunkRunner`` captures it in one CUDA graph."""
+    forward = forward or functools.partial(train_forward, cfg)
+
+    def chunk(state: TrainState, stacked: CrystalBatch) -> Stats:
+        rows = [fused_micro_step(cfg, state, member(stacked, k), forward)
+                for k in range(num_steps)]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    return chunk
+
+
+def make_fused_steps(cfg: Config, num_steps: int):
+    """-> fused(state, stacked): ``num_steps`` micro-steps, each followed by
+    its own optimizer update (batch_accumulation 1, the JAX
+    ``make_fused_steps``), from the micro-steps' gradients (the
+    accumulator is not touched). With the guard on, a non-finite step
+    updates nothing, puts back the BN buffers and adds to ``bad_steps``
+    -> {"loss", "MAE"}, [num_steps] each. The host ``state.step`` follows
+    with ``sync_step``."""
+    forward = functools.partial(train_forward, cfg)
+
+    def one(state: TrainState, batch: CrystalBatch) -> Stats:
+        bufs = bn_buffers(state.model)
+        old_bn = [b.clone() for b in bufs] if cfg.guard.enabled else None
+        loss, stats, grads, _ = forward(state, batch)
+        ok = torch.ones((), dtype=torch.bool, device=loss.device)
+        if cfg.guard.enabled:
+            ok = step_finite(loss.detach(), grads)
+            grads, bn = select_step(ok, grads, bufs, old_bn)
+            with torch.no_grad():
+                for b, v in zip(bufs, bn):
+                    b.copy_(v)
+            state.bad_steps += (~ok).int()
+        state.optimizer.step_where(grads, ok)
+        return {"loss": stats["loss"], "MAE": stats["MAE"]}
+
+    def fused(state: TrainState, stacked: CrystalBatch) -> Stats:
+        rows = [one(state, member(stacked, k)) for k in range(num_steps)]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    return fused
+
+
+def train_epoch_fused(state: TrainState, batches: Iterable[CrystalBatch],
+                      run_chunk, chunk_size: int, update_step,
+                      batch_accumulation: int, device="cuda", logger=None,
+                      lr_fn: Optional[Callable[[int], float]] = None
+                      ) -> Tuple[TrainState, List[tuple]]:
+    """One epoch of fused chunks (the JAX ``train_epoch_fused``): host
+    batches go ``chunk_size`` at a time to ``run_chunk(state, batches)``
+    (a ``graphs.ChunkRunner``: one CUDA-graph replay on the card), a chunk
+    closes early at a pad-shape boundary, and a short chunk is padded with
+    fully masked copies of its last batch. At the end, one host read of
+    the device update count and one of ``accum_count`` (the epoch-end
+    flush through ``update_step``), then one copy of every micro-step's
+    stats for the logger, each stamped with the lr after it: the
+    optimizer has stepped ``(valid micro-steps so far) //
+    batch_accumulation`` times. Returns the state and (stats, weight) per
+    micro-batch, as ``train_epoch`` does, on the host."""
+    t0 = time.perf_counter()
+    step0 = state.step
+    pending, meta, group = [], [], []
+
+    def flush():
+        pad = [all_masked(group[-1])] * (chunk_size - len(group))
+        pending.append((run_chunk(state, group + pad), len(group)))
+        group.clear()
+
+    for batch in batches:
+        if group and (batch.z.shape != group[0].z.shape  # a new pad shape
+                      or batch.edge_src.shape != group[0].edge_src.shape):
+            flush()
+        group.append(batch)
+        meta.append((target_weight(batch), real_edges(batch)))
+        if len(group) == chunk_size:
+            flush()
+    if group:
+        flush()
+    sync_step(state)
+    if int(state.accum_count) > 0:  # epoch-end flush
+        state = update_step(state)
+    keys = list(pending[0][0]) if pending else []
+    host = (torch.stack([torch.cat([s[k][:n] for s, n in pending])
+                         for k in keys]).cpu().numpy() if keys else None)
+    rows, valid_seen = [], 0
+    for j, (w, edges) in enumerate(meta):
+        row = {k: float(host[i, j]) for i, k in enumerate(keys)
+               if k != "valid"}
+        valid_seen += int(host[keys.index("valid"), j])
+        rows.append((row, w))
+        if logger is not None:
+            lr = lr_fn(step0 + valid_seen // max(batch_accumulation, 1)) \
+                if lr_fn else 0.0
+            logger.update(row, weight=w, lr=float(lr), edges=edges)
     if logger is not None:
         _synchronize(device)
         logger.note_time(time.perf_counter() - t0)

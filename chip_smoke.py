@@ -145,8 +145,28 @@ Phases, one JSON line each (every line names the card and its power limit):
               gradients within 1e-4, bf16 through bf16_grad_gate; the
               ranks' updated weights equal to the bit and to the update
               of the summed gradients), launches per rank; a world = 1
-              NCCL group's step against the single process; the dp step's
-              wall time beside the single-process step's
+              NCCL group's step against the single process, beside the
+              single-process step's own repeat from the same state (the
+              gradients that differ between two runs of one step: the
+              embedding's and the temperature projection's atomics), and
+              a world = 1 NCCL fused chunk (its all-reduces captured in
+              the CUDA graph) against the single-process fused chunk; the
+              dp step's wall time beside the single-process step's
+  8h. fused   fused epochs (--fused_steps, train/graphs.py: K micro-steps
+              one CUDA-graph replay) at the flagship CartNet training
+              config on the same two batches: 32 micro-steps with K = 16
+              (two replays, two updates on the device) against
+              train_epoch, bf16 and f32 (update counts, losses, each
+              layer group's weight change through bf16_grad_gate); one
+              chunk's replay against the same chunk run eagerly (bf16 K =
+              16; K = 4 in f32, merged, the eComformer, the iComformer);
+              a ragged tail and a guard-rejected micro-step (K = 4 over 6
+              batches) against a host replay of the cadence; one replay's
+              kernels by CUDA name (K times each wrapper's launches a
+              micro-step); the wall a micro-step fused and unfused, one
+              replay's busy time and idle share, capture seconds and pool
+              bytes; the CLI with --fused_steps 16 on the adp phase's
+              files (two epochs, then --resume with --profile)
   9. time     CUDA-event medians (>= 20 runs after warm-up) of each kernel
               and its plain version, and their device time alone (profiler,
               without the host's launch overhead), the bound for the same
@@ -165,7 +185,9 @@ Phases, one JSON line each (every line names the card and its power limit):
               and the Jarvis batch-64 f32 CartNet micro-step),
               and one profiled forward and micro-step of each model, path
               and dtype (device time by kernel, idle share of the device)
-  10. kernels the summary line {"kernels": [...]}
+  10. kernels the summary line {"kernels": [...]}, with each kernel's
+              launches on the fused path (at the warm-up and capture, and
+              in one replay by CUDA name)
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
 script, it exits non-zero and prints no result.
@@ -1828,6 +1850,51 @@ def dp_rank(rank: int, coordinator: str, batches, out_dir: str,
     torch.save(res, os.path.join(out_dir, f"dp_rank{rank}.pt"))
 
 
+def nccl_fused(cfg, dev, group, union) -> dict:
+    """A fused chunk (``make_parallel_fused_chunk``, K = 4 over the union
+    batch, one update) in the world = 1 NCCL ``group``, its all-reduces
+    captured in the CUDA graph, against the single-process fused chunk
+    from the same state: each layer's weights and the BN buffers within
+    F32_STEP_TOL (grad_errors), the per-step stats, the counters."""
+    import torch
+    from cartnet_tpu_torch.parallel.step import make_parallel_fused_chunk
+    from cartnet_tpu_torch.train import loop
+    from cartnet_tpu_torch.train.graphs import ChunkRunner
+    k = FUSED_SMALL_K
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, batch_accumulation=k))
+    out = {}
+    for name, chunk, grp in (
+            ("single", loop.make_fused_chunk(cfg, k), None),
+            ("nccl", make_parallel_fused_chunk(cfg, group, k), group)):
+        st = fused_state(cfg, dev, k)
+        stats = ChunkRunner(chunk, k, dev, grp)(st, [union] * k)
+        torch.cuda.synchronize()
+        out[name] = (st, stats)
+    (a, sa), (b, sb) = out["single"], out["nccl"]
+    names = [n for n, _ in a.model.named_parameters()]
+    p_err = grad_errors(names, [p.detach() for p in b.optimizer.params],
+                        [p.detach() for p in a.optimizer.params])
+    bufs = zip(loop.bn_buffers(b.model), loop.bn_buffers(a.model))
+    b_err = max(normalized_err(x, y)[1] for x, y in bufs
+                if x.is_floating_point())
+    s_err = max(normalized_err(sb[key], sa[key])[1] for key in sa)
+    bitwise = all(torch.equal(x, y) for x, y in
+                  zip(b.model.state_dict().values(),
+                      a.model.state_dict().values()))
+    counts = [int(s.optimizer.count_t) for s in (a, b)]
+    failed = []
+    if not (max(p_err.values()) <= F32_STEP_TOL and b_err <= F32_STEP_TOL
+            and s_err <= F32_STEP_TOL):
+        failed.append("nccl vs single")
+    if counts != [1, 1]:
+        failed.append(f"updates {counts}")
+    return dict(world=1, k=k, params_max_rel_err_per_layer=max(
+        p_err.values()), bn_stats_max_rel_err=b_err,
+        stats_max_rel_err=s_err, bitwise=bitwise, updates=counts,
+        tol=F32_STEP_TOL, failed=failed)
+
+
 def dp_phase(card: str, dev, recs) -> dict:
     """8g. Data parallelism (parallel/step.py) with two ranks on the one
     card: NCCL takes one rank a device, so the ranks join an explicit gloo
@@ -1951,10 +2018,17 @@ def dp_phase(card: str, dev, recs) -> dict:
         lines[case] = line
         emit(phase="dp", card=card, **line, tol=tol, failed=fails)
         bad += [f"{case}: {f}" for f in fails]
-    # a world = 1 NCCL group: initializes, and equals the single process
+    # a world = 1 NCCL group: initializes, and equals the single process;
+    # beside it, the single-process step's own repeat from the same state
+    # (the gradients that differ between two runs of one step: atomics)
     cfg = dp_config("cartnet", "f32")
     ref = single(cfg)
     loss, grads, names = ref["loss"], ref["grads"], ref["names"]
+    again = single(cfg)
+    differs = lambda gs: [n for n, x, y in zip(names, gs, grads)
+                          if not torch.equal(x, y)]
+    repeat_differs = differs(again["grads"])
+    repeat_err = max(grad_errors(names, again["grads"], grads).values())
     group = pdist.initialize_distributed(f"localhost:{pdist.free_port()}", 1,
                                          0, dev)
     try:
@@ -1965,25 +2039,407 @@ def dp_phase(card: str, dev, recs) -> dict:
         state, stats = micro(state, union)
         torch.cuda.synchronize()
         nccl_launches = launch_counts()
+        fused_line = nccl_fused(cfg, dev, group, make_batches(recs, 8)[0])
     finally:
         torch.distributed.destroy_process_group()
     nccl_err = max([normalized_err(stats["loss"].reshape(1), loss)[1]]
                    + list(grad_errors(names, state.grad_accum,
                                       grads).values()))
-    nccl_bitwise = bool(torch.equal(stats["loss"].reshape(1), loss) and all(
-        torch.equal(x, y) for x, y in zip(state.grad_accum, grads)))
+    nccl_differs = differs(state.grad_accum)
+    nccl_bitwise = bool(torch.equal(stats["loss"].reshape(1), loss)
+                        and not nccl_differs)
     nccl_fail = backend != "nccl" or nccl_err > 1e-4
     emit(phase="dp_nccl", card=card, backend=backend, world=1,
          launches=nccl_launches, max_rel_err=nccl_err, bitwise=nccl_bitwise,
+         differs=nccl_differs, single_repeat_bitwise=bool(
+             torch.equal(again["loss"], loss) and not repeat_differs),
+         single_repeat_differs=repeat_differs,
+         single_repeat_max_rel_err=repeat_err,
+         differs_within_repeat=set(nccl_differs) <= set(repeat_differs),
          failed=nccl_fail)
     if nccl_fail:
         bad.append(f"nccl world 1: backend {backend}, err {nccl_err}")
+    emit(phase="dp_nccl_fused", card=card, **fused_line)
+    if fused_line["failed"]:
+        bad.append(f"nccl world 1 fused chunk: {fused_line['failed']}")
     emit(phase="dp_summary", card=card, spawn_seconds=round(spawn_s, 3),
          seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
     if bad:
         fail(f"dp phase: {bad}")
     return {f"{n}_{d}": ranks[0][f"{n}_{d}"]["launches"]
             for n, d in DP_CASES}
+
+
+# 8h. fused epochs: K micro-steps a CUDA-graph replay
+FUSED_K = 16  # the main chunk: two replays = the train phase's 32 steps
+FUSED_SMALL_K = 4  # f32, merged and Comformer chunks (one update each)
+# per-micro-step launches of the fused chunks' wrappers, by case
+FUSED_MICRO = {"cartnet": dict.fromkeys(CARTNET_KERNELS, 4),
+               "merged": MERGED_MICRO, "ecomformer": ECO_MICRO,
+               "icomformer": ICO_MICRO}
+
+
+def fused_config(net: str, dt, accum: int = TRAIN_ACCUM):
+    """The fused phase's flagship training configs (dim 256, 64 RBF, 4
+    layers, Cholesky head, temperature and atom-type inputs)."""
+    from cartnet_tpu_torch.config import Config, ModelConfig, OptimConfig
+    return Config(model=ModelConfig(name=net, dim_in=256, dim_rbf=64,
+                                    num_layers=4, cholesky=True,
+                                    compute_dtype=dt),
+                  optim=OptimConfig(max_epoch=1, batch_accumulation=accum))
+
+
+def fused_state(cfg, dev, steps: int):
+    """A fresh train state of ``cfg`` from seed 0."""
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.train import loop
+    model = create_model(cfg.model, dev, 0)
+    return loop.init_train_state(model, loop.build_optimizer(
+        cfg, model.parameters(), steps))
+
+
+def fused_launches(case: str, per_steps: int) -> dict:
+    """Each wrapper's expected launch count over ``per_steps`` micro-steps
+    of ``case`` (FUSED_MICRO)."""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update({k: v * per_steps for k, v in FUSED_MICRO[case].items()})
+    return out
+
+
+def fused_by_name(case: str, dt, steps: int) -> dict:
+    """The CUDA kernels, by a piece of their names, that ``steps``
+    CartNet micro-steps launch (LAUNCHES per wrapper call and dtype)."""
+    out = {}
+    for kname, n in FUSED_MICRO[case].items():
+        for sub, m in launches_of(kname, dt).items():
+            out[sub] = out.get(sub, 0) + n * m * steps
+    return out
+
+
+def replay_vs_eager(card, dev, net, dt, case, group, k, accum) -> dict:
+    """One chunk of ``k`` micro-steps from one state (seed 0), run eagerly
+    (``make_fused_chunk`` itself) and as a CUDA-graph replay
+    (``ChunkRunner``: warm-up, capture, replay): the count of state
+    tensors equal to the bit, each layer's weights and the BN buffers
+    (their largest error over the layer's largest entry, as grad_errors),
+    the per-step stats, the counters; the wrappers' launches during the
+    runner's first call (the warm-up and the capture: 2 k micro-steps) ->
+    {runner, state, line}."""
+    import torch
+    from cartnet_tpu_torch.train import loop
+    from cartnet_tpu_torch.train.graphs import ChunkRunner, state_tensors
+    cfg = fused_config(net, dt, accum)
+    st = fused_state(cfg, dev, 2 * k)
+    chunk = loop.make_fused_chunk(cfg, k)
+    runner = ChunkRunner(chunk, k, dev)
+    with merged_path(case == "merged"):
+        kept = [t.detach().clone() for t in state_tensors(st)]
+        e_stats = chunk(st, loop.stack_batches(group).to(dev))
+        torch.cuda.synchronize()
+        eager = [t.detach().clone() for t in state_tensors(st)]
+        with torch.no_grad():
+            for t, v in zip(state_tensors(st), kept):
+                t.copy_(v)
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        r_stats = runner(st, group)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
+    replay = [t.detach().clone() for t in state_tensors(st)]
+    names = [n for n, _ in st.model.named_parameters()]
+    n_p = len(names)
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(eager, replay))
+    p_err = grad_errors(names, replay[:n_p], eager[:n_p])
+    bufs = loop.bn_buffers(st.model)
+    b_err = max((normalized_err(a, b)[1] for a, b in
+                 zip(replay[-len(bufs):], eager[-len(bufs):])
+                 if a.is_floating_point()), default=0.0)
+    s_err = max(normalized_err(r_stats[key], e_stats[key])[1]
+                for key in e_stats)
+    counters_same = all(torch.equal(a, b) for a, b in
+                        zip(replay[n_p:n_p + 1], eager[n_p:n_p + 1])) and \
+        int(st.accum_count) == 0 and int(st.bad_steps) == 0
+    expect = fused_launches(case, 2 * k)
+    tol = F32_STEP_TOL if dt == torch.float32 else PRED_TOL
+    line = dict(model=net, case=case, compute_dtype=str(dt), k=k,
+                batch_accumulation=accum, tensors=len(eager),
+                tensors_bitwise=same, bitwise=same == len(eager),
+                params_max_rel_err_per_layer=max(p_err.values()),
+                params_worst=max(p_err, key=p_err.get),
+                bn_stats_max_rel_err=b_err, stats_max_rel_err=s_err,
+                updates=int(st.optimizer.count_t),
+                launches_warmup_and_capture=launches,
+                expected_launches=expect, first_call_seconds=first_s,
+                capture=runner.captures[-1], tol=tol)
+    fails = []
+    if launches != expect:
+        fails.append("launches")
+    if not (max(p_err.values()) <= tol and b_err <= tol and s_err <= tol):
+        fails.append("replay vs eager")
+    if not counters_same or line["updates"] != k // accum:
+        fails.append("counters")
+    emit(phase="fused_replay_vs_eager", card=card, **line, failed=fails)
+    return {"runner": runner, "state": st, "line": line, "fails": fails,
+            "cfg": cfg}
+
+
+def fused_phase(card: str, dev, batches) -> dict:
+    """8h. Fused epochs (``--fused_steps``, train/graphs.py): K micro-steps
+    of the training path as one CUDA-graph replay, at the flagship CartNet
+    training config (dim 256, 64 RBF, 4 layers, Cholesky head, temperature
+    and atom types, batch_accumulation 16) on the main path's two batches:
+
+      * 32 micro-steps of ``train_epoch_fused`` with K = 16 (two replays,
+        two updates on the device) against ``train_epoch`` from seed 0, in
+        bf16 and f32: the update counts (2), the per-step losses, and each
+        layer group's weight change through bf16_grad_gate (its second
+        honest implementation the same fused epoch run eagerly, whose
+        device update rounds otherwise than torch.optim.Adam, its scale
+        the f32 unfused change; in f32 with F32_STEP_TOL and the f32
+        change itself); the wrappers' launches (the warm-up and the
+        capture);
+      * one chunk's replay against the same chunk run eagerly from the same
+        state (``replay_vs_eager``): bf16 K = 16, then K = 4 (one update)
+        in f32, on the merged path and for the eComformer and the
+        iComformer (bf16);
+      * a ragged tail and a guard-rejected micro-step: K = 4 over 6
+        batches (the third with a non-finite target), batch_accumulation
+        2: the per-step valid flags, accum_count, bad_steps and the device
+        update count against a host replay of the rule, then the flush;
+      * one replay profiled: each CartNet kernel by CUDA name K times its
+        launches a micro-step (bf16 K = 16; f32 and merged K = 4);
+      * times (CUDA events, the card's name and power limit on each line):
+        the wall a micro-step fused (a chunk's copy-in and replay over K)
+        and unfused (``train_epoch`` over K host batches), the device busy
+        time and idle share of one replay, each capture's seconds and pool
+        bytes;
+      * the CLI with ``--fused_steps 16`` on the adp phase's .pt files (two
+        f32 epochs, then ``--resume`` one more with ``--profile``): stats
+        lines with the unfused keys, a trace file.
+    -> the launches of the main chunk (capture) and of one replay by name.
+    """
+    import torch
+    from cartnet_tpu_torch import cli
+    from cartnet_tpu_torch.train import loop
+    from cartnet_tpu_torch.train.graphs import ChunkRunner
+    t_phase = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    bad = []
+    epoch = batches * (TRAIN_MICRO_STEPS // len(batches))
+    group = epoch[:FUSED_K]
+
+    # fused epoch against unfused epoch, bf16 and f32
+    deltas, runs = {}, {}
+    for dt in (f32, bf):
+        cfg = fused_config("cartnet", dt)
+        micro, update, _ = loop.make_steps(cfg)
+
+        def unfused():
+            st = fused_state(cfg, dev, len(epoch))
+            p0 = [p.detach().clone() for p in st.optimizer.params]
+            st, rows = loop.train_epoch(st, epoch, micro, update,
+                                        TRAIN_ACCUM, dev)
+            return st, [p.detach() - q for p, q in
+                        zip(st.optimizer.params, p0)], rows
+
+        ust, udelta, urows = unfused()
+        # the second honest implementation: the same fused epoch run
+        # eagerly (the device update, no graph), whose Adam rounds
+        # otherwise than torch.optim.Adam's foreach path
+        est = fused_state(cfg, dev, len(epoch))
+        e0 = [p.detach().clone() for p in est.optimizer.params]
+        echunk = loop.make_fused_chunk(cfg, FUSED_K)
+        est, _ = loop.train_epoch_fused(
+            est, epoch, lambda s, bs: echunk(s, loop.stack_batches(bs).to(
+                dev)), FUSED_K, update, TRAIN_ACCUM, dev)
+        edelta = [p.detach() - q for p, q in zip(est.optimizer.params, e0)]
+        fst = fused_state(cfg, dev, len(epoch))
+        p0 = [p.detach().clone() for p in fst.optimizer.params]
+        runner = ChunkRunner(loop.make_fused_chunk(cfg, FUSED_K), FUSED_K,
+                             dev)
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        fst, frows = loop.train_epoch_fused(fst, epoch, runner, FUSED_K,
+                                            update, TRAIN_ACCUM, dev)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        launches = launch_counts()
+        fdelta = [p.detach() - q for p, q in zip(fst.optimizer.params, p0)]
+        deltas[dt] = udelta
+        runs[dt] = (fst, runner)
+        names = [n for n, _ in fst.model.named_parameters()]
+        ref = udelta if dt == f32 else deltas[f32]
+        tol = F32_STEP_TOL if dt == f32 else PRED_TOL
+        gate = bf16_grad_gate(names, fdelta, udelta, edelta, ref, tol)
+        replay_err = max(g["kernels_vs_plain"] for g in bf16_grad_gate(
+            names, fdelta, edelta, edelta, ref, tol)["groups"].values())
+        worst = gate["groups"][gate["worst"]]
+        loss_err = max(abs(float(a["loss"]) - b["loss"])
+                       / max(abs(float(a["loss"])), 1e-30)
+                       for (a, _), (b, _) in zip(urows, frows))
+        expect = fused_launches("cartnet", 2 * FUSED_K)
+        line = dict(compute_dtype=str(dt), micro_steps=len(epoch),
+                    k=FUSED_K, batch_accumulation=TRAIN_ACCUM,
+                    updates=fst.step, updates_unfused=ust.step,
+                    accum_count=int(fst.accum_count),
+                    bad_steps=int(fst.bad_steps),
+                    loss_max_rel_err=loss_err,
+                    delta_gate_worst_group=gate["worst"],
+                    delta_fused_vs_unfused=worst["kernels_vs_plain"],
+                    delta_eager_vs_unfused=worst["plain_vs_alt"],
+                    delta_replay_vs_eager=replay_err,
+                    delta_gate_limit=worst["limit"],
+                    delta_gate_share_of_limit=worst["share"],
+                    delta_gate_groups=gate["groups"],
+                    launches=launches, expected_launches=expect,
+                    seconds=fused_s, captures=runner.captures, tol=tol)
+        fails = list(gate["failed"])
+        if fst.step != 2 or ust.step != 2 or int(fst.accum_count) \
+                or int(fst.bad_steps):
+            fails.append("cadence")
+        if not loss_err <= tol:
+            fails.append("losses")
+        if launches != expect:
+            fails.append("launches")
+        emit(phase="fused_epoch", card=card, **line, failed=fails)
+        bad += [f"epoch {dt}: {f}" for f in fails]
+    main_launches = launches  # bf16, the last of the loop
+
+    # replay against eager
+    cases = [("cartnet", bf, "cartnet", FUSED_K, TRAIN_ACCUM),
+             ("cartnet", f32, "cartnet", FUSED_SMALL_K, FUSED_SMALL_K),
+             ("cartnet", bf, "merged", FUSED_SMALL_K, FUSED_SMALL_K),
+             ("ecomformer", bf, "ecomformer", FUSED_SMALL_K, FUSED_SMALL_K),
+             ("icomformer", bf, "icomformer", FUSED_SMALL_K, FUSED_SMALL_K)]
+    rve = {}
+    for net, dt, case, k, accum in cases:
+        r = replay_vs_eager(card, dev, net, dt, case, epoch[:k], k, accum)
+        rve[(case, str(dt))] = r
+        bad += [f"replay {case} {dt}: {f}" for f in r["fails"]]
+
+    # a ragged tail and a guard-rejected micro-step: K = 4 over 6 batches
+    cfg = fused_config("cartnet", bf, accum=2)
+    st = fused_state(cfg, dev, 6)
+    poison = batches[0].y.copy()
+    poison[0] = float("nan")
+    six = [batches[0], batches[1],
+           dataclasses.replace(batches[0], y=poison), batches[1],
+           batches[0], batches[1]]
+    valid_want = [1, 1, 0, 1, 1, 1]
+    runner = ChunkRunner(loop.make_fused_chunk(cfg, FUSED_SMALL_K),
+                         FUSED_SMALL_K, dev)
+    from cartnet_tpu_torch.data.batching import all_masked
+    pad = [all_masked(six[-1])] * (2 * FUSED_SMALL_K - len(six))
+    valid = []
+    for c in range(2):
+        part = (six + pad)[c * FUSED_SMALL_K:(c + 1) * FUSED_SMALL_K]
+        valid += [int(v) for v in runner(st, part)["valid"].cpu()]
+    count, acc, host_updates = int(st.optimizer.count_t), 0, 0
+    for v in valid_want:  # the rule, replayed on the host
+        acc += v
+        if acc >= 2:
+            host_updates, acc = host_updates + 1, 0
+    dev_acc, dev_bad = int(st.accum_count), int(st.bad_steps)
+    loop.sync_step(st)
+    if dev_acc > 0:
+        st = loop.make_steps(cfg)[1](st)
+    finite = all(bool(torch.isfinite(p).all()) for p in st.optimizer.params)
+    line = dict(k=FUSED_SMALL_K, batches=len(six), batch_accumulation=2,
+                valid=valid[:len(six)], valid_pads=valid[len(six):],
+                valid_expected=valid_want, accum_count=dev_acc,
+                accum_count_expected=acc, bad_steps=dev_bad,
+                device_updates=count, host_rule_updates=host_updates,
+                updates_after_flush=st.step, params_finite=finite)
+    fails = []
+    if (valid != valid_want + [0, 0] or dev_acc != acc or dev_bad != 1
+            or count != host_updates or st.step != host_updates + 1
+            or not finite):
+        fails.append("cadence")
+    emit(phase="fused_ragged_guard", card=card, **line, failed=fails)
+    bad += [f"ragged/guard: {f}" for f in fails]
+
+    # one replay's kernels by CUDA name
+    by_name = {}
+    for case, dt, key in (("cartnet", bf, ("cartnet", str(bf))),
+                          ("cartnet", f32, ("cartnet", str(f32))),
+                          ("merged", bf, ("merged", str(bf)))):
+        r = rve[key]
+        k = r["line"]["k"]
+        want = fused_by_name(case, dt, k)
+        st, runner = r["state"], r["runner"]
+        grp = epoch[:k]
+        with merged_path(case == "merged"):
+            evs = cuda_events(lambda: runner(st, grp), 1, want)
+        got = {sub: sum(sub in ev.name for ev in evs) for sub in want}
+        by_name[f"{case}_{str(dt).split('.')[-1]}"] = got
+        emit(phase="fused_launches_by_name", card=card, case=case,
+             compute_dtype=str(dt), k=k, kernels_per_replay=len(evs),
+             by_name=got, expected=want, failed=got != want)
+        if got != want:
+            bad.append(f"by name {case} {dt}: {got}")
+
+    # times: fused against unfused a micro-step, busy and idle of a replay
+    st, runner = runs[bf]
+    cfg = fused_config("cartnet", bf)
+    micro, update, _ = loop.make_steps(cfg)
+    ust = fused_state(cfg, dev, len(epoch))
+    fused_ms = cuda_median_ms(lambda: runner(st, group), 10) / FUSED_K
+    unfused_ms = cuda_median_ms(lambda: loop.train_epoch(
+        ust, group, micro, update, TRAIN_ACCUM, dev), 5) / FUSED_K
+    prof = profile_call(lambda: runner(st, group))
+    emit(phase="fused_time", card=card, model="cartnet",
+         compute_dtype="bf16", k=FUSED_K,
+         micro_step_ms_fused=fused_ms, micro_step_ms_unfused=unfused_ms,
+         replay_wall_ms=prof["wall_ms"],
+         replay_device_busy_ms=prof["device_busy_ms"],
+         replay_device_idle_share=prof["device_idle_share"],
+         replay_kernels=prof["device_kernels"],
+         busy_ms_per_micro_step=prof["device_busy_ms"] / FUSED_K,
+         top_kernels_ms=prof["top_kernels_ms"],
+         captures=[c for _, (_, rn) in runs.items() for c in rn.captures]
+         + [r["line"]["capture"] for r in rve.values()])
+
+    # the CLI on the adp phase's .pt files
+    data = os.path.abspath("adp_smoke_data")
+    argv = ["--dataset", "ADP", "--dataset_path", data, "--batch", "4",
+            "--batch_accumulation", "16", "--augment", "--fused_steps",
+            str(FUSED_K), "--name", "adp_fused"]
+    t0 = time.perf_counter()
+    cstate, ctest = cli.main(argv + ["--epochs", "2"])
+    rstate, rtest = cli.main(argv + ["--epochs", "3", "--resume",
+                                     "--profile"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    run_dir = os.path.join("results", "adp_fused", "0")
+    keys = {"epoch", "time_epoch", "time_iter", "lr", "params", "loss",
+            "MAE", "MSE", "volume_percentage_error", "similarity_index",
+            "edges_per_sec", "gpu_memory"}
+    with open(os.path.join(run_dir, "train", "stats.json")) as f:
+        lines = [json.loads(x) for x in f]
+    traces = [n for _, _, fs in os.walk(os.path.join(run_dir, "profile"))
+              for n in fs]
+    line = dict(epochs=[x["epoch"] for x in lines],
+                train_keys_match=all(set(x) == keys for x in lines),
+                updates=[cstate.step, rstate.step],
+                finite=all(math.isfinite(x["loss"]) for x in lines)
+                and all(math.isfinite(v) for v in rtest.values()),
+                trace_files=len(traces), seconds=round(cli_s, 3))
+    fails = []
+    if (line["epochs"] != [0, 1, 2] or not line["train_keys_match"]
+            or line["updates"] != [2, 3] or not line["finite"]
+            or not traces):
+        fails.append("cli")
+    emit(phase="fused_cli", card=card, **line, failed=fails)
+    bad += fails
+    emit(phase="fused_summary", card=card,
+         seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
+    if bad:
+        fail(f"fused phase: {bad}")
+    return {"capture": main_launches, "replay": by_name,
+            "comformers": {c: rve[(c, str(bf))]["line"][
+                "launches_warmup_and_capture"]
+                for c in ("ecomformer", "icomformer")}}
 
 
 # ----------------------------------------------------------------- main
@@ -3255,6 +3711,8 @@ def phases(_build) -> int:
     # ranks on the card
     launches_adp = adp_phase(card, dev)
     launches_dp = dp_phase(card, dev, recs)
+    # 8h. fused epochs: K micro-steps a CUDA-graph replay
+    launches_fused = fused_phase(card, dev, batches)
 
     # 10. summary: K1, K2, K4, K5 per launch on the CartNet training path
     # (all four run in every micro-step, in the bf16 training case), K6 on
@@ -3271,6 +3729,26 @@ def phases(_build) -> int:
                 "products_device_ms", "gemm_ms", "gemm_device_ms")
         return {c: {k: rows_t[kname][c].get(k) for k in keys} for c in cases
                 if c in rows_t[kname]}
+
+    def fused_rows(kname):
+        """A kernel's launches on the fused path: at the main chunk's
+        warm-up and capture (bf16 CartNet, 2 x 16 micro-steps; the
+        Comformers' chunks, 2 x 4), and in one replay by CUDA name."""
+        rows = {"launches_fused_capture": launches_fused["capture"][kname],
+                "launches_fused_comformers_capture": {
+                    c: v[kname]
+                    for c, v in launches_fused["comformers"].items()}}
+        if kname in CARTNET_KERNELS or kname == "edge_phase_merged_bwd":
+            rows["launches_fused_replay_by_name"] = {
+                case: {sub: got[sub] for sub in launches_of(
+                    kname, torch.float32 if case.endswith("32")
+                    else torch.bfloat16) if sub in got}
+                for case, got in launches_fused["replay"].items()
+                # K5 and K6 share their passes' names
+                if kname not in ("edge_phase_bwd", "edge_phase_merged_bwd")
+                or case.startswith("merged") == (
+                    kname == "edge_phase_merged_bwd")}
+        return rows
 
     kernels = []
     for kname, src, replaces, run in (
@@ -3299,6 +3777,7 @@ def phases(_build) -> int:
             "launches_adp_cli": launches_adp[kname],
             "launches_dp_per_rank": {k: v[kname]
                                      for k, v in launches_dp.items()},
+            **fused_rows(kname),
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
@@ -3328,6 +3807,7 @@ def phases(_build) -> int:
             "launches_adp_cli": launches_adp[kname],
             "launches_dp_per_rank": {k: v[kname]
                                      for k, v in launches_dp.items()},
+            **fused_rows(kname),
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

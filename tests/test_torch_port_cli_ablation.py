@@ -2,9 +2,10 @@
 the ablation branches of the reference (``--invariant``, ``--disable_temp``,
 ``--disable_envelope``, ``--disable_atom_types``).
 
-* ``args_to_config`` gives the JAX CLI's head, inputs and targets for the
-  same argv (``--dataset synthetic`` trains the scalar head on scalar
-  targets unless ``--cholesky`` is passed).
+* ``args_to_config`` gives the JAX CLI's head, inputs, targets and
+  optimizer settings (``--fused_steps`` among them) for the same argv
+  (``--dataset synthetic`` trains the scalar head on scalar targets
+  unless ``--cholesky`` is passed).
 * Each branch, built from the JAX package's weights through ``interop``,
   matches ``cartnet_apply`` in eval and one train micro-step of JAX
   ``make_steps`` (loss, every parameter gradient, BN running stats).
@@ -64,6 +65,8 @@ ARGVS = {
                            "--invariant", "--disable_atom_types"],
     "adpfix": ["--dataset", "adpfix", "--no_standarize_temp"],
     "adpfix_no_temp": ["--dataset", "adpfix", "--disable_temp"],
+    "fused_steps": ["--dataset", "synthetic", "--cholesky", "--fused_steps",
+                    "4", "--batch_accumulation", "2"],
 }
 
 
@@ -93,6 +96,9 @@ def test_args_to_config_matches_jax_cli(argv):
         assert getattr(cfg.model, field) == getattr(jcfg.model, field), \
             field
     assert cfg.data.standarize_temp == jcfg.data.standarize_temp
+    for field in ("fused_steps", "batch_accumulation", "max_epoch", "lr"):
+        assert getattr(cfg.optim, field) == getattr(jcfg.optim, field), \
+            field
     if cfg.data.name != "synthetic":
         return
     # the same records: ADP targets [n, 3, 3] with --cholesky, else scalars

@@ -6,7 +6,10 @@ members; the CLI's multi-host init over ``tcp://``.
 One spawn of two ranks serves the whole file (``runs``): each rank joins a
 gloo group through ``parallel.dist.initialize_distributed``, takes one
 micro-step and one update of each case on its own shard through
-``parallel.step.make_parallel_steps``, then leaves the group, and both run
+``parallel.step.make_parallel_steps``, runs a fused chunk of four
+micro-steps (``make_parallel_fused_chunk``, eager on the CPU, with pad
+members) against the single-process fused chunk on the union batches,
+then leaves the group, and both run
 the CLI as ranks 0 and 1 of two ``--coordinator`` runs (training, and the
 inference sweep gathered on rank 0). The references are computed in this
 process:
@@ -42,6 +45,7 @@ noise (all of a BN-cancelled bias) the two steps may go opposite ways.
 """
 
 import contextlib
+import dataclasses
 import os
 import pickle
 
@@ -58,10 +62,12 @@ from cartnet_tpu_torch.data.pipeline import BatchPipeline
 from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.parallel import dist as pdist
-from cartnet_tpu_torch.parallel.step import make_parallel_steps
+from cartnet_tpu_torch.parallel.step import (make_parallel_fused_chunk,
+                                             make_parallel_steps)
 from cartnet_tpu_torch.runner import (ShardedPipeline, all_masked,
                                       sharded_steps_per_epoch)
 from cartnet_tpu_torch.train import loop, schedule
+from cartnet_tpu_torch.train.graphs import ChunkRunner
 
 DP = 2
 N_PER, E_PER, G_PER = 64, 1024, 2
@@ -140,6 +146,43 @@ def _after_update(state) -> dict:
             for n, p in state.model.named_parameters()}
 
 
+def _fused_members(rank):
+    """This rank's members of the fused chunk's 4 micro-steps: both ranks
+    real; rank 0 real and rank 1 a pad; both pads; both real."""
+    mine = _shards("cartnet_cholesky")[rank]
+    return [mine, mine if rank == 0 else all_masked(mine),
+            all_masked(mine), mine]
+
+
+def _fused_union():
+    """The single process's 4 micro-steps on the union batches: the union,
+    rank 0's crystals alone at the union's pad shape, a pad, the union."""
+    union = _union("cartnet_cholesky")
+    alone = collate(_records("cartnet_cholesky")[:G_PER], DP * N_PER,
+                    DP * E_PER, DP * G_PER)
+    return [union, alone, all_masked(union), union]
+
+
+def _fused_run(batches, sd, group=None, accum=2) -> dict:
+    """A fused chunk over ``batches`` (data-parallel over ``group``, or in
+    one process) from the state dict ``sd`` with ``batch_accumulation``
+    ``accum``: its stats, accumulator, BN buffers, weights and counters."""
+    cfg, state = _state("cartnet_cholesky", sd)
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, batch_accumulation=accum))
+    k = len(batches)
+    chunk = (loop.make_fused_chunk(cfg, k) if group is None
+             else make_parallel_fused_chunk(cfg, group, k))
+    with _path("cartnet_cholesky"):
+        stats = ChunkRunner(chunk, k, "cpu", group)(state, batches)
+    out = _step_result(state, {})
+    out.update(stats={n: v.clone() for n, v in stats.items()},
+               params=_after_update(state),
+               counts=(int(state.accum_count), int(state.bad_steps),
+                       int(state.optimizer.count_t)))
+    return out
+
+
 def _worker(rank, coordinator, out_dir, weights, cli_coordinators):
     """One rank: every case's dp micro-step and update on its shard, then
     the CLI as rank ``rank`` of two --coordinator runs: training, and the
@@ -158,6 +201,14 @@ def _worker(rank, coordinator, out_dir, weights, cli_coordinators):
         res[case] = _step_result(state, stats)
         state = update(state)
         res[case]["params"] = _after_update(state)
+    # the fused chunk, and its first two micro-steps' accumulated gradient
+    sd = weights["cartnet_cholesky"]
+    res["fused"] = _fused_run(_fused_members(rank), sd, group)
+    res["fused_acc"] = _fused_run(_fused_members(rank)[:2], sd, group, 99)
+    try:  # on the card, a gloo group cannot be captured
+        ChunkRunner(None, 4, "cuda", group)
+    except ValueError as err:
+        res["fused_gloo_cuda"] = str(err)
     dist.destroy_process_group()
     os.chdir(out_dir)
     ranked = lambda i: ["--coordinator", cli_coordinators[i],
@@ -244,6 +295,9 @@ def runs(tmp_path_factory):
     weights["ecomformer"] = create_model(_cfg("ecomformer").model, "cpu",
                                          7).state_dict()
     singles = {case: _union_case(case, weights[case]) for case in CASES}
+    sd = weights["cartnet_cholesky"]
+    singles["fused"] = _fused_run(_fused_union(), sd)
+    singles["fused_acc"] = _fused_run(_fused_union()[:2], sd, accum=99)
     pdist.spawn(_worker, DP, (str(out), weights,
                               [f"localhost:{pdist.free_port()}"
                                for _ in range(2)]))
@@ -333,6 +387,51 @@ def test_dp_step_matches_single_process_union_step(runs, case):
     state = loop.make_steps(cfg)[1](state)
     for n, p in _after_update(state).items():
         assert torch.equal(p, a[case]["params"][n]), n
+
+
+def test_dp_fused_chunk_matches_single_process_fused_chunk(runs):
+    """The fused chunk over two gloo ranks (K = 4, batch_accumulation 2:
+    valid, valid with rank 1's member a pad, a pad on both, valid; one
+    update on the device after the second) against the single-process
+    fused chunk on the union batches: the valid flags and counters
+    exactly, the per-step stats and the last step's accumulated gradients
+    (each layer) within 1e-5, the BN buffers within 1e-4 (the last step
+    runs on the updated weights, where Adam's direction is noise up to 2
+    lr apart: 1.2e-5 here), the weights as in ``_check`` (the first two
+    steps' accumulated gradients deciding where the update's direction is
+    determined); both ranks to the bit. A gloo group on the card
+    raises."""
+    _, ranks, _, _, singles, _ = runs
+    ref, ref_acc = singles["fused"], singles["fused_acc"]
+    assert ref["stats"]["valid"].tolist() == [1.0, 1.0, 0.0, 1.0]
+    assert ref["counts"] == (1, 0, 1)
+    for res in ranks:
+        got = res["fused"]
+        assert got["counts"] == ref["counts"]
+        for k, v in ref["stats"].items():
+            np.testing.assert_allclose(got["stats"][k], v, rtol=1e-5,
+                                       err_msg=k)
+        for g, err in _layer_errors(got["grads"], ref["grads"]).items():
+            assert err <= 1e-5, (g, err)
+        for n, buf in got["bn"].items():
+            if n.endswith("num_batches_tracked"):
+                assert int(buf) == int(ref["bn"][n]) == 3, n
+            else:
+                assert _rel(buf, ref["bn"][n]) <= 1e-4, n
+        checked = total = 0
+        for n, p in got["params"].items():
+            g, mine = ref_acc["grads"][n], res["fused_acc"]["grads"][n]
+            sure = (g.abs() >= 1e-6) & (g.abs() >= 10 * (mine - g).abs())
+            diff = (p - ref["params"][n]).abs()[sure]
+            if sure.any():
+                assert float(diff.max()) <= 1e-6 + 1e-3 * LR, n
+            checked, total = checked + int(sure.sum()), total + g.numel()
+        assert checked >= 0.5 * total, (checked, total)
+        assert "NCCL" in res["fused_gloo_cuda"]
+    a, b = (r["fused"] for r in ranks)
+    for k in ("grads", "bn", "params", "stats"):
+        for n in a[k]:
+            assert torch.equal(a[k][n], b[k][n]), (k, n)
 
 
 @pytest.mark.parametrize("case", ["cartnet_cholesky", "cartnet_scalar"])
