@@ -12,8 +12,9 @@ the card.
         [--disable_H] [--disable_atom_types] [--bf16] [--profile] \
         [--no_guard] [--guard_retries R] [--heartbeat FILE] \
         [--heartbeat_interval S] [--wandb [--wandb_project P] \
-        [--wandb_entity E]] [--dp N] [--coordinator HOST:PORT \
-        --num_processes P --process_id I] [--device cuda|cpu]
+        [--wandb_entity E]] [--dp D] [--ep P [--halo [--halo_max H]]] \
+        [--coordinator HOST:PORT --num_processes W --process_id I] \
+        [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset jarvis --verify_ingest
     python -m cartnet_tpu_torch.cli --dataset ADP --inference|--montecarlo \
         [--checkpoint_path results/NAME/S/ckpt/best.ckpt] \
@@ -56,8 +57,13 @@ data-parallel on N ranks, one card each: without ``--coordinator`` it
 starts N processes on this host (rank r on ``cuda:r``; fewer cards than N
 is an error); with ``--coordinator host:port --num_processes P
 --process_id I`` this process is rank I of P (one per card, on
-``cuda:<I mod the host's cards>``), joined over TCP. ``--ep``, ``--halo``
-and ``--chunks`` are accepted and raise: they are not ported yet.
+``cuda:<I mod the host's cards>``), joined over TCP. ``--ep P`` splits
+each dp member's edges over P ranks (nodes copied, the partial aggregates
+summed over them), so ``--dp D --ep P`` runs D·P ranks, dp-major;
+``--halo`` makes each of the P ranks own a node range and the edges into
+it, exchanging the boundary rows (``--halo_max``: the rows one owner sends
+one member at most); with ``--ep 1`` it runs as plain data parallelism.
+``--chunks`` is accepted and raises: it is not ported yet.
 ``--model`` is case-insensitive; CartNet, the eComformer and the
 iComformer all serve (``--inference`` and
 ``--montecarlo`` need the Cholesky head) and train. Without a checkpoint
@@ -90,8 +96,9 @@ from cartnet_tpu_torch.data.synthetic import synthetic_dataset
 from cartnet_tpu_torch.interop import load_reference_checkpoint
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.parallel import dist as pdist
+from cartnet_tpu_torch.parallel.partition import pad_multiples
 from cartnet_tpu_torch.runner import (check_parallel, inference, montecarlo,
-                                      pipelines, rank0_first, run)
+                                      pipelines, rank0_first, run, world_of)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -186,7 +193,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--halo_max", type=int, default=None,
                    help="static per-owner halo row cap (default: nodes/ep)")
     p.add_argument("--chunks", type=int, default=1,
-                   help="chunked single-device execution (not ported yet)")
+                   help="chunked single-device execution (not ported yet; "
+                        "the one parallel layout left)")
     p.add_argument("--coordinator", type=str, default=None,
                    help="multi-host: torch.distributed coordinator address "
                         "(host:port); omit on single host")
@@ -291,30 +299,34 @@ def main(argv=None):
     if args.verify_ingest:
         return verify_ingest(cfg)
     check_parallel(cfg)
-    dp = cfg.parallel.dp
-    if args.coordinator is None and dp > 1:
+    dp, ep = cfg.parallel.dp, max(cfg.parallel.ep, 1)
+    nprocs = dp * ep
+    if args.coordinator is None and nprocs > 1:
         # one host: start the ranks, one card each, and wait for them
         resolve_device(args.device)
-        pdist.check_cards(dp, args.device)
+        pdist.check_cards(nprocs, args.device,
+                          f"--dp {dp} --ep {ep}" if ep > 1 else "")
         if args.montecarlo:
             raise ValueError("--montecarlo runs in one process (--dp 1)")
-        pdist.spawn(_dp_rank, dp, (argv, dp))
+        pdist.spawn(_dp_rank, nprocs, (argv, nprocs))
         return None
     device, group = args.device, None
     if args.coordinator is not None:
-        if dp not in (1, args.num_processes):
-            raise ValueError(f"--dp {dp} differs from --num_processes "
-                             f"{args.num_processes}")
+        if nprocs not in (1, args.num_processes) or \
+                args.num_processes % ep:
+            raise ValueError(f"--dp {dp} --ep {ep} differs from "
+                             f"--num_processes {args.num_processes}")
         if args.montecarlo:
             raise ValueError("--montecarlo runs in one process (--dp 1)")
         device = resolve_device(pdist.rank_device(args.device,
                                                   args.process_id))
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        group = pdist.initialize_distributed(
+        world = pdist.initialize_distributed(
             args.coordinator, args.num_processes, args.process_id, device)
         cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
-            cfg.parallel, dp=pdist.world(group)))
+            cfg.parallel, dp=pdist.world(world) // ep, ep=ep))
+        group = pdist.make_groups(cfg.parallel.dp, ep, cfg.parallel.halo)
     try:
         return _serve_or_train(args, cfg, resolve_device(device), group)
     finally:
@@ -344,10 +356,13 @@ def _serve_or_train(args, cfg: Config, device, group):
                           args.inference_output, device=device)
     # a lazy source streams through its pipeline; a record list is
     # batched as it is
-    batches = (make_batches(splits[2], cfg.data.batch_size)
+    batches = (make_batches(splits[2], cfg.data.batch_size,
+                            *pad_multiples(cfg.parallel.ep))
                if isinstance(splits[2], list)
-               else rank0_first(group, lambda: pipelines(cfg, splits))[2])
-    return inference(model, batches, args.inference_output, device, group)
+               else rank0_first(world_of(group),
+                                lambda: pipelines(cfg, splits))[2])
+    return inference(model, batches, args.inference_output, device, group,
+                     cfg.parallel.halo, cfg.parallel.halo_max)
 
 
 def verify_ingest(cfg: Config) -> dict:

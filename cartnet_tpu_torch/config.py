@@ -3,8 +3,8 @@
 What the inference sweep and the trainer read: the model hyperparameters,
 the data settings (synthetic, adpfix, CSD ADP and figshare sources,
 hydrogens, the iComformer's cell canonicalization, augmentation, size
-buckets), the optimizer/schedule, the parallel layout (data-parallel
-ranks), the step guard (device-side skip, host-side rollback, heartbeat),
+buckets), the optimizer/schedule, the parallel layout (data- and
+edge-parallel ranks, halo partitioning), the step guard (device-side skip, host-side rollback, heartbeat),
 and the run's name and directory
 (``results/<name>/<seed>`` from the CLI: stats.json files and
 checkpoints). Dtypes are torch dtypes.
@@ -85,9 +85,11 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The parallel layout: ``dp`` data-parallel ranks, one card each
-    (parallel/). ``ep``, ``halo`` and ``chunks`` > 1 are the JAX package's
-    edge-parallel, halo and chunked layouts, not ported yet."""
+    """The parallel layout (parallel/): ``dp`` data-parallel slices of
+    ``ep`` edge-parallel ranks each, one card a rank; ``halo`` shards each
+    slice's nodes over its ep ranks too (``halo_max``: the rows one owner
+    sends one member at most, n_per by default). ``chunks`` > 1, the JAX
+    package's chunked single-device layout, is not ported yet."""
 
     dp: int = 1
     ep: int = 1

@@ -158,7 +158,7 @@ struct Args {
   const T* env;     // [E]
   const float* scale;
   const float* shift;
-  const T* daggr;   // [N, d]
+  const T* daggr;   // [N, d]  (N: dst rows)
   const int* dst;
   const uint8_t* emask;
   const int* dst_rowptr;
@@ -169,13 +169,13 @@ struct Args {
   T* ds_out;    // [E, d]   merged: rounded ds
   T* dpre_out;  // [E, 2d]  dpre_c
   T* h_out;     // [E, 2d]  bf16: h_c = round(pre sig), for the weight pass
-  float* dxi;   // [N, 2d]
-  float* dxj;   // [N, 2d]
+  float* dxi;   // [N, 2d]   dst rows, walked over dst_rowptr
+  float* dxj;   // [Ns, 2d]  src rows, walked over src_rowptr
   float* dw;    // [4 d^2]  dWe [d, 2d] | dW1g [d, d] | dW1a [d, d]
   float* dbias; // [4 d]    db [2d] | db1g [d] | db1a [d]
   float* bias_part;  // [n_tiles, 4d]
   float* w_part;     // [ksplit, 4 d^2]
-  int E, N, d, ksplit;
+  int E, N, Ns, d, ksplit;
 };
 
 // ===================================================== f32: CUDA cores (FMA)
@@ -944,7 +944,8 @@ __global__ void __launch_bounds__(NTHREADS)
     return;
   }
   b -= nb_blocks;
-  // node row: dst rows first, then src rows (through src_perm)
+  // node row: the N dst rows first, then the Ns src rows (through
+  // src_perm)
   const bool src_side = b >= p.N;
   const int row = src_side ? b - p.N : b;
   const int* rowptr = src_side ? p.src_rowptr : p.dst_rowptr;
@@ -1013,7 +1014,7 @@ struct Ptrs {
 };
 
 template <typename T>
-Args<T> make_args(const Ptrs& q, int E, int N, int d, int te) {
+Args<T> make_args(const Ptrs& q, int E, int N, int Ns, int d, int te) {
   Args<T> p{};
   p.e = (const T*)q.e;
   p.we = (const T*)q.we;
@@ -1050,6 +1051,7 @@ Args<T> make_args(const Ptrs& q, int E, int N, int d, int te) {
   p.w_part = p.bias_part + (size_t)(E / te) * 4 * d;
   p.E = E;
   p.N = N;
+  p.Ns = Ns;
   p.d = d;
   p.ksplit = ksplit_of(E, d, sizeof(T) == 2);
   return p;
@@ -1060,15 +1062,15 @@ cudaError_t launch_reduce(const Args<T>& p, int n_tiles, cudaStream_t stream) {
   const int d = p.d;
   const int nw = (4 * d * d + NTHREADS - 1) / NTHREADS;
   const int nb = (4 * d + NTHREADS - 1) / NTHREADS;
-  edge_bwd_reduce<T><<<nw + nb + 2 * p.N, NTHREADS, 0, stream>>>(p, nw, nb,
-                                                                 n_tiles);
+  edge_bwd_reduce<T><<<nw + nb + p.N + p.Ns, NTHREADS, 0, stream>>>(
+      p, nw, nb, n_tiles);
   return cudaGetLastError();
 }
 
 template <bool MERGED>
-cudaError_t launch_f32(const Ptrs& q, int E, int N, int d,
+cudaError_t launch_f32(const Ptrs& q, int E, int N, int Ns, int d,
                        cudaStream_t stream) {
-  const Args<float> p = make_args<float>(q, E, N, d, TE);
+  const Args<float> p = make_args<float>(q, E, N, Ns, d, TE);
   cudaError_t err = cudaFuncSetAttribute(
       edge_bwd_tile_f32<MERGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)simt::SMEM);
@@ -1092,9 +1094,9 @@ cudaError_t launch_f32(const Ptrs& q, int E, int N, int d,
 }
 
 template <bool MERGED>
-cudaError_t launch_bf16(const Ptrs& q, int E, int N, int d,
+cudaError_t launch_bf16(const Ptrs& q, int E, int N, int Ns, int d,
                         cudaStream_t stream) {
-  const Args<bf16> p = make_args<bf16>(q, E, N, d, TE);
+  const Args<bf16> p = make_args<bf16>(q, E, N, Ns, d, TE);
   CUtensorMap w1g_m, w1a_m, we_m, e_m, h_m, dpre_m, dg_m, ds_m;
   if (!make_map(&w1g_m, q.w1g, d, d) || !make_map(&w1a_m, q.w1a, d, d) ||
       !make_map(&we_m, q.we, 2 * d, d) || !make_map(&e_m, q.e, d, E) ||
@@ -1138,7 +1140,10 @@ cudaError_t launch_bf16(const Ptrs& q, int E, int N, int d,
 // f32) and work (edge_phase_bwd_workspace floats) are scratch. dw receives
 // dWe | dW1g | dW1a, dbias db | db1g | db1a. Three launches each; they
 // return cudaGetLastError() after them (cudaErrorInvalidValue when a
-// tensor map cannot be made).
+// tensor map cannot be made). N is dxi's row count (dst_rowptr has N + 1
+// entries), Ns dxj's (src_rowptr has Ns + 1): they differ where the src
+// table is longer than the dst one (halo partitioning), and K5/K6 then
+// write dxj over Ns rows.
 
 // K5: saved is [pre | sig] [E, 4d]
 extern "C" int edge_phase_bwd(
@@ -1148,7 +1153,7 @@ extern "C" int edge_phase_bwd(
     const void* deres, const void* emask, const void* dst_rowptr,
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
     void* dpre_buf, void* h_buf, void* dxi, void* dxj, void* dw, void* dbias,
-    void* work, int E, int N, int d, int is_bf16, void* stream) {
+    void* work, int E, int N, int Ns, int d, int is_bf16, void* stream) {
   Ptrs q{};
   q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = saved;
   q.gate = gate; q.meanw = meanw; q.ds1w = ds1w; q.dm2w = dm2w;
@@ -1158,8 +1163,8 @@ extern "C" int edge_phase_bwd(
   q.dpre_buf = dpre_buf; q.h_buf = h_buf; q.dxi = dxi; q.dxj = dxj;
   q.dw = dw; q.dbias = dbias; q.work = work;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_bf16<false>(q, E, N, d, s)
-                 : launch_f32<false>(q, E, N, d, s);
+  return is_bf16 ? launch_bf16<false>(q, E, N, Ns, d, s)
+                 : launch_f32<false>(q, E, N, Ns, d, s);
 }
 
 // K6: pre is the rounded pre alone [E, 2d]; sender, deout [E, d] and env
@@ -1173,8 +1178,8 @@ extern "C" int edge_phase_merged_bwd(
     const void* dst, const void* emask, const void* dst_rowptr,
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
     void* ds_buf, void* dpre_buf, void* h_buf, void* dxi, void* dxj,
-    void* dw, void* dbias, void* work, int E, int N, int d, int is_bf16,
-    void* stream) {
+    void* dw, void* dbias, void* work, int E, int N, int Ns, int d,
+    int is_bf16, void* stream) {
   Ptrs q{};
   q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = pre;
   q.gate = gate; q.sender = sender; q.env = env; q.scale = scale;
@@ -1185,8 +1190,8 @@ extern "C" int edge_phase_merged_bwd(
   q.ds_buf = ds_buf; q.dpre_buf = dpre_buf; q.h_buf = h_buf; q.dxi = dxi;
   q.dxj = dxj; q.dw = dw; q.dbias = dbias; q.work = work;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_bf16<true>(q, E, N, d, s)
-                 : launch_f32<true>(q, E, N, d, s);
+  return is_bf16 ? launch_bf16<true>(q, E, N, Ns, d, s)
+                 : launch_f32<true>(q, E, N, Ns, d, s);
 }
 
 // floats of scratch that edge_phase_bwd needs in ``work``

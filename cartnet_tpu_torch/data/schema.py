@@ -50,6 +50,13 @@ class CrystalBatch:
     edge_src_sorted: Optional[Any] = None       # [E] int32
     edge_mask_src_sorted: Optional[Any] = None  # [E] bool
     src_degree: Optional[Any] = None            # [N] f32 real src degree
+    # halo partitioning (parallel/halo.py): the rows this member sends to
+    # each member [ep, H] and which of them are real; ``halo_empty`` (a
+    # host bool, the same on every member of a dp slice) says no member
+    # sends anything, and the exchange is skipped
+    halo_send_idx: Optional[Any] = None         # [ep, H] int32
+    halo_send_mask: Optional[Any] = None        # [ep, H] bool
+    halo_empty: bool = False
 
     @property
     def num_nodes(self) -> int:
@@ -67,14 +74,28 @@ class CrystalBatch:
     def adp_targets(self) -> bool:
         return self.y.ndim == 3
 
+    @property
+    def halo(self) -> bool:
+        """The batch is one member's block of a halo layout."""
+        return self.halo_send_idx is not None
+
     def to(self, device) -> "CrystalBatch":
         """Copy with every array field as a torch tensor on ``device``."""
         def move(a):
-            if a is None:
-                return None
             if isinstance(a, torch.Tensor):
                 return a.to(device)
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return dataclasses.replace(
-            self, **{f.name: move(getattr(self, f.name))
-                     for f in dataclasses.fields(self)})
+        return dataclasses.replace(self, **{
+            k: move(a) for k, a in array_fields(self).items()})
+
+
+# host-side flags: not arrays, never stacked or moved to a device
+STATIC_FIELDS = ("halo_empty",)
+
+
+def array_fields(batch: CrystalBatch) -> dict:
+    """The batch's array fields that are set, name -> array."""
+    return {f.name: getattr(batch, f.name)
+            for f in dataclasses.fields(batch)
+            if f.name not in STATIC_FIELDS
+            and getattr(batch, f.name) is not None}

@@ -31,6 +31,19 @@ BN merge and the sigma chain are one autograd Function (``FusedEdgeSigma``:
 K1 with the pre-only residual, K2 forward; the merged backward K6 in place
 of K4 + K5), and the layer advances norm's running stats once from the
 moments it returns.
+
+In parallel (``groups``, parallel/dist.Groups; the JAX package's
+``ep_axis``, ``edge_stat_axes`` and ``node_stat_axes``) the edge BN's
+moments sum over ``groups.edge`` and the node BN's over ``groups.node``.
+Under edge parallelism the rank holds its slice of the edges and every
+node: each layer's aggregate is a partial sum, summed over ``groups.ep``
+before norm2 (``dist.ep_sum``). Under halo partitioning (a batch with
+``halo_send_idx``) the rank owns its nodes and the edges into them: the
+boundary source rows arrive by one exchange at d width before the
+projections (``halo.halo_table``), xj is projected over that table and
+one K1 call reads it (its src rows more than its dst rows), the
+aggregate is complete, and the scalar head sums a crystal's partial
+means over the members.
 """
 
 from __future__ import annotations
@@ -58,6 +71,8 @@ from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
                                                            sigma_segsum)
 from cartnet_tpu_torch.ops.linalg3 import assemble_cholesky_upper
 from cartnet_tpu_torch.ops.segment import masked_segment_sum, segment_sum
+from cartnet_tpu_torch.parallel.dist import SINGLE, Groups, ep_sum
+from cartnet_tpu_torch.parallel.halo import halo_table
 
 Cast = Callable[[torch.Tensor], torch.Tensor]
 
@@ -175,16 +190,17 @@ class CartNetLayer(nn.Module):
                 cast(a1.weight).t().contiguous(), cast(a1.bias))
 
     def forward(self, x, e, batch: CrystalBatch,
-                env: Optional[torch.Tensor], cast: Cast, group=None):
+                env: Optional[torch.Tensor], cast: Cast,
+                groups: Groups = SINGLE):
         """One message-passing layer -> (x_out, e_out); train mode when
-        ``self.training`` (sync BN over ``group``'s ranks with one)."""
+        ``self.training`` (sync BN over ``groups``, module docstring)."""
         if self.training:
-            return self._train_forward(x, e, batch, env, cast, group)
+            return self._train_forward(x, e, batch, env, cast, groups)
         eps = self.cfg.bn_eps
         wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
         pdt = torch.promote_types(x.dtype, wi.dtype)
         xi = torch.matmul(x.to(pdt), wi.to(pdt))                   # [N, 2d]
-        xj = torch.matmul(x.to(pdt), wj.to(pdt))
+        xj = torch.matmul(_src_table(x, batch, groups).to(pdt), wj.to(pdt))
         gate, sender, _, _, _ = edge_phase_fwd(
             xi, xj, e, we, b, w1g, b1g, w1a, b1a,
             batch.edge_dst, batch.edge_src, batch.edge_mask)
@@ -198,18 +214,21 @@ class CartNetLayer(nn.Module):
             env_col.to(gate.dtype).contiguous(), sender, e, batch.edge_dst,
             batch.edge_mask, batch.dst_rowptr, batch.num_nodes)
         aggr = masked_batch_norm(
-            aggr, cast(self.norm2.weight), cast(self.norm2.bias),
-            self.norm2.running_mean, self.norm2.running_var, eps)
+            _aggregate(aggr, batch, groups), cast(self.norm2.weight),
+            cast(self.norm2.bias), self.norm2.running_mean,
+            self.norm2.running_var, eps)
         return F.silu(aggr) + x, e_out
 
     def _train_forward(self, x, e, batch: CrystalBatch,
-                       env: Optional[torch.Tensor], cast: Cast, group=None):
+                       env: Optional[torch.Tensor], cast: Cast,
+                       groups: Groups = SINGLE):
         """The train-mode layer (the JAX package's ``fused_edge_sigma``:
         the ``_fes_plain`` composition, or ``_fes_op`` under
         ``CARTNET_MERGED=1``); advances norm/norm2's running stats."""
         eps, mom = self.cfg.bn_eps, self.cfg.bn_momentum
         wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
-        xi, xj = torch.matmul(x, wi), torch.matmul(x, wj)
+        xi = torch.matmul(x, wi)
+        xj = torch.matmul(_src_table(x, batch, groups), wj)
         idx = (batch.edge_dst, batch.edge_src, batch.edge_mask,
                batch.dst_rowptr, batch.edge_src_perm, batch.src_rowptr)
         env_col = (env[:, None] if env is not None else
@@ -219,22 +238,37 @@ class CartNetLayer(nn.Module):
         if os.environ.get("CARTNET_MERGED", "0") == "1":
             e_out, aggr, mean, var, n = FusedEdgeSigma.apply(
                 xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env_col,
-                *idx, eps, group)
+                *idx, eps, groups.edge)
             bn_state_update(self.norm, mean, var, n, mom)
         else:
             gate, sender, e_res, s1w, m2w = EdgePhase.apply(
                 xi, xj, e, we, b, w1g, b1g, w1a, b1a, *idx)
             scale, shift = bn_scale_shift_from_window_moments(
                 self.norm, gamma, beta, s1w, m2w, batch.edge_mask,
-                TILE_EDGES, mom, eps, group)
+                TILE_EDGES, mom, eps, groups.edge)
             e_out, aggr = SigmaSegsum.apply(
                 gate, scale, shift, env_col, sender, e_res, batch.edge_dst,
                 batch.edge_mask, batch.dst_rowptr, batch.num_nodes)
         aggr, (mean, var, n) = masked_batch_norm_train(
-            aggr, cast(self.norm2.weight), cast(self.norm2.bias),
-            batch.node_mask, eps, group)
+            _aggregate(aggr, batch, groups), cast(self.norm2.weight),
+            cast(self.norm2.bias), batch.node_mask, eps, groups.node)
         bn_state_update(self.norm2, mean, var, n, mom)
         return F.silu(aggr) + x, e_out
+
+
+def _src_table(x, batch: CrystalBatch, groups: Groups):
+    """The node rows the edges' sources index: x, or under halo
+    partitioning x with the received boundary rows below it (exchanged at
+    d width, before the projection: one K1 call then reads the whole
+    table)."""
+    return halo_table(x, batch, groups) if batch.halo else x
+
+
+def _aggregate(aggr, batch: CrystalBatch, groups: Groups):
+    """A member's aggregates -> the dp slice's: summed over the ep members
+    where each holds partial rows (nodes copied), as they are under halo
+    partitioning (dst owned) or in one process."""
+    return aggr if batch.halo else ep_sum(aggr, groups)
 
 
 class CholeskyHead(nn.Module):
@@ -264,12 +298,15 @@ class ScalarHead(nn.Module):
         torch_linear_init_(self.MLP[0], gen)
         torch_linear_init_(self.MLP[2], gen)
 
-    def forward(self, x, batch: CrystalBatch, cast: Cast):
+    def forward(self, x, batch: CrystalBatch, cast: Cast,
+                groups: Groups = SINGLE):
         out = mlp_silu(x, _lin_pairs(self.MLP, cast))
         s = masked_segment_sum(out, batch.graph_id, batch.node_mask,
                                batch.num_graphs)
         cnt = segment_sum(batch.node_mask.to(out.dtype), batch.graph_id,
                           batch.num_graphs)
+        if batch.halo:  # a crystal's nodes may sit on several members
+            s, cnt = ep_sum(s, groups), ep_sum(cnt, groups)
         return (s / torch.clamp(cnt, min=1.0)[:, None])[:, 0]
 
 
@@ -280,9 +317,9 @@ class CartNet(nn.Module):
     ``device`` (the card unless the caller passes ``device="cpu"``), in
     eval mode. ``forward`` -> (pred, pred_mask), where pred is [N, 3, 3]
     (Cholesky, mask = non-H real nodes) or [G] (scalar, mask = real
-    graphs); after ``model.train()`` it is the train forward, whose BNs
-    are sync BN over the ranks of ``group`` when one is given (data
-    parallelism, parallel/step.py).
+    graphs); after ``model.train()`` it is the train forward. ``groups``
+    (parallel/dist.Groups) makes it one rank's share of a parallel step
+    (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
@@ -312,11 +349,11 @@ class CartNet(nn.Module):
         return rbf_ops.cosine_cutoff(batch.cart_dist.to(dtype),
                                      self.cfg.radius)
 
-    def forward(self, batch: CrystalBatch, group=None):
+    def forward(self, batch: CrystalBatch, groups: Groups = SINGLE):
         x, e = self.encoder(batch, self.cast)
         env = self.envelope(batch, x.dtype)
         for layer in self.layers:
-            x, e = layer(x, e, batch, env, self.cast, group)
+            x, e = layer(x, e, batch, env, self.cast, groups)
         if self.cfg.cholesky:
             return self.head(x, self.cast), batch.non_h_mask
-        return self.head(x, batch, self.cast), batch.graph_mask
+        return self.head(x, batch, self.cast, groups), batch.graph_mask

@@ -36,6 +36,15 @@ With bf16 compute, eval BN's f32 running stats make the edge update's
 output f32, so conv1-conv3 see f32 edges and cast their bf16 K1 weights to
 f32 (exact; K1's f32 route), as the JAX package's K1 promotes them. In
 training everything keeps the compute dtype.
+
+In parallel (``groups``, as in models/cartnet.py) edge-row BNs (bn_att,
+the edge update's) sum over ``groups.edge``, node BNs over
+``groups.node``; under edge parallelism the conv's aggregate is summed
+over ``groups.ep``; under halo partitioning the key and value
+projections run over the table of the member's rows and the received
+boundary rows, and the iComformer takes each edge's crystal from
+``graph_id[edge_dst]`` (a member's node block is any window of its
+slice, where the graph starts need not be sorted).
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ from cartnet_tpu_torch.ops.kernels.edge_kernels import (EdgePhase,
 from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
                                                            sigma_segsum)
 from cartnet_tpu_torch.ops.segment import gather_sorted
+from cartnet_tpu_torch.parallel.dist import SINGLE, Groups, ep_sum
+from cartnet_tpu_torch.parallel.halo import halo_table
 
 
 def _lin(p: Params, name: str, x):
@@ -105,19 +116,25 @@ class ComformerConv(nn.Module):
                                      momentum=cfg.bn_momentum, dtype=dt)
 
     def forward(self, x, edge_attr, batch: CrystalBatch, p: Params,
-                group=None):
+                groups: Groups = SINGLE):
         """x [N, d], edge_attr [E, d] -> x [N, d]; train mode when
         ``self.training`` (advances bn/bn_att's running stats; sync BN
-        over ``group``'s ranks with one)."""
+        over ``groups``). Under halo partitioning the key and value
+        projections run over the table [x ‖ received rows] (the sources'
+        rows), and dst, the query, the aggregation and the node BN touch
+        the member's own rows only."""
         d, eps, mom = x.shape[1], self.cfg.bn_eps, self.cfg.bn_momentum
-        k, q, v = (_lin(p, n, x) for n in ("lin_key", "lin_query",
-                                            "lin_value"))
+        n = x.shape[0]
+        table = halo_table(x, batch, groups) if batch.halo else x
+        k_t, v_t = (_lin(p, name, table) for name in ("lin_key",
+                                                      "lin_value"))
+        k, v, q = k_t[:n], v_t[:n], _lin(p, "lin_query", x)
         e = _lin(p, "lin_edge", edge_attr)
         wk, wm = p["key_update.0.weight"].t(), p["msg_update.0.weight"].t()
         pdt = torch.promote_types(k.dtype, wk.dtype)
         mm = lambda a, w: torch.matmul(a.to(pdt), w.to(pdt))
         xi = torch.cat([mm(k, wk[:d]), mm(v, wm[:d])], dim=1)
-        xj = torch.cat([mm(k, wk[d:2 * d]), mm(v, wm[d:2 * d])], dim=1)
+        xj = torch.cat([mm(k_t, wk[d:2 * d]), mm(v_t, wm[d:2 * d])], dim=1)
         we = torch.cat([wk[2 * d:], wm[2 * d:]], dim=1).contiguous()
         b = torch.cat([p["key_update.0.bias"], p["msg_update.0.bias"]])
         weights = (we, b, p["key_update.2.weight"].t().contiguous(),
@@ -137,10 +154,10 @@ class ComformerConv(nn.Module):
                               batch.edge_mask)
         alpha = q_dst * key_j / math.sqrt(d)
         if self.training:
-            (scale, shift), (mean, var, n) = masked_bn_scale_shift_train(
+            (scale, shift), (mean, var, cnt) = masked_bn_scale_shift_train(
                 alpha, p["bn_att.weight"], p["bn_att.bias"], batch.edge_mask,
-                eps, group)
-            bn_state_update(self.bn_att, mean, var, n, mom)
+                eps, groups.edge)
+            bn_state_update(self.bn_att, mean, var, cnt, mom)
             sigma = SigmaSegsum.apply
         else:
             scale, shift = masked_bn_scale_shift(
@@ -153,12 +170,14 @@ class ComformerConv(nn.Module):
             torch.ones((E, 1), dtype=alpha.dtype, device=alpha.device), msg,
             torch.zeros_like(msg), batch.edge_dst, batch.edge_mask,
             batch.dst_rowptr, batch.num_nodes)
+        if not batch.halo:  # nodes copied: each member's rows are partial
+            out = ep_sum(out, groups)
         out = _lin(p, "lin_concate", out)
         if self.training:
-            out, (mean, var, n) = masked_batch_norm_train(
+            out, (mean, var, cnt) = masked_batch_norm_train(
                 out, p["bn.weight"], p["bn.bias"], batch.node_mask, eps,
-                group)
-            bn_state_update(self.bn, mean, var, n, mom)
+                groups.node)
+            bn_state_update(self.bn, mean, var, cnt, mom)
         else:
             out = masked_batch_norm(out, p["bn.weight"], p["bn.bias"],
                                     self.bn.running_mean,
@@ -197,6 +216,8 @@ class ComformerConvEdge(nn.Module):
 
     def _norm(self, bn: nn.BatchNorm1d, name: str, x, mask, p: Params,
               group=None):
+        """``bn`` on edge rows (train BN over ``group``, the edge-stat
+        group)."""
         eps = self.cfg.bn_eps
         if not self.training:
             return masked_batch_norm(x, p[f"{name}.weight"], p[f"{name}.bias"],
@@ -210,7 +231,8 @@ class ComformerConvEdge(nn.Module):
                 group=None):
         """edge_attr [E, d], nei_len / nei_ang [3E, d] channel-major ->
         edge_attr [E, d]; train mode when ``self.training`` (advances bn
-        and bn_att's running stats; sync BN over ``group``'s ranks)."""
+        and bn_att's running stats; sync BN over ``group``, the edge-stat
+        group: both normalize edge rows)."""
         E, d = edge_attr.shape
         q, kx, vx = (_lin(p, n, edge_attr) for n in ("lin_query", "lin_key",
                                                       "lin_value"))
@@ -250,11 +272,17 @@ def lattice_features(batch: CrystalBatch, dt):
     cell = batch.cell.to(dt)                                     # [G, 3, 3]
     row_norm_g = torch.linalg.vector_norm(cell, dim=-1)          # [G, 3]
     gids = torch.arange(G, dtype=batch.graph_id.dtype, device=dev)
-    rows = torch.arange(N, dtype=batch.edge_dst.dtype, device=dev)
-    owned = (batch.graph_id[:, None] == gids) & batch.node_mask[:, None]
-    starts = torch.where(owned, rows[:, None], N).amin(dim=0)    # [G]
-    gid_e = torch.clamp(torch.searchsorted(starts, batch.edge_dst,
-                                           right=True) - 1, 0, G - 1)
+    if batch.halo:
+        # a member's rows are any contiguous window of the slice, so the
+        # graph starts are not sorted: its edges' dst rows are its own
+        gid_e = torch.clamp(batch.graph_id.index_select(0, batch.edge_dst),
+                            0, G - 1)
+    else:
+        rows = torch.arange(N, dtype=batch.edge_dst.dtype, device=dev)
+        owned = (batch.graph_id[:, None] == gids) & batch.node_mask[:, None]
+        starts = torch.where(owned, rows[:, None], N).amin(dim=0)  # [G]
+        gid_e = torch.clamp(torch.searchsorted(starts, batch.edge_dst,
+                                               right=True) - 1, 0, G - 1)
     row_norm = torch.clamp(row_norm_g.index_select(0, gid_e), min=1e-6)
     dirs = batch.cart_dir.to(dt)
     # the JAX package's 3-term bf16 product sums in f32 and rounds once
@@ -331,10 +359,10 @@ class _Comformer(nn.Module):
              + embedding(t, batch.graph_id, dt))
         return p, x, torch.clamp(batch.cart_dist.to(dt), min=1e-6)
 
-    def _head(self, x, batch: CrystalBatch):
+    def _head(self, x, batch: CrystalBatch, groups: Groups):
         if self.cfg.cholesky:
             return self.head(x, self.cast), batch.non_h_mask
-        return self.head(x, batch, self.cast), batch.graph_mask
+        return self.head(x, batch, self.cast, groups), batch.graph_mask
 
 
 class EComformer(_Comformer):
@@ -343,8 +371,8 @@ class EComformer(_Comformer):
     Built on the CPU from ``seed`` with a torch.Generator, then moved to
     ``device`` (the card unless the caller passes ``device="cpu"``), in
     eval mode. ``forward`` -> (pred, pred_mask) as ``CartNet``'s; after
-    ``model.train()`` the conv and block layers run their train forward
-    (sync BN over the ranks of ``group`` when one is given).
+    ``model.train()`` the conv and block layers run their train forward;
+    ``groups`` as ``CartNet``'s (module docstring).
     """
 
     NAME = "ecomformer"
@@ -366,14 +394,14 @@ class EComformer(_Comformer):
         self.to(device)
         self.eval()
 
-    def forward(self, batch: CrystalBatch, group=None):
+    def forward(self, batch: CrystalBatch, groups: Groups = SINGLE):
         p, x, dist = self._encode(batch)
         e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
-        x = self.conv0(x, e, batch, p.sub("conv0"), group)
-        x = self.equi(x, e, batch, p.sub("equi"), group)
-        x = self.conv1(x, e, batch, p.sub("conv1"), group)
-        x = self.conv2(x, e, batch, p.sub("conv2"), group)
-        return self._head(x, batch)
+        x = self.conv0(x, e, batch, p.sub("conv0"), groups)
+        x = self.equi(x, e, batch, p.sub("equi"), groups)
+        x = self.conv1(x, e, batch, p.sub("conv1"), groups)
+        x = self.conv2(x, e, batch, p.sub("conv2"), groups)
+        return self._head(x, batch, groups)
 
 
 class IComformer(_Comformer):
@@ -405,7 +433,7 @@ class IComformer(_Comformer):
         self.to(device)
         self.eval()
 
-    def forward(self, batch: CrystalBatch, group=None):
+    def forward(self, batch: CrystalBatch, groups: Groups = SINGLE):
         p, x, dist = self._encode(batch)
         e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
         nei_len_feat, cosang = lattice_features(batch, self.cfg.compute_dtype)
@@ -414,10 +442,10 @@ class IComformer(_Comformer):
                             "rbf_centers", "rbf_gamma")
         nei_ang = _rbf_head(p, "rbf_angle", cosang.t().reshape(-1),
                             "rbfa_centers", "rbfa_gamma")
-        x = self.conv0(x, e, batch, p.sub("conv0"), group)
+        x = self.conv0(x, e, batch, p.sub("conv0"), groups)
         e = self.edge_update(e, nei_len, nei_ang, batch.edge_mask,
-                             p.sub("edge_update"), group)
+                             p.sub("edge_update"), groups.edge)
         for i in (1, 2, 3):
             x = getattr(self, f"conv{i}")(x, e, batch, p.sub(f"conv{i}"),
-                                          group)
-        return self._head(x, batch)
+                                          groups)
+        return self._head(x, batch, groups)

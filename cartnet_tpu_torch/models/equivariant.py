@@ -20,6 +20,13 @@ backward is a gather). The node BN runs in train mode when
 JAX package's 128-lane padded gathers and the [out_e | 0] concatenation are
 TPU layout: the port gathers [N, 64] directly and scatters out_e [E, 64]
 alone.
+
+In parallel (``groups``) the scatter-means are the global sum over the
+global count (``src_degree`` is the dp slice's): under edge parallelism
+each member's partial sums are summed over ``groups.ep``; under halo
+partitioning the sums over the member's table (its rows and the received
+ones) send the received rows' partials back to their owners
+(``halo.halo_scatter_back``). The node BN sums over ``groups.node``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from cartnet_tpu_torch.nn.norm import (bn_state_update, masked_batch_norm,
 from cartnet_tpu_torch.ops.kernels import tp_kernels
 from cartnet_tpu_torch.ops.segment import gather_sorted, segment_sum_presorted
 from cartnet_tpu_torch.ops.sh import SQRT3, SQRT5, spherical_harmonics_l012
+from cartnet_tpu_torch.parallel.dist import SINGLE, Groups, ep_sum
+from cartnet_tpu_torch.parallel.halo import halo_scatter_back
 
 NS, NV = 64, 8  # scalar and vector/tensor channels (reference defaults)
 
@@ -101,7 +110,7 @@ class EquiBlock(nn.Module):
                                  dtype=dt)
 
     def forward(self, x, edge_attr, batch: CrystalBatch, p: Params,
-                group=None):
+                groups: Groups = SINGLE):
         src_perm, dst = batch.edge_src_perm, batch.edge_dst
         E = dst.shape[0]
         y0, y1, y2 = spherical_harmonics_l012(batch.cart_dir.to(x.dtype))
@@ -110,9 +119,15 @@ class EquiBlock(nn.Module):
                                     min=1.0)[:, None]
 
         def smean(flat):
-            return segment_sum_presorted(
+            # the members' partials: summed over ep (nodes copied), or
+            # under halo the received rows' sums sent back to their owners;
+            # src_degree is the dp slice's count
+            s = segment_sum_presorted(
                 flat, src_perm, batch.src_rowptr, batch.edge_mask_src_sorted,
-                batch.edge_src, batch.edge_mask) * inv_cnt
+                batch.edge_src, batch.edge_mask)
+            s = (halo_scatter_back(s, batch, groups) if batch.halo
+                 else ep_sum(s, groups))
+            return s * inv_cnt
 
         def g_dst(table):
             return gather_sorted(table, dst, batch.dst_rowptr,
@@ -136,7 +151,7 @@ class EquiBlock(nn.Module):
         if self.training:
             out, (mean, var, n) = masked_batch_norm_train(
                 out, p["bn.weight"], p["bn.bias"], batch.node_mask,
-                self.cfg.bn_eps, group)
+                self.cfg.bn_eps, groups.node)
             bn_state_update(self.bn, mean, var, n, self.cfg.bn_momentum)
         else:
             out = masked_batch_norm(out, p["bn.weight"], p["bn.bias"],

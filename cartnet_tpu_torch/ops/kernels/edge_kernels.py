@@ -66,6 +66,7 @@ merge's VJP, then K6.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -326,10 +327,10 @@ def _launch_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
 # ------------------------------------------------------------ backward (K5)
 
 def _bwd_tail(e, we, w1g, w1a, pre, sig, dg, ds, deres, dst, src, emask,
-              num_nodes: int):
+              num_nodes: int, num_src: int):
     """K5's body from the rounded dg/ds on (shared with K6's plain
-    version): f32 pre and sig of the residual -> (de, dxi, dxj, dwe, db,
-    dw1g, db1g, dw1a, db1a)."""
+    version): f32 pre and sig of the residual -> (de, dxi [num_nodes, 2d],
+    dxj [num_src, 2d], dwe, db, dw1g, db1g, dw1a, db1a)."""
     cdt = e.dtype
     d = w1g.shape[0]
     f = lambda t: t.float()
@@ -343,7 +344,8 @@ def _bwd_tail(e, we, w1g, w1a, pre, sig, dg, ds, deres, dst, src, emask,
     node = torch.where(emask[:, None], dpre_c, torch.zeros_like(dpre_c))
     dxi = torch.zeros((num_nodes, 2 * d), dtype=torch.float32,
                       device=e.device).index_add_(0, dst, node)
-    dxj = torch.zeros_like(dxi).index_add_(0, src, node)
+    dxj = torch.zeros((num_src, 2 * d), dtype=torch.float32,
+                      device=e.device).index_add_(0, src, node)
     return (de, dxi, dxj, torch.matmul(f(e).t(), dpre_c), dpre.sum(dim=0),
             torch.matmul(f(h[:, :d]).t(), f(dg)), f(dg).sum(dim=0),
             torch.matmul(f(h[:, d:]).t(), f(ds)), f(ds).sum(dim=0))
@@ -363,18 +365,22 @@ def _moment_fold(gate, meanw, ds1w, dm2w, emask, tile: int):
 
 def edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w,
                          dgate, dsender, deres, dst, src, emask,
-                         num_nodes: int, *, tile: int = TILE_EDGES):
+                         num_nodes: int, num_src: Optional[int] = None, *,
+                         tile: int = TILE_EDGES):
     """The backward kernel's function in plain PyTorch (same casts and
-    rounding) -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a); dxi/dxj
-    [num_nodes, 2d] and the weight/bias gradients are f32, de in e.dtype.
-    ``meanw``/``ds1w``/``dm2w`` are per-``tile``-edge window rows."""
+    rounding) -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a); dxi
+    [num_nodes, 2d], dxj [num_src, 2d] (num_src: num_nodes unless the src
+    table is longer, as under halo partitioning) and the weight/bias
+    gradients are f32, de in e.dtype. ``meanw``/``ds1w``/``dm2w`` are
+    per-``tile``-edge window rows."""
     cdt = e.dtype
     d = gate.shape[1]
     pre, sig = saved[:, :2 * d].float(), saved[:, 2 * d:].float()
     dg = (dgate.float() + _moment_fold(gate, meanw, ds1w, dm2w, emask,
                                        tile)).to(cdt)
     return _bwd_tail(e, we, w1g, w1a, pre, sig, dg, dsender.to(cdt), deres,
-                     dst, src, emask, num_nodes)
+                     dst, src, emask, num_nodes,
+                     num_nodes if num_src is None else num_src)
 
 
 _INDEX_NAMES = ("dst", "src", "dst_rowptr", "src_perm", "src_rowptr")
@@ -406,28 +412,32 @@ def _check_bwd(e, tensors, f32_names=("meanw", "ds1w", "dm2w")):
 
 def _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst, src, emask,
                    dst_rowptr, src_perm, src_rowptr):
-    """The operands K5 and K6 share, name -> (tensor, shape)."""
+    """The operands K5 and K6 share, name -> (tensor, shape). The dst
+    and src row counts N and Ns are the two rowptrs' lengths less one; the
+    src table holds the dst one and more (Ns >= N: equal without halo
+    partitioning, the received rows more with it)."""
     E, d = e.shape
-    N = dst_rowptr.shape[0] - 1
     nt = E // TILE_EDGES
+    N = dst_rowptr.shape[0] - 1
+    Ns = max(src_rowptr.shape[0] - 1, N) if src_rowptr.dim() == 1 else N
     return {"we": (we, (d, 2 * d)), "w1g": (w1g, (d, d)),
             "w1a": (w1a, (d, d)), "gate": (gate, (E, d)),
             "meanw": (meanw, (nt, d)), "ds1w": (ds1w, (nt, d)),
             "dm2w": (dm2w, (nt, d)), "dst": (dst, (E,)), "src": (src, (E,)),
-            "emask": (emask, (E,)), "dst_rowptr": (dst_rowptr, (N + 1,)),
-            "src_perm": (src_perm, (E,)),
-            "src_rowptr": (src_rowptr, (N + 1,))}
+            "emask": (emask, (E,)), "src_perm": (src_perm, (E,)),
+            "dst_rowptr": (dst_rowptr, (N + 1,)),
+            "src_rowptr": (src_rowptr, (Ns + 1,))}
 
 
 def _lib_bwd():
     lib = _build.load("edge_phase_bwd")
     fn = lib.edge_phase_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.edge_phase_merged_bwd.argtypes = [ctypes.c_void_p] * 30 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.edge_phase_merged_bwd.restype = ctypes.c_int
         lib.edge_phase_bwd_workspace.argtypes = [ctypes.c_int] * 3
         lib.edge_phase_bwd_smem.argtypes = [ctypes.c_int] * 2
@@ -436,8 +446,9 @@ def _lib_bwd():
     return lib
 
 
-def _launch_bwd(entry: str, ops: dict, specs: dict, N: int):
-    """Launch ``entry`` of csrc/edge_phase_bwd.cu on the operands ``ops``
+def _launch_bwd(entry: str, ops: dict, specs: dict, N: int, Ns: int):
+    """Launch ``entry`` of csrc/edge_phase_bwd.cu (dxi over the ``N`` dst
+    rows, dxj over the ``Ns`` src rows) on the operands ``ops``
     (name -> tensor in the entry point's order; contiguous; zero-padded to
     the kernels' granule by their ``specs``; an operand that is not
     16-byte aligned, as the kernel's vector and TMA loads need, is copied
@@ -464,7 +475,7 @@ def _launch_bwd(entry: str, ops: dict, specs: dict, N: int):
     h = torch.empty((E, 2 * d), dtype=e.dtype, device=dev) if is_bf16 \
         else None
     dxi = torch.empty((N, 2 * d), dtype=f32, device=dev)
-    dxj = torch.empty((N, 2 * d), dtype=f32, device=dev)
+    dxj = torch.empty((Ns, 2 * d), dtype=f32, device=dev)
     dw = torch.empty(4 * d * d, dtype=f32, device=dev)
     dbias = torch.empty(4 * d, dtype=f32, device=dev)
     work = torch.empty(lib.edge_phase_bwd_workspace(E, d, is_bf16),
@@ -472,7 +483,7 @@ def _launch_bwd(entry: str, ops: dict, specs: dict, N: int):
     outs = (de, *scratch, h, dxi, dxj, dw, dbias, work)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = getattr(lib, entry)(*(ptr(t) for t in tuple(args) + outs),
-                              E, N, d, is_bf16,
+                              E, N, Ns, d, is_bf16,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     d2 = 2 * d * d
@@ -494,18 +505,18 @@ def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
     tensors.update(saved=(saved, (E, 4 * d)), dgate=(dgate, (E, d)),
                    dsender=(dsender, (E, d)), deres=(deres, (E, d)))
     _check_bwd(e, tensors)
-    N = dst_rowptr.shape[0] - 1
+    N, Ns = dst_rowptr.shape[0] - 1, src_rowptr.shape[0] - 1
     if e.device.type == "cpu":
         return edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw,
                                     ds1w, dm2w, dgate, dsender, deres, dst,
-                                    src, emask, N)
+                                    src, emask, N, Ns)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
     grads = _launch_bwd("edge_phase_bwd", dict(
         e=e, we=we, w1g=w1g, w1a=w1a, saved=saved, gate=gate, meanw=meanw,
         ds1w=ds1w, dm2w=dm2w, dgate=dgate, dsender=dsender, deres=deres,
         emask=emask, dst_rowptr=dst_rowptr, src_perm=src_perm,
-        src_rowptr=src_rowptr), BWD_PAD, N)
+        src_rowptr=src_rowptr), BWD_PAD, N, Ns)
     global bwd_launches
     bwd_launches += 1
     return grads
@@ -514,14 +525,16 @@ def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
 # ------------------------------------------------- merged backward (K6)
 
 def merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env, scale, shift,
-                     meanw, ds1w, dm2w, deout, daggr, dst, src, emask, *,
+                     meanw, ds1w, dm2w, deout, daggr, dst, src, emask,
+                     num_src: Optional[int] = None, *,
                      tile: int = TILE_EDGES):
     """The merged backward kernel's function in plain PyTorch, in the order
     of ``_bwd_merged_kernel`` (same casts and rounding): the sigma backward
     (dvals = daggr[dst] on masked-in edges), ds = dvals sig0 env and
     dg = da scale + the moment fold, each rounded once, sig = sigmoid(pre)
     in f32, then K5's body with deout as the residual's cotangent. -> (de,
-    dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a), as K5's."""
+    dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a), as K5's: dxi over daggr's
+    rows, dxj over ``num_src`` (daggr's rows by default)."""
     cdt = e.dtype
     f = lambda t: t.float()
     dvals = daggr.index_select(0, dst).float()
@@ -535,7 +548,8 @@ def merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env, scale, shift,
                                        tile)).to(cdt)
     pre32 = f(pre)
     return _bwd_tail(e, we, w1g, w1a, pre32, torch.sigmoid(pre32), dg, ds,
-                     deout, dst, src, emask, daggr.shape[0])
+                     deout, dst, src, emask, daggr.shape[0],
+                     daggr.shape[0] if num_src is None else num_src)
 
 
 def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
@@ -546,7 +560,7 @@ def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
     pre [E, 2d], gate, sender, deout [E, d], env [E, 1] and daggr [N, d]
     share e's dtype; scale/shift [d] and the window rows are f32."""
     E, d = e.shape
-    N = dst_rowptr.shape[0] - 1
+    N, Ns = dst_rowptr.shape[0] - 1, src_rowptr.shape[0] - 1
     tensors = _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst,
                              src, emask, dst_rowptr, src_perm, src_rowptr)
     tensors.update(pre=(pre, (E, 2 * d)), sender=(sender, (E, d)),
@@ -557,7 +571,7 @@ def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
     if e.device.type == "cpu":
         return merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env,
                                 scale, shift, meanw, ds1w, dm2w, deout,
-                                daggr, dst, src, emask)
+                                daggr, dst, src, emask, Ns)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
     grads = _launch_bwd("edge_phase_merged_bwd", dict(
@@ -565,7 +579,7 @@ def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
         env=env, scale=scale, shift=shift, meanw=meanw, ds1w=ds1w,
         dm2w=dm2w, deout=deout, daggr=daggr, dst=dst, emask=emask,
         dst_rowptr=dst_rowptr, src_perm=src_perm, src_rowptr=src_rowptr),
-        MERGED_PAD, N)
+        MERGED_PAD, N, Ns)
     global merged_launches
     merged_launches += 1
     return grads
@@ -579,7 +593,10 @@ class EdgePhase(torch.autograd.Function):
     mean_w = s1_w / max(n_w, 1) and runs K5; gradients come back in the
     primal dtypes. With ``moments=False`` (the Comformer conv, whose BN
     normalizes another tensor) K1 skips the moments, s1_w/M2_w are None, and
-    K5 gets zero moment cotangents, so its correction term vanishes."""
+    K5 gets zero moment cotangents, so its correction term vanishes. xi and
+    xj may have different row counts (halo partitioning: xj spans the src
+    table [local ‖ received rows]); ``dst_rowptr`` and ``src_rowptr`` are
+    over xi's and xj's rows, and dxi/dxj come back with them."""
 
     @staticmethod
     def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,

@@ -1,31 +1,41 @@
-"""Data-parallel training steps over a ``torch.distributed`` group (port of
-cartnet_tpu/parallel/step.py's ``make_parallel_steps`` with ep = 1).
+"""Data- and edge-parallel training steps over ``torch.distributed``
+groups (port of cartnet_tpu/parallel/step.py's ``make_parallel_steps`` and
+``make_parallel_fused_chunk``).
 
-Each rank holds the whole model and a batch of its own crystals (member r
-of each group of dp consecutive batches, ``runner.ShardedPipeline``). A
-micro-step on every rank:
+Each rank holds the whole model and its share of the batch: member
+``r // ep`` of each group of dp consecutive batches, and within that dp
+slice ep member ``r % ep``'s edge slice (or, under halo partitioning, its
+node and edge block), with the loss mask partitioned over the ep members
+(``runner.ShardedPipeline``, parallel/partition.py). The model reduces over
+the rank's ``dist.Groups``: the partial aggregates over its ep group (or
+the halo exchanges), edge BN moments over the world, node BN moments over
+the ranks with its ep index (under halo, the world). A micro-step on every
+rank:
 
-  * the train forward with sync BN over the group: each BN sums its masked
-    count and moments over the ranks (nn/norm.py), so every rank normalizes
-    with the union batch's moments and advances the same running stats;
+  * the train forward with sync BN: every rank normalizes with the union
+    batch's moments and advances the same running stats;
   * the masked loss sums and count (and, on Cholesky heads, the ADP stat
-    sums) summed over the ranks in one all-reduce: the loss is the global
+    sums) summed over the world in one all-reduce: the loss is the global
     sum over the global count, its value the same on every rank, its
     gradient flowing through this rank's own sums only;
-  * the backward (the BNs' all-reduces sum their cotangents over the
-    ranks), then one all-reduce (sum) of the flattened gradients: every
-    rank holds the gradient of the union batch, with no factor of the
-    group's size (the JAX package's loss is likewise global);
+  * the backward (the BNs' and the aggregates' all-reduces sum their
+    cotangents over their groups), then one all-reduce (sum) of the
+    flattened gradients over the world: every rank holds the gradient of
+    the union batch, with no factor of the group's size (the JAX package's
+    loss is likewise global);
   * the step guard on the global loss and the summed gradients, so its
     decision, and the accumulation count, agree on every rank.
 
-The update and the eval step are the single-process ones: every rank
-applies the same gradients to the same weights, and eval BN reads the
-running stats, which agree. The fused chunk (``--fused_steps``) runs the
-same forward inside the single-process chunk; on the card its collectives
-are captured in the chunk's CUDA graph, which needs NCCL (train/graphs.py).
-Edge parallelism (ep > 1), halo partitioning and chunked execution are not
-ported yet.
+The update is the single-process one: every rank applies the same
+gradients to the same weights. The eval step runs the eval forward with
+the groups (the aggregates' sums and the halo exchanges; eval BN reads the
+running stats, which agree) and returns each rank's own partition's
+stats, which the loggers sum over the world. The fused chunk
+(``--fused_steps``) runs the same forward inside the single-process chunk;
+a micro-step is valid where any rank's batch holds a real graph; on the
+card its collectives are captured in the chunk's CUDA graph, which needs
+NCCL (train/graphs.py). Only chunked execution (``--chunks``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch.distributed as dist
 
 from cartnet_tpu_torch.config import Config
 from cartnet_tpu_torch.data.schema import CrystalBatch
+from cartnet_tpu_torch.parallel.dist import Groups
 from cartnet_tpu_torch.train.loop import (make_fused_chunk, make_steps,
                                           param_grads)
 from cartnet_tpu_torch.train.metrics import adp_stat_sums, masked_sums
@@ -50,15 +61,23 @@ def all_reduce_flat(tensors, group) -> None:
         t.copy_(part.view_as(t))
 
 
-def parallel_forward(cfg: Config, group):
-    """The micro-step's forward and backward over ``group`` (a forward for
-    ``loop.make_steps``) -> (loss, stats, summed gradients, live: a device
-    bool, some rank's batch holds a real graph)."""
+def as_groups(group) -> Groups:
+    """``group`` as the models' ``Groups``: a plain process group is data
+    parallelism alone."""
+    return group if isinstance(group, Groups) else \
+        Groups.data_parallel(group)
+
+
+def parallel_forward(cfg: Config, groups: Groups):
+    """The micro-step's forward and backward over ``groups`` (a forward
+    for ``loop.make_steps``) -> (loss, stats, summed gradients, live: a
+    device bool, some rank's batch holds a real graph)."""
+    group = groups.edge
 
     def forward(state: TrainState, batch: CrystalBatch):
         model = state.model
         model.train()
-        pred, mask = model(batch, group=group)
+        pred, mask = model(batch, groups)
         sums = list(masked_sums(pred, batch.y, mask))
         if cfg.model.cholesky:
             sums += list(adp_stat_sums(pred.detach(), batch.y, mask))
@@ -86,17 +105,21 @@ def parallel_forward(cfg: Config, group):
 
 
 def make_parallel_steps(cfg: Config, group):
-    """-> (micro_step, update_step, eval_step) of data parallelism over
-    ``group``; each rank calls them on its own device batch."""
-    return make_steps(cfg, parallel_forward(cfg, group))
+    """-> (micro_step, update_step, eval_step) over ``group`` (a
+    ``dist.Groups``, or a process group for data parallelism alone); each
+    rank calls them on its own device batch."""
+    groups = as_groups(group)
+    return make_steps(cfg, parallel_forward(cfg, groups), groups)
 
 
 def make_parallel_fused_chunk(cfg: Config, group, num_steps: int):
-    """The fused chunk (``loop.make_fused_chunk``) over ``group``: each
-    rank runs ``num_steps`` micro-steps on its own stacked member batches,
-    with the data-parallel forward; a micro-step is valid where any rank's
-    batch holds a real graph (a short group's ranks past its end hold
-    fully masked batches) and the guard passes the summed gradients, so
-    the accumulation cadence agrees on every rank (port of
-    cartnet_tpu/parallel/step.py's ``make_parallel_fused_chunk``)."""
-    return make_fused_chunk(cfg, num_steps, parallel_forward(cfg, group))
+    """The fused chunk (``loop.make_fused_chunk``) over ``group`` (as in
+    ``make_parallel_steps``): each rank runs ``num_steps`` micro-steps on
+    its own stacked member batches, with the parallel forward; a
+    micro-step is valid where any rank's batch holds a real graph (the
+    flag crosses the world with the loss sums: a short group's ranks past
+    its end, and an ep member whose loss partition is empty, hold no
+    graph of their own) and the guard passes the summed gradients, so the
+    accumulation cadence agrees on every rank."""
+    return make_fused_chunk(cfg, num_steps,
+                            parallel_forward(cfg, as_groups(group)))

@@ -22,19 +22,24 @@ train epoch with ``torch.profiler`` (host and, on the card, CUDA
 activities) into ``cfg.run_dir/profile``. ``wandb`` logs each epoch's
 stats and the test stats to a wandb run (``train/logger.WandbLogger``).
 
-Data parallelism (a ``torch.distributed`` group of ``cfg.parallel.dp``
-ranks, one card each; parallel/): every rank iterates the same seeded
-pipelines and takes member r of each group of dp consecutive batches
+Data and edge parallelism (a ``torch.distributed`` world of
+``cfg.parallel.dp`` x ``cfg.parallel.ep`` ranks, one card each, dp-major;
+parallel/): every rank iterates the same seeded pipelines and takes dp
+member ``r // ep`` of each group of dp consecutive batches
 (``ShardedPipeline``; a short last group gives the ranks past its end an
-all-masked batch, so that every rank reaches each collective), so an
-epoch has ``sharded_steps_per_epoch`` optimizer micro-steps on every rank
-and the OneCycle schedule is built from that count, as in the JAX
-package. The steps are ``parallel/step.make_parallel_steps``; the loggers
-sum the epoch's stats over the ranks. Rank 0 alone writes ``stats.json``,
-the checkpoints, the heartbeat, the profile and the inference pickle;
-``resume`` and a rollback restore every rank from the same file. Edge
-parallelism, halo partitioning and chunked execution are not ported yet
-(ROADMAP M1).
+all-masked batch, so that every rank reaches each collective), and of
+that batch ep member ``r % ep``'s share: its edge slice, or under
+``cfg.parallel.halo`` its block of the halo layout
+(parallel/partition.py, parallel/halo.py), with the loss mask split over
+the ep members. An epoch has ``sharded_steps_per_epoch`` optimizer
+micro-steps on every rank and the OneCycle schedule is built from that
+count, as in the JAX package. The steps are
+``parallel/step.make_parallel_steps`` over the rank's ``dist.Groups``
+(``pdist.make_groups``); the loggers sum the epoch's stats over the world.
+Rank 0 alone writes ``stats.json``, the checkpoints, the heartbeat, the
+profile and the inference pickle; ``resume`` and a rollback restore every
+rank from the same file. Chunked execution (``--chunks``) is the one
+parallel layout of the JAX package not ported (ROADMAP §1).
 
 Fused epochs (``cfg.optim.fused_steps`` K > 1, the JAX runner's wiring):
 each train epoch runs ``loop.train_epoch_fused`` over K micro-steps a
@@ -52,7 +57,10 @@ with ``fused_steps`` on or off.
 structure: pred/true of its non-H atoms, cell, temperature, positions, atom
 types, its index as ``refcode``, and its MAE, per-atom 3D IoU and per-atom
 S12 (under data parallelism each rank sweeps its member batches and rank 0
-gathers the entries in the single-process order). ``montecarlo`` repeats the sweep under random rotations of the edge
+gathers the entries in the single-process order; under edge parallelism
+the ep members' predictions, copied or, under halo, owned, are put
+together on the slice's first member). ``montecarlo`` repeats the sweep
+under random rotations of the edge
 directions, against the unrotated prediction rotated as Rᵀ U R. The pickle
 layouts and the log lines are the reference's.
 """
@@ -81,6 +89,9 @@ from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.ops.rotations import random_rotation
 from cartnet_tpu_torch.parallel import dist as pdist
+from cartnet_tpu_torch.parallel.halo import to_halo
+from cartnet_tpu_torch.parallel.partition import (ep_member, halo_member,
+                                                  pad_multiples)
 from cartnet_tpu_torch.parallel.step import (make_parallel_fused_chunk,
                                              make_parallel_steps)
 from cartnet_tpu_torch.train import checkpoint as ckpt
@@ -103,18 +114,25 @@ def sharded_steps_per_epoch(unsharded_len: int, dp: int) -> int:
 
 class ShardedPipeline:
     """Rank ``rank``'s view of a pipeline under ``dp`` data-parallel ranks
-    (host batches): member ``rank`` of each group of ``dp`` consecutive
-    batches. A group never spans a bucket boundary, and a rank past the end
-    of a short group gets that group's last batch with every mask off
-    (``all_masked``), so that every rank takes the same number of steps.
-    Every rank iterates (and collates) the whole pipeline, as the JAX
-    package's single controller does, so the shuffle and the augmentation
-    draws stay those of one process."""
+    of ``ep`` members each (host batches, dp-major ranks): dp member
+    ``rank // ep`` of each group of ``dp`` consecutive batches, cut for ep
+    member ``rank % ep`` (its edge slice, or with ``halo`` its block of
+    the halo layout, ``halo_max`` rows from an owner at most;
+    parallel/partition.py). A group never spans a bucket boundary, and a
+    rank past the end of a short group gets that group's last batch with
+    every mask off (``all_masked``), so that every rank takes the same
+    number of steps. Every rank iterates (and collates) the whole
+    pipeline, as the JAX package's single controller does, so the shuffle
+    and the augmentation draws stay those of one process."""
 
-    def __init__(self, pipe, dp: int, rank: int = 0):
+    def __init__(self, pipe, dp: int, rank: int = 0, ep: int = 1,
+                 halo: bool = False, halo_max: Optional[int] = None):
         self.pipe = pipe
         self.dp = max(dp, 1)
+        self.ep = max(ep, 1)
         self.rank = rank
+        self.halo = halo and self.ep > 1
+        self.halo_max = halo_max
 
     @property
     def rng(self):
@@ -133,33 +151,60 @@ class ShardedPipeline:
             for b in self.pipe:
                 yield 0, b
 
-    def _member(self, group: list) -> CrystalBatch:
-        return (group[self.rank] if self.rank < len(group)
-                else all_masked(group[-1]))
+    def _slice(self, group: list) -> CrystalBatch:
+        i = self.rank // self.ep
+        return group[i] if i < len(group) else all_masked(group[-1])
 
-    def __iter__(self):
+    def slices(self):
+        """(this rank's dp-slice batch as the sweep reads it: the halo
+        layout's under ``halo``, the ep member's batch) per step."""
         group, cur = [], None
         for bid, b in self._pairs():
             if group and bid != cur:
-                yield self._member(group)
+                yield self._cut(self._slice(group))
                 group = []
             cur = bid
             group.append(b)
             if len(group) == self.dp:
-                yield self._member(group)
+                yield self._cut(self._slice(group))
                 group = []
         if group:
-            yield self._member(group)
+            yield self._cut(self._slice(group))
+
+    def _cut(self, batch: CrystalBatch) -> tuple:
+        m = self.rank % self.ep
+        if self.halo:
+            hb = to_halo(batch, self.ep, self.halo_max)
+            return hb, halo_member(hb, self.ep, m)
+        return batch, ep_member(batch, self.ep, m)
+
+    def __iter__(self):
+        return (mine for _, mine in self.slices())
 
 
 def check_parallel(cfg: Config) -> None:
-    """Raises for the JAX package's parallel layouts that are not ported
-    yet, rather than running without them."""
-    par = cfg.parallel
-    for flag, on in (("--ep > 1", par.ep > 1), ("--halo", par.halo),
-                     ("--chunks > 1", par.chunks > 1)):
-        if on:
-            raise ValueError(f"{flag} is not ported yet (ROADMAP M1)")
+    """Raises for the JAX package's one parallel layout that is not ported
+    yet (chunked execution), rather than running without it."""
+    if cfg.parallel.chunks > 1:
+        raise ValueError("--chunks > 1 is not ported yet (ROADMAP §1)")
+
+
+def world_of(group):
+    """The world process group of ``group`` (a ``dist.Groups``), None in
+    one process."""
+    return None if group is None else group.edge
+
+
+def sharded(pipes, cfg: Config, group):
+    """Each pipeline as this rank's ``ShardedPipeline`` (``pipes`` as they
+    are in one process)."""
+    if group is None:
+        return pipes
+    par, world = cfg.parallel, world_of(group)
+    ep = group.ep_size
+    return tuple(ShardedPipeline(p, pdist.world(world) // ep,
+                                 pdist.rank(world), ep, par.halo,
+                                 par.halo_max) for p in pipes)
 
 
 def rank0_first(group, fn):
@@ -180,12 +225,17 @@ def pipelines(cfg: Config, splits):
     splits (with ``cfg.data.buckets`` > 1, one a bucket of each split);
     train shuffles (seeded) and, with ``cfg.data.augment``, rotates
     (targets too on Cholesky heads); val/test do neither. Lazy sources
-    (the ADP ``LazyRecords``) are fetched by a pool of 4 threads."""
+    (the ADP ``LazyRecords``) are fetched by a pool of 4 threads. Under
+    edge parallelism the pad multiples are the JAX runner's
+    (``partition.pad_multiples``), so that each member holds whole edge
+    tiles and 8-aligned node blocks."""
     counts = [record_counts(s) for s in splits]
     nodes = np.concatenate([c[0] for c in counts])
     edges = np.concatenate([c[1] for c in counts])
     align = edge_align_for(edges)
+    node_mult, edge_mult = pad_multiples(cfg.parallel.ep)
     mn, me = choose_pad_sizes_from_counts(nodes, edges, cfg.data.batch_size,
+                                          node_mult, edge_mult,
                                           edge_align=align)
     workers = 0 if isinstance(splits[0], list) else 4
     return tuple(BatchPipeline(recs, cfg.data.batch_size, mn, me,
@@ -193,7 +243,9 @@ def pipelines(cfg: Config, splits):
                                cfg.data.augment,
                                rotate_targets=cfg.model.cholesky,
                                seed=cfg.seed, workers=workers,
-                               buckets=cfg.data.buckets, edge_align=align)
+                               buckets=cfg.data.buckets, edge_align=align,
+                               node_multiple=node_mult,
+                               edge_multiple=edge_mult)
                  for recs, train in zip(splits, (True, False, False)))
 
 
@@ -201,19 +253,18 @@ def run(cfg: Config, splits, device="cuda", state_dict=None,
         resume: bool = False, profile: bool = False, group=None,
         wandb: Optional[dict] = None):
     """Build pipelines, model (random from ``cfg.seed``, or ``state_dict``)
-    and optimizer, then ``train``; ``group``: the data-parallel ranks
-    (this process is one of them); ``wandb``: the wandb project and entity
-    to log to (None: no wandb)."""
+    and optimizer, then ``train``; ``group``: this rank's ``dist.Groups``
+    (``pdist.make_groups``; None in one process); ``wandb``: the wandb
+    project and entity to log to (None: no wandb)."""
     device = resolve_device(device)
     check_parallel(cfg)
-    pipes = rank0_first(group, lambda: pipelines(cfg, splits))
+    pipes = rank0_first(world_of(group), lambda: pipelines(cfg, splits))
     model = create_model(cfg.model, device, cfg.seed)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     n_params = sum(p.numel() for p in model.parameters())
     logging.info("model %s: %.3fM params", cfg.model.name, n_params / 1e6)
-    steps = (len(ShardedPipeline(pipes[0], pdist.world(group)))
-             if group is not None else len(pipes[0]))
+    steps = len(sharded(pipes, cfg, group)[0])
     optimizer = build_optimizer(cfg, model.parameters(), steps)
     return train(cfg, init_train_state(model, optimizer, cfg.seed), pipes,
                  device, resume, profile, group, wandb)
@@ -247,17 +298,19 @@ def _profiled(run_dir: str, device):
 
 def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
           profile: bool = False, group=None, wandb: Optional[dict] = None):
-    """Epoch loop -> (state with the best weights, test stats); under
-    data parallelism (``group``) on this rank's member batches."""
+    """Epoch loop -> (state with the best weights, test stats); in
+    parallel (``group``, as in ``run``) on this rank's member batches."""
     device = resolve_device(device)
     check_parallel(cfg)
-    main = pdist.is_main(group)
+    world = world_of(group)
+    main = pdist.is_main(world)
+    pipes = sharded(pipes, cfg, group)
     if group is not None:
-        dp, r = pdist.world(group), pdist.rank(group)
-        pipes = tuple(ShardedPipeline(p, dp, r) for p in pipes)
-        logging.info("data parallel: rank %d of %d", r, dp)
+        p = pipes[0]
+        logging.info("parallel: rank %d, dp %d x ep %d%s", p.rank, p.dp,
+                     p.ep, " (halo)" if p.halo else "")
     train_pipe, val_pipe, test_pipe = pipes
-    loggers = create_loggers(cfg.run_dir, device, group)
+    loggers = create_loggers(cfg.run_dir, device, world)
     n_params = sum(p.numel() for p in state.model.parameters())
     for lg in loggers:
         lg.params = n_params
@@ -282,7 +335,9 @@ def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
                               start_epoch, best, profile and main, group, wb)
         if os.path.isfile(best_path):
             state, _ = ckpt.restore_checkpoint(best_path, state)
-        eval_epoch(state, test_pipe, make_steps(cfg)[2], device,
+        evals = (make_steps(cfg)[2] if group is None
+                 else make_parallel_steps(cfg, group)[2])
+        eval_epoch(state, test_pipe, evals, device,
                    iou=cfg.model.cholesky, logger=loggers[2])
         test_stats = loggers[2].write_epoch(best[1])
         wb.log({f"test/{k}": v for k, v in test_stats.items()})
@@ -301,14 +356,15 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
     train_pipe, val_pipe, _ = pipes
     micro, update, evals = (make_steps(cfg) if group is None
                             else make_parallel_steps(cfg, group))
-    main = pdist.is_main(group)
+    world = world_of(group)
+    main = pdist.is_main(world)
     lr_fn = build_lr_fn(cfg, len(train_pipe))
     k = cfg.optim.fused_steps
     run_chunk = None
     if k > 1:
         run_chunk = ChunkRunner(
             make_fused_chunk(cfg, k) if group is None
-            else make_parallel_fused_chunk(cfg, group, k), k, device, group)
+            else make_parallel_fused_chunk(cfg, group, k), k, device, world)
         logging.info("fused epochs: %d micro-steps per device launch", k)
 
     def train_pass(state):
@@ -363,8 +419,8 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
             ckpt.save_checkpoint(last_path, state, {
                 "epoch": epoch, "best_val": best[0], "best_epoch": best[1],
                 "pipeline_rng": train_pipe.rng.bit_generator.state})
-        if group is not None:  # the files are there before any rank reads
-            dist.barrier(group)
+        if world is not None:  # the files are there before any rank reads
+            dist.barrier(world)
         if wb is not None:
             wb.log({**{f"train/{k}": v for k, v in train_stats.items()},
                     **{f"val/{k}": v for k, v in val_stats.items()},
@@ -439,30 +495,46 @@ def _gathered(per_batch: list, group):
 
 
 def inference(model, batches: Iterable[CrystalBatch], output_path: str,
-              device="cuda", group=None):
+              device="cuda", group=None, halo: bool = False,
+              halo_max: Optional[int] = None):
     """Per-structure test sweep with ADP metrics on ``device`` (the card
     unless the caller passes ``device="cpu"``).
 
     ``batches`` are host (numpy) batches; each is moved to the device, run
     through ``model`` (pred [N, 3, 3]) and split per structure. Returns the
-    dict that is pickled to ``output_path``. Under data parallelism
-    (``group``) each rank sweeps its member batches of ``batches``
-    (``ShardedPipeline``) and rank 0 gathers, writes and returns the
+    dict that is pickled to ``output_path``. In parallel (``group``, as in
+    ``run``) each rank sweeps its member batches of ``batches``
+    (``ShardedPipeline``, with ``halo`` partitioning over ``halo_max``
+    rows an owner); the ep members' predictions (copied, or under halo
+    each member's own rows, gathered) are split per structure on the dp
+    slice's first member, and rank 0 gathers, writes and returns the
     entries; the other ranks return None."""
     if not model.cfg.cholesky:
         raise ValueError("the inference sweep needs the Cholesky ADP head")
     device = resolve_device(device)
     model = model.to(device)
+    groups, world = pdist.SINGLE, None
+    slices = ((b, b) for b in batches)
     if group is not None:
-        batches = ShardedPipeline(batches, pdist.world(group),
-                                  pdist.rank(group))
+        groups, world = group, world_of(group)
+        ep = groups.ep_size
+        slices = ShardedPipeline(batches, pdist.world(world) // ep,
+                                 pdist.rank(world), ep, halo,
+                                 halo_max).slices()
     per_batch = []
-    for batch in batches:
+    for full, mine in slices:
         with torch.inference_mode():
-            pred, mask = model(batch.to(device))
-        per_batch.append(_entries(batch, pred.float().cpu().numpy(),
-                                  mask.cpu().numpy(), device))
-    rows = _gathered(per_batch, group)
+            pred, _ = model(mine.to(device), groups)
+            if mine.halo:  # the members' own rows, member-major
+                parts = [torch.empty_like(pred)
+                         for _ in range(groups.ep_size)]
+                dist.all_gather(parts, pred.contiguous(), group=groups.ep)
+                pred = torch.cat(parts)
+        per_batch.append(
+            _entries(full, pred.float().cpu().numpy(),
+                     np.asarray(full.non_h_mask), device)
+            if groups.ep_rank == 0 else [])
+    rows = _gathered(per_batch, world)
     if rows is None:
         return None
     out = {"pred": [], "true": [], "temp": [], "cell": [], "refcode": [],

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from cartnet_tpu_torch.data.schema import CrystalBatch
+from cartnet_tpu_torch.data.schema import CrystalBatch, array_fields
 from cartnet_tpu_torch.train.loop import bn_buffers, stack_batches
 from cartnet_tpu_torch.train.state import TrainState
 
@@ -61,9 +61,7 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
 
 
 def _fields(batch: CrystalBatch) -> Dict[str, np.ndarray]:
-    return {f.name: np.asarray(getattr(batch, f.name))
-            for f in dataclasses.fields(batch)
-            if getattr(batch, f.name) is not None}
+    return {k: np.asarray(a) for k, a in array_fields(batch).items()}
 
 
 class _Graph:
@@ -120,21 +118,26 @@ class ChunkRunner:
         if self.device.type != "cuda":
             return self.chunk_fn(state, stack_batches(batches).to(
                 self.device))
+        # a halo chunk captures its exchange unless every halo is empty
+        empty = all(b.halo_empty for b in batches)
         key = (tuple((k, a.shape, a.dtype.str)
                      for k, a in _fields(batches[0]).items()),
-               os.environ.get("CARTNET_MERGED", "0"))
+               os.environ.get("CARTNET_MERGED", "0"), empty)
         g = self.graphs.get(key)
         ptrs = [t.data_ptr() for t in state_tensors(state)]
         if g is None or g.ptrs != ptrs:
             self.graphs.pop(key, None)
-            g = self.graphs[key] = self._capture(state, batches, key)
+            g = self.graphs[key] = self._capture(
+                state, batches, key, dataclasses.replace(
+                    batches[0], halo_empty=empty))
         else:
             g.load(batches)
         g.graph.replay()
         return {k: v.clone() for k, v in g.outputs.items()}
 
-    def _capture(self, state: TrainState, batches, key) -> _Graph:
-        g = _Graph(batches[0], self.num_steps, self.device)
+    def _capture(self, state: TrainState, batches, key,
+                 template: CrystalBatch) -> _Graph:
+        g = _Graph(template, self.num_steps, self.device)
         g.load(batches)
         tensors = state_tensors(state)
         kept = [t.clone() for t in tensors]

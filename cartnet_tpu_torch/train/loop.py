@@ -40,7 +40,8 @@ import torch
 
 from cartnet_tpu_torch.config import Config
 from cartnet_tpu_torch.data.batching import all_masked
-from cartnet_tpu_torch.data.schema import CrystalBatch
+from cartnet_tpu_torch.data.schema import CrystalBatch, array_fields
+from cartnet_tpu_torch.parallel.dist import SINGLE
 from cartnet_tpu_torch.train.guard import select_step, step_finite
 from cartnet_tpu_torch.train.metrics import (adp_stat_sums, compute_3d_iou,
                                              masked_mae_mse)
@@ -51,9 +52,10 @@ from cartnet_tpu_torch.train.state import TrainState
 Stats = Dict[str, torch.Tensor]
 
 
-def loss_fn(model, batch: CrystalBatch, cfg: Config):
-    """Forward in the model's current mode -> (loss, (mae, mse, pred, mask))."""
-    pred, mask = model(batch)
+def loss_fn(model, batch: CrystalBatch, cfg: Config, groups=SINGLE):
+    """Forward in the model's current mode (over ``groups``: the eval step
+    of a parallel run) -> (loss, (mae, mse, pred, mask))."""
+    pred, mask = model(batch, groups)
     mae, mse = masked_mae_mse(pred, batch.y, mask)
     loss = mae if cfg.optim.loss == "MAE" else mse
     return loss, (mae, mse, pred, mask)
@@ -138,10 +140,11 @@ def train_forward(cfg: Config, state: TrainState, batch: CrystalBatch):
     return loss, stats, grads, batch.graph_mask.any()
 
 
-def make_steps(cfg: Config, forward=None):
+def make_steps(cfg: Config, forward=None, groups=SINGLE):
     """-> (micro_step, update_step, eval_step); batches are on the device.
     ``forward(state, batch)``: the micro-step's forward and backward
-    (``train_forward`` by default, or data parallelism's)."""
+    (``train_forward`` by default, or the parallel one); ``groups``: the
+    eval forward's (parallel/dist.py)."""
     forward = forward or functools.partial(train_forward, cfg)
 
     def micro_step(state: TrainState, batch: CrystalBatch):
@@ -163,7 +166,8 @@ def make_steps(cfg: Config, forward=None):
         model = state.model
         model.eval()
         with torch.no_grad():
-            loss, (mae, mse, pred, mask) = loss_fn(model, batch, cfg)
+            loss, (mae, mse, pred, mask) = loss_fn(model, batch, cfg,
+                                                   groups)
             stats = _stats_with_adp(cfg, {"loss": loss, "MAE": mae,
                                           "MSE": mse}, pred, batch.y, mask)
         return pred, mask, stats
@@ -235,19 +239,19 @@ def sync_step(state: TrainState) -> int:
 def member(stacked: CrystalBatch, k: int) -> CrystalBatch:
     """Micro-batch ``k`` of a stacked batch (views of its fields)."""
     return dataclasses.replace(stacked, **{
-        f.name: getattr(stacked, f.name)[k]
-        for f in dataclasses.fields(stacked)
-        if getattr(stacked, f.name) is not None})
+        k_: a[k] for k_, a in array_fields(stacked).items()})
 
 
 def stack_batches(batches: List[CrystalBatch]) -> CrystalBatch:
     """Host batches of one pad shape -> one host batch whose fields carry
     a leading K axis. (The JAX package's flag normalisation for its TPU
-    kernels has no counterpart: the Hopper kernels take every batch.)"""
-    return dataclasses.replace(batches[0], **{
-        f.name: np.stack([np.asarray(getattr(b, f.name)) for b in batches])
-        for f in dataclasses.fields(batches[0])
-        if getattr(batches[0], f.name) is not None})
+    kernels has no counterpart: the Hopper kernels take every batch.)
+    Under halo partitioning the chunk exchanges rows unless every batch's
+    halo is empty (the JAX package's ``stack_for_shards`` flag rule)."""
+    return dataclasses.replace(
+        batches[0], halo_empty=all(b.halo_empty for b in batches), **{
+            k: np.stack([np.asarray(getattr(b, k)) for b in batches])
+            for k in array_fields(batches[0])})
 
 
 def fused_micro_step(cfg: Config, state: TrainState, batch: CrystalBatch,

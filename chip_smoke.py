@@ -152,6 +152,21 @@ Phases, one JSON line each (every line names the card and its power limit):
               a world = 1 NCCL fused chunk (its all-reduces captured in
               the CUDA graph) against the single-process fused chunk; the
               dp step's wall time beside the single-process step's
+  8g2. ep     edge parallelism and halo partitioning, gloo ranks on the
+              card: ep = 2 on the main path's first batch (CartNet bf16 and
+              f32, merged bf16, the eComformer and the iComformer bf16),
+              halo ep = 2 on it (an empty halo) and on three crystals one
+              of which is cut across the members (CartNet and the
+              eComformer bf16), dp 2 x ep 2 on both batches (CartNet
+              f32); each case's loss, BN stats, gradients (f32 within
+              1e-4 a layer, bf16 through bf16_grad_gate) and eval
+              predictions against the single-process step on the same
+              data, a member's launches (the single step's), its wall
+              and collectives a micro-step; one [N, d] all-reduce's time;
+              K5 and K6 with separate dst and src row counts (a halo
+              member's table) against their plain versions; K1's and
+              K5's device time at an ep member's shapes beside the full
+              batch's; the halo bytes a layer (comms_bytes_per_layer)
   8h. fused   fused epochs (--fused_steps, train/graphs.py: K micro-steps
               one CUDA-graph replay) at the flagship CartNet training
               config on the same two batches: 32 micro-steps with K = 16
@@ -297,7 +312,7 @@ ICO_K1_BF16_FWD = {**LAUNCHES["edge_phase_fwd"]["bf16"],
 # kernels around each capture's calls (``_capture``): their name, length
 # (~0.1 ms each) and number at each end
 CAPTURES = 10
-GUARD_KERNEL, GUARD_CYCLES, GUARDS = "spin_kernel", 200_000, 3
+GUARD_KERNEL, GUARD_CYCLES, GUARDS = "spin_kernel", 200_000, 10
 
 
 def launches_of(kname: str, dt) -> dict:
@@ -496,14 +511,17 @@ def bound(n_bytes: int, n_ops: int, op_dtype: str) -> tuple:
 # ----------------------------------------------------------------- inputs
 
 def edge_inputs(batch, table_dt, edge_dt, d, gen, dev):
-    """Random K1 operands at the batch's shapes: node tables [N, 2d],
-    edge features [E, d], weights U(+-1/sqrt(fan_in))."""
+    """Random K1 operands at the batch's shapes: node tables xi [N, 2d]
+    and xj over the src table's rows, edge features [E, d], weights
+    U(+-1/sqrt(fan_in))."""
     import torch
     N, E = batch.num_nodes, batch.num_edges
+    # xj spans the src table: N rows, or a halo member's n_per + ep H
+    n_src = N if batch.src_rowptr is None else batch.src_rowptr.shape[0] - 1
     rn = lambda *s: torch.randn(*s, generator=gen).mul_(0.3)
     ru = lambda fan, *s: (torch.rand(*s, generator=gen) * 2 - 1) / math.sqrt(
         fan)
-    vals = [rn(N, 2 * d).to(table_dt), rn(N, 2 * d).to(table_dt),
+    vals = [rn(N, 2 * d).to(table_dt), rn(n_src, 2 * d).to(table_dt),
             rn(E, d).to(edge_dt), ru(3 * d, d, 2 * d).to(edge_dt),
             ru(3 * d, 2 * d).to(edge_dt), ru(d, d, d).to(edge_dt),
             ru(d, d).to(edge_dt), ru(d, d, d).to(edge_dt),
@@ -644,15 +662,18 @@ SIGMA_BWD_OUT = ("dgate", "dscale", "dshift", "denv", "dsender")
 
 
 def edge_bwd_plain(*a):
-    """K5's plain version with the wrapper's arguments."""
+    """K5's plain version with the wrapper's arguments (its dst and src
+    row counts from the two rowptrs)."""
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
-    return ek.edge_phase_bwd_plain(*a[:15], a[15].shape[0] - 1)
+    return ek.edge_phase_bwd_plain(*a[:15], a[15].shape[0] - 1,
+                                   a[17].shape[0] - 1)
 
 
 def merged_bwd_plain(*a):
-    """K6's plain version with the wrapper's arguments."""
+    """K6's plain version with the wrapper's arguments (its src row count
+    from src_rowptr)."""
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
-    return ek.merged_bwd_plain(*a[:18])
+    return ek.merged_bwd_plain(*a[:18], a[20].shape[0] - 1)
 
 
 def merged_inputs(batch, dt, d, gen, dev):
@@ -2068,6 +2089,357 @@ def dp_phase(card: str, dev, recs) -> dict:
         fail(f"dp phase: {bad}")
     return {f"{n}_{d}": ranks[0][f"{n}_{d}"]["launches"]
             for n, d in DP_CASES}
+
+
+# 8g2. edge parallelism and halo partitioning: gloo ranks on the one card
+EP_JOBS = (("cartnet", "bf16", "ep"), ("cartnet", "f32", "ep"),
+           ("merged", "bf16", "ep"), ("ecomformer", "bf16", "ep"),
+           ("icomformer", "bf16", "ep"),
+           ("cartnet", "bf16", "halo_snapped"),
+           ("cartnet", "bf16", "halo_split"),
+           ("ecomformer", "bf16", "halo_snapped"),
+           ("ecomformer", "bf16", "halo_split"))
+EP_TIMED = 3
+# a member's launches per train micro-step: the single step's
+EP_MICRO = {"cartnet": dict.fromkeys(CARTNET_KERNELS, 4),
+            "merged": MERGED_MICRO, "ecomformer": ECO_MICRO,
+            "icomformer": ICO_MICRO}
+
+
+def ep_config(net: str, dt: str):
+    """The ep phase's configs: dp_config's (flagship widths, Cholesky
+    head); "merged" is CartNet under CARTNET_MERGED=1."""
+    return dp_config("cartnet" if net == "merged" else net, dt)
+
+
+def split_batch(recs):
+    """Three of the main path's crystals in a batch of 640 nodes and
+    16384 edges: no member of an ep = 2 halo layout (320 rows each) holds
+    two of them, so one is cut across the members."""
+    from cartnet_tpu_torch.data.batching import (EDGE_ALIGN,
+                                                 bandwidth_reorder, collate)
+    three = [bandwidth_reorder(r) for r in recs[:3]]
+    return collate(three, 640, 16384, 3, edge_align=EDGE_ALIGN)
+
+
+def ep_rank(rank: int, coordinator: str, world: int, dp: int, jobs,
+            out_dir: str, device: str) -> None:
+    """One rank of the ep phase (a process of its own on the one card, in
+    an explicit gloo group of ``world`` = dp x ep ranks): for each job,
+    its share of its dp slice (``runner.ShardedPipeline``'s cut), the eval
+    forward's predictions of its own rows, one micro-step from seed 0
+    (its launches, loss, gradients, BN buffers), the wall time of
+    ``EP_TIMED`` more and the collectives of one; saved to ``out_dir``."""
+    import torch
+    from cartnet_tpu_torch.config import resolve_device
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.parallel import dist as pdist
+    from cartnet_tpu_torch.parallel.step import make_parallel_steps
+    from cartnet_tpu_torch.runner import ShardedPipeline
+    from cartnet_tpu_torch.train import loop
+    dev = resolve_device(pdist.rank_device(device, 0))  # all on card 0
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    world_group = pdist.initialize_distributed(coordinator, world, rank,
+                                               dev, backend="gloo")
+    ep = world // dp
+    groups = {halo: pdist.make_groups(dp, ep, halo)
+              for halo in (False, True)}
+    host = lambda ts: [t.detach().to("cpu", copy=True) for t in ts]
+    res = {}
+    for case, (net, dt, layout), slices, union in jobs:
+        halo = layout.startswith("halo")
+        cfg = ep_config(net, dt)
+        mine = next(iter(ShardedPipeline(slices, dp, rank, ep, halo)))
+        n_own = int(mine.node_mask.sum())
+        batch = mine.to(dev)
+        with merged_path(net == "merged"):
+            model = create_model(cfg.model, dev, 0)
+            if net == "icomformer":
+                calibrate_bn(model, union.to(dev))
+            opt = loop.build_optimizer(cfg, model.parameters(), 1)
+            state = loop.init_train_state(model, opt)
+            micro, _, evals = make_parallel_steps(cfg, groups[halo])
+            with torch.no_grad():
+                pred = evals(state, batch)[0]
+            launch_counts(reset=True)
+            state, stats = micro(state, batch)
+            torch.cuda.synchronize()
+            r = {"launches": launch_counts(), "loss": float(stats["loss"]),
+                 "grads": host(state.grad_accum),
+                 "bn": host(loop.bn_buffers(model)),
+                 "pred": pred[:n_own if halo else None].float().cpu(),
+                 "halo_empty": mine.halo_empty,
+                 "edges": int(mine.num_edges), "nodes": int(mine.num_nodes)}
+            times = []
+            for _ in range(EP_TIMED + 1):
+                torch.distributed.barrier(world_group)
+                t0 = time.perf_counter()
+                state, _ = micro(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            r["step_ms"] = statistics.median(times[1:])
+            counted = {"all_reduce": [], "all_to_all_single": []}
+            real = {k: getattr(torch.distributed, k) for k in counted}
+
+            def counter(k):
+                def call(t, *a, **kw):
+                    counted[k].append(t.numel())
+                    return real[k](t, *a, **kw)
+                return call
+            for k in counted:
+                setattr(torch.distributed, k, counter(k))
+            try:
+                micro(state, batch)
+            finally:
+                for k in counted:
+                    setattr(torch.distributed, k, real[k])
+            r["collectives"] = {k: len(v) for k, v in counted.items()}
+            r["collective_elems"] = {k: sum(v) for k, v in counted.items()}
+        res[case] = r
+    # one all-reduce of an [N, d] f32 aggregate over the ep group
+    t, times = torch.ones(896, 256, device=dev), []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(t, group=groups[False].ep)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["aggregate_all_reduce_ms"] = statistics.median(times[5:])
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"ep_rank{rank}.pt"))
+
+
+def two_count_checks(card, member, gen, dev) -> dict:
+    """K5 and K6 on a halo member's shapes (dst rows n_per, src rows
+    n_per + ep H: xj over the member's table) against their plain
+    versions, bf16 and f32, with bitwise repeats."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    d, out = 256, {}
+    sums = ("dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a", "db1a")
+    for dt in (torch.bfloat16, torch.float32):
+        tol_of = (lambda o: CHECK_TOL["bf16"]) if dt == torch.bfloat16 else (
+            lambda o: CHECK_TOL["sum" if o in sums else "f32"])
+        eargs, _ = backward_inputs(member, dt, d, gen, dev)
+        margs, _ = merged_inputs(member, dt, d, gen, dev)
+        for kname, fn, plain, a in (
+                ("edge_phase_bwd", ek.edge_phase_bwd, edge_bwd_plain, eargs),
+                ("edge_phase_merged_bwd", ek.merged_bwd, merged_bwd_plain,
+                 margs)):
+            got, again, want = fn(*a), fn(*a), plain(*a)
+            torch.cuda.synchronize()
+            case = f"halo_two_counts_{str(dt)[6:]}"
+            out[f"{kname} {case}"] = check_outputs(
+                card, kname, case, EDGE_BWD_OUT, got, again, want, tol_of,
+                dst_rows=int(member.num_nodes),
+                src_rows=int(member.src_rowptr.shape[0] - 1))
+    return out
+
+
+def member_kernel_ms(full, member, gen, dev) -> dict:
+    """K1 (training layout: saved residual and moments) and K5's device
+    ms a call at a full batch's shapes and at an ep member's (its half of
+    the edges), bf16 and f32."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for name, b in (("full", full), ("member", member)):
+            args = edge_inputs(b, dt, dt, 256, gen, dev)
+            idx = (b.edge_dst, b.edge_src, b.edge_mask)
+            eargs, _ = backward_inputs(b, dt, 256, gen, dev)
+            key = f"{name}_{str(dt)[6:]}"
+            out[f"K1 {key}"] = device_ms(
+                lambda a=args, i=idx: ek.edge_phase_fwd(
+                    *a, *i, saved=True, moments=True),
+                kernels=launches_of("edge_phase_fwd", dt))
+            out[f"K5 {key}"] = device_ms(
+                lambda a=eargs: ek.edge_phase_bwd(*a),
+                kernels=launches_of("edge_phase_bwd", dt))
+    return out
+
+
+def ep_phase(card: str, dev, recs, batches) -> dict:
+    """8g2. Edge parallelism and halo partitioning (parallel/), gloo
+    ranks on the one card (NCCL takes one rank a device): ep = 2 on the
+    main path's first batch (CartNet bf16 and f32, merged bf16, the
+    eComformer and the iComformer bf16), ep = 2 halo on it (its crystals
+    fit whole members: an empty halo, no exchange) and on three crystals
+    one of which is cut across the members (CartNet and the eComformer
+    bf16), and dp 2 x ep 2 on the main path's two batches (CartNet f32).
+    Each case against a single-process step on the same data: the loss
+    and BN running stats within 1e-5 (f32; bf16 PRED_TOL), each layer's
+    f32 gradients within the dp phase's 1e-4, bf16 gradients through
+    bf16_grad_gate; the eval forward's predictions (each member's own
+    rows, put together) within 1e-4 (f32) or PRED_TOL (bf16); a member's
+    launches those of the single step; the micro-step's wall time beside
+    the single step's and its collectives. Then K5 and K6 with separate
+    dst and src row counts on a halo member's shapes against their plain
+    versions, and the halo bytes a layer (comms_bytes_per_layer).
+    -> rank 0's launches per case."""
+    import torch
+    from cartnet_tpu_torch.data.batching import make_batches
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.parallel import dist as pdist
+    from cartnet_tpu_torch.parallel.halo import comms_bytes_per_layer, to_halo
+    from cartnet_tpu_torch.parallel.partition import ep_member, halo_member
+    from cartnet_tpu_torch.train import loop
+    t_phase = time.perf_counter()
+    main_b = batches[0]
+    split = split_batch(recs)
+    data = {"ep": main_b, "halo_snapped": main_b, "halo_split": split}
+    jobs2 = [(f"{net}_{dt}_{layout}", (net, dt, layout), [data[layout]],
+              data[layout]) for net, dt, layout in EP_JOBS]
+    union = make_batches(recs, 8)[0]
+    jobs4 = [("dp2_cartnet_f32_ep", ("cartnet", "f32", "ep"),
+              list(batches), union)]
+    emit(phase="ep_kernels", card=card, full_edges=int(main_b.num_edges),
+         device_ms=member_kernel_ms(
+             main_b.to(dev), ep_member(main_b, 2, 0).to(dev),
+             torch.Generator().manual_seed(2), dev))
+    ranks, spawn_s, agg_ms = {}, {}, {}
+    for world, dp, jobs in ((2, 1, jobs2), (4, 2, jobs4)):
+        out_dir = os.path.abspath(f"ep_smoke_{world}")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        pdist.spawn(ep_rank, world, (world, dp, jobs, out_dir, str(dev)))
+        spawn_s[world] = round(time.perf_counter() - t0, 3)
+        got = [torch.load(os.path.join(out_dir, f"ep_rank{r}.pt"),
+                          weights_only=False) for r in range(world)]
+        for job in jobs:
+            ranks[job[0]] = (world, [g[job[0]] for g in got], job)
+        agg_ms[world] = got[0]["aggregate_all_reduce_ms"]
+    bad, launches = [], {}
+
+    def single(cfg, net, batch, plain=None) -> dict:
+        """The single-process eval forward and micro-step on ``batch``
+        from seed 0 (``plain``: through the plain versions)."""
+        with merged_path(net == "merged"):
+            model = create_model(cfg.model, dev, 0)
+            if net == "icomformer":
+                calibrate_bn(model, batch)
+            state = loop.init_train_state(model, loop.build_optimizer(
+                cfg, model.parameters(), 1))
+            micro, _, evals = loop.make_steps(cfg)
+            with (plain() if plain else contextlib.nullcontext()):
+                with torch.no_grad():
+                    pred, mask, _ = evals(state, batch)
+                state, stats = micro(state, batch)
+            torch.cuda.synchronize()
+            out = dict(loss=stats["loss"].reshape(1).float(),
+                       grads=[g.clone() for g in state.grad_accum],
+                       bn=[b.clone() for b in loop.bn_buffers(model)],
+                       names=[n for n, _ in model.named_parameters()],
+                       pred=pred.float(), mask=mask, state=state,
+                       micro=micro)
+        return out
+
+    for case, (world, rr, job) in ranks.items():
+        _, (net, dt, layout), slices, ubatch = job
+        halo = layout.startswith("halo")
+        cfg = ep_config(net, dt)
+        ub = ubatch.to(dev)
+        ref = single(cfg, net, ub)
+        a = rr[0]
+        names = ref["names"]
+        dev_grads = [g.to(dev) for g in a["grads"]]
+        same = all(torch.equal(x, y) for b in rr[1:]
+                   for k in ("grads", "bn") for x, y in zip(a[k], b[k]))
+        loss_err = normalized_err(torch.tensor([a["loss"]]),
+                                  ref["loss"].cpu())[1]
+        bn_err = max(normalized_err(x.to(dev), y)[1]
+                     for x, y in zip(a["bn"], ref["bn"])
+                     if y.is_floating_point())
+        # eval: each member's own rows (ep: copied, all of them), in the
+        # slices' order; against the single eval's real rows
+        m = ub.node_mask.bool()
+        want = ref["pred"][m]
+        if halo:
+            got = torch.cat([r["pred"] for r in rr]).to(dev)
+        else:
+            got = torch.cat([rr[i * (world // len(slices))]["pred"][
+                torch.as_tensor(s.node_mask)] for i, s in
+                enumerate(slices)]).to(dev)
+        keep = ref["mask"][m].bool()
+        pred_err = normalized_err(got[keep], want[keep])[1]
+        line = dict(model=net, compute_dtype=dt, layout=layout,
+                    world=world, dp=len(slices), ep=world // len(slices),
+                    loss=a["loss"], loss_single=float(ref["loss"]),
+                    loss_rel_err=loss_err, bn_stats_max_rel_err=bn_err,
+                    pred_rel_err=pred_err, ranks_bitwise_equal=same,
+                    launches_per_rank=a["launches"],
+                    member_edges=a["edges"], member_nodes=a["nodes"],
+                    ep_step_ms=a["step_ms"],
+                    rank_step_ms=[r["step_ms"] for r in rr],
+                    collectives_per_step=a["collectives"],
+                    collective_elems=a["collective_elems"])
+        if halo:
+            line["halo_empty"] = [r["halo_empty"] for r in rr]
+        f32 = dt == "f32"
+        tol = 1e-5 if f32 else PRED_TOL
+        fails = []
+        want_l = dict.fromkeys(KERNELS, 0)
+        want_l.update(EP_MICRO[net])
+        if any(r["launches"] != want_l for r in rr):
+            fails.append(f"launches {[r['launches'] for r in rr]}")
+        if not same:
+            fails.append("ranks differ")
+        if loss_err > tol or bn_err > tol:
+            fails.append(f"loss {loss_err}, bn {bn_err}")
+        if not pred_err <= (1e-4 if f32 else PRED_TOL):
+            fails.append(f"eval predictions {pred_err}")
+        if halo and any(r["halo_empty"] != (layout == "halo_snapped")
+                        for r in rr):
+            fails.append("halo emptiness")
+        if f32:
+            g_err = grad_errors(names, dev_grads, ref["grads"])
+            line.update(grads_max_rel_err_per_layer=max(g_err.values()),
+                        grads_worst=max(g_err, key=g_err.get))
+            fails += [n for n, e in g_err.items() if e > 1e-4]
+        else:
+            plain = (plain_kernels if net in ("cartnet", "merged")
+                     else plain_ecomformer_kernels)
+            r_grads = single(with_dtype(cfg, torch.float32), net,
+                             ub)["grads"]
+            p_grads = single(cfg, net, ub, plain)["grads"]
+            gate = bf16_grad_gate(names, dev_grads, ref["grads"], p_grads,
+                                  r_grads, PRED_TOL)
+            worst = gate["groups"][gate["worst"]]
+            line.update(grads_gate_worst_group=gate["worst"],
+                        grads_gate_share_of_limit=worst["share"],
+                        grads_vs_single=worst["kernels_vs_plain"],
+                        grads_single_vs_plain=worst["plain_vs_alt"])
+            fails += gate["failed"]
+        times, state = [], ref["state"]
+        with merged_path(net == "merged"):
+            for _ in range(EP_TIMED + 1):
+                t0 = time.perf_counter()
+                state, _ = ref["micro"](state, ub)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        line["single_step_ms"] = statistics.median(times[1:])
+        emit(phase="ep", card=card, **line, tol=tol, failed=fails)
+        bad += [f"{case}: {f}" for f in fails]
+        launches[case] = a["launches"]
+    # K5/K6 with two row counts, on member 0 of the split batch's layout
+    hb = to_halo(split, 2)
+    member = halo_member(hb, 2, 0).to(dev)
+    two_counts = two_count_checks(card, member, torch.Generator().manual_seed(
+        1), dev)
+    halo_b = {it: comms_bytes_per_layer(hb, 256, it) for it in (2, 4)}
+    emit(phase="halo_bytes", card=card, batch="split", ep=2, d=256,
+         nodes=int(split.num_nodes), real_nodes=int(split.node_mask.sum()),
+         sent_rows=int(hb.halo_send_mask.sum()),
+         halo_bytes_bf16=halo_b[2][0], all_reduce_bytes_bf16=halo_b[2][1],
+         halo_bytes_f32=halo_b[4][0], all_reduce_bytes_f32=halo_b[4][1],
+         snapped_sent_rows=int(to_halo(main_b, 2).halo_send_mask.sum()))
+    emit(phase="ep_summary", card=card, spawn_seconds=spawn_s,
+         aggregate_all_reduce_ms=agg_ms,
+         two_count_max_abs_err=two_counts,
+         seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
+    if bad:
+        fail(f"ep phase: {bad}")
+    return launches
 
 
 # 8h. fused epochs: K micro-steps a CUDA-graph replay
@@ -3711,6 +4083,8 @@ def phases(_build) -> int:
     # ranks on the card
     launches_adp = adp_phase(card, dev)
     launches_dp = dp_phase(card, dev, recs)
+    # 8g2. edge parallelism and halo partitioning, ranks on the card
+    launches_ep = ep_phase(card, dev, recs, batches)
     # 8h. fused epochs: K micro-steps a CUDA-graph replay
     launches_fused = fused_phase(card, dev, batches)
 
@@ -3777,6 +4151,8 @@ def phases(_build) -> int:
             "launches_adp_cli": launches_adp[kname],
             "launches_dp_per_rank": {k: v[kname]
                                      for k, v in launches_dp.items()},
+            "launches_ep_per_rank": {k: v[kname]
+                                     for k, v in launches_ep.items()},
             **fused_rows(kname),
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3807,6 +4183,8 @@ def phases(_build) -> int:
             "launches_adp_cli": launches_adp[kname],
             "launches_dp_per_rank": {k: v[kname]
                                      for k, v in launches_dp.items()},
+            "launches_ep_per_rank": {k: v[kname]
+                                     for k, v in launches_ep.items()},
             **fused_rows(kname),
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -483,16 +483,28 @@ def test_cli_coordinator_sweep_gathers_on_rank_0(runs):
         assert pickle.load(f)["refcode"] == [0, 1, 2, 3]
 
 
-def test_dp_raises_for_what_is_not_ported(tmp_path, monkeypatch):
+def test_dp_raises_for_what_is_not_ported(runs, tmp_path, monkeypatch):
+    """--chunks, the one parallel layout not ported, raises; --halo with
+    --ep 1 runs as plain data parallelism (here one process: the same
+    run as without it); --dp 2 --ep 2 on the card asks for 4 cards."""
+    _, _, _, _, _, (_, test, _) = runs
     monkeypatch.chdir(tmp_path)
-    for flags in (["--ep", "2"], ["--halo"], ["--chunks", "2"]):
-        with pytest.raises(ValueError, match="not ported yet"):
-            cli.main(CLI_ARGV + flags)
+    with pytest.raises(ValueError, match="not ported yet"):
+        cli.main(CLI_ARGV + ["--chunks", "2"])
+    _, halo_test = cli.main(CLI_ARGV + ["--batch", "4", "--name", "halo",
+                                        "--halo"])
+    for k in ("MAE", "MSE", "loss"):
+        assert halo_test[k] == test[k], k
     # one card a rank, and no fall back to the CPU
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="--dp 2 needs 2 CUDA devices"):
         pdist.check_cards(2, "cuda")
     pdist.check_cards(2, "cpu")
+    with pytest.raises(RuntimeError,
+                       match="--dp 2 --ep 2 needs 4 CUDA devices"):
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: True)
+            cli.main(CLI_ARGV[:-1] + ["cuda", "--dp", "2", "--ep", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(CLI_ARGV[:-1] + ["cuda", "--dp", "2"])

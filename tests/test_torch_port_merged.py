@@ -412,3 +412,62 @@ def test_cli_trains_merged_on_cpu(tmp_path, monkeypatch):
     assert state.step == 1 and int(state.bad_steps) == 0
     assert calls["k6"] == 2 * 2  # 2 micro-steps x 2 layers
     assert np.isfinite(test["MAE"]) and 0.0 <= test["iou"] <= 1.0
+
+
+# ------------------------ K6 with separate dst and src row counts
+
+def _fes_plain(tin, idx, eps):
+    """``FusedEdgeSigma``'s forward from plain parts, for autograd: K1's
+    plain version with moments, the window-moment merge, K2's plain
+    version."""
+    xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env = tin
+    dst, src, emask, rowptr = idx[:4]
+    gate, sender, _, s1w, m2w = ek.edge_phase_fwd_plain(
+        xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, moments=True)
+    n_w = emask.reshape(s1w.shape[0], -1).sum(dim=1,
+                                              dtype=torch.float32)[:, None]
+    from cartnet_tpu_torch.nn.norm import combine_window_moments
+    (scale, shift), _ = combine_window_moments(gamma, beta, s1w, m2w, n_w,
+                                               eps)
+    return sk.sigma_segsum_plain(gate, scale.float(), shift.float(), env,
+                                 sender, e, dst, emask, xi.shape[0])
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_fused_edge_sigma_two_row_counts(data, case):
+    """``FusedEdgeSigma`` (K6's plain version) with xj over N + 128 rows,
+    a received row for every other real edge's src and the src plan over
+    the longer table: dxi has N rows, dxj N + 128, and every gradient
+    agrees with autograd through the plain forward."""
+    _, tb, v = data
+    N, n_recv = tb.num_nodes, 128
+    rng = np.random.default_rng(18)
+    src = tb.edge_src.numpy().astype(np.int64).copy()
+    moved = tb.edge_mask.numpy() & (np.arange(len(src)) % 2 == 1)
+    src[moved] = N + src[moved] % n_recv
+    perm = np.argsort(src, kind="stable")
+    srowptr = np.searchsorted(src[perm], np.arange(N + n_recv + 1), "left")
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32))
+    idx = (tb.edge_dst, i32(src), tb.edge_mask, tb.dst_rowptr, i32(perm),
+           i32(srowptr))
+    vals = dict(v, xj=np.concatenate([v["xj"], (rng.normal(
+        size=(n_recv, 2 * D)) * 0.3).astype(np.float32)]))
+    dt = _jdt(case)
+    names = PRIMALS + ("gamma", "beta", "env")
+    grads = []
+    for fused in (True, False):
+        tin = [_pair(vals[k], dt)[1].requires_grad_() for k in names]
+        out = (ek.FusedEdgeSigma.apply(*tin, *idx, 1e-5) if fused
+               else _fes_plain(tin, idx, 1e-5))
+        loss = ((out[0].float() * torch.tensor(v["deout"])).sum()
+                + (out[1].float() * torch.tensor(v["daggr"])).sum())
+        grads.append(torch.autograd.grad(loss, tin))
+    assert grads[0][0].shape == (N, 2 * D)
+    assert grads[0][1].shape == (N + n_recv, 2 * D)
+    for name, a, r in zip(names, *grads):
+        assert a.dtype == r.dtype, name
+        gtol = TOL["bf16"] if case == "bf16" else (
+            TOL["f32"] if name == "e" else TOL["sum"])
+        scale = float(np.abs(_np(grads[1][5])).max()) if name == "b1g" \
+            else None
+        assert _rel(a, r, scale) <= gtol, (name, _rel(a, r, scale))

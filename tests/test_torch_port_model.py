@@ -222,6 +222,9 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "cartnet_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    # the parallel layer's modules, halo and edge partitioning included
+    assert {"dist.py", "step.py", "partition.py", "halo.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, (str(f), hits)

@@ -327,7 +327,7 @@ def test_backward_wrappers_take_plain_path_on_cpu(edge_setup, sigma_setup):
         ek.edge_phase_bwd(tin[2], tin[3].bfloat16(), tin[5], tin[7], saved,
                           gate, z, z, z, *cot, dst, src, emask, rowptr, perm,
                           srowptr)
-    with pytest.raises(ValueError):  # src_rowptr must have N + 1 entries
+    with pytest.raises(ValueError):  # src_rowptr: at least N + 1 entries
         ek.edge_phase_bwd(tin[2], tin[3], tin[5], tin[7], saved, gate, z, z,
                           z, *cot, dst, src, emask, rowptr, perm,
                           srowptr[:-1])
@@ -376,3 +376,59 @@ def test_k4_row_pass_needs_no_shared_memory_opt_in(d):
     assert "sizeof(float) * 2 * WARPS * p.d, s, p);" in text
     assert 4 * 2 * warps * d <= 48 * 1024
     assert "cudaFuncSetAttribute(" not in text
+
+
+# ----------------------------- K5 with separate dst and src row counts
+
+N_RECV = 64  # the received rows past the dst table (halo partitioning)
+
+
+def _two_counts(batch):
+    """The batch's index tensors with a src table of N + N_RECV rows: every
+    other real edge takes its src from a received row, and the src plan
+    is rebuilt over the longer table -> (dst, src, emask, dst_rowptr,
+    src_perm, src_rowptr), dst_rowptr over N rows."""
+    src = batch.edge_src.astype(np.int64).copy()
+    moved = batch.edge_mask & (np.arange(len(src)) % 2 == 1)
+    src[moved] = N + src[moved] % N_RECV
+    perm = np.argsort(src, kind="stable")
+    srowptr = np.searchsorted(src[perm], np.arange(N + N_RECV + 1), "left")
+    T = lambda a: torch.tensor(np.asarray(a, np.int32))
+    return (T(batch.edge_dst), T(src), torch.tensor(batch.edge_mask),
+            T(batch.dst_rowptr), T(perm), T(srowptr))
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_edge_phase_function_two_row_counts(edge_setup, case):
+    """``EdgePhase`` (K5's plain version) with xj over N + N_RECV rows and
+    xi over N: dxi has N rows, dxj N + N_RECV, and every gradient agrees
+    with autograd through the plain forward (the received rows' dxj
+    included, the rows no edge reads zero)."""
+    batch, v, _ = edge_setup
+    rng = np.random.default_rng(14)
+    idx = _two_counts(batch)
+    E = batch.num_edges
+    xj_long = np.concatenate([v["xj"], (rng.normal(size=(N_RECV, 2 * D))
+                                        * 0.3).astype(np.float32)])
+    vals = dict(v, xj=xj_long)
+    cts = [torch.tensor(rng.normal(size=(E, D)).astype(np.float32)
+                        * batch.edge_mask[:, None]) for _ in range(2)]
+    grads = []
+    for functions in (True, False):
+        tin = [_pair(vals[k], case)[1].requires_grad_() for k in _PRIMALS]
+        if functions:
+            gate, sender = ek.EdgePhase.apply(*tin, *idx, False)[:2]
+        else:
+            gate, sender = ek.edge_phase_fwd_plain(*tin, *idx[:3])[:2]
+        loss = (gate.float() * cts[0]).sum() + (sender.float() * cts[1]).sum()
+        grads.append(torch.autograd.grad(loss, tin))
+    assert grads[0][0].shape == (N, 2 * D)
+    assert grads[0][1].shape == (N + N_RECV, 2 * D)
+    recv = torch.zeros(N + N_RECV, dtype=torch.bool)
+    recv[idx[1][batch.edge_mask].long()] = True
+    assert recv[N:].any() and not grads[0][1][~recv].any()
+    for name, a, r in zip(_PRIMALS, *grads):
+        assert a.dtype == r.dtype, name
+        tol = TOL["bf16"] if case == "bf16" else (
+            TOL["f32"] if name == "e" else TOL["sum"])
+        _close(a, r, tol, name)
