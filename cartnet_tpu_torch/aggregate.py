@@ -67,8 +67,8 @@ def aggregate(name: str, seeds: List[int], results_dir: str = "results",
     return out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser("cartnet_tpu_torch.aggregate")
     ap.add_argument("--name", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     ap.add_argument("--results_dir", default="results")
@@ -76,7 +76,11 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, nargs=2, metavar=("LO", "HI"),
                     help="medians over epochs LO <= epoch < HI instead of "
                          "the last line")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     stats = aggregate(args.name, args.seeds, args.results_dir, args.split,
                       args.epochs)
     for k, v in stats.items():

@@ -13,8 +13,8 @@ the card.
         [--no_guard] [--guard_retries R] [--heartbeat FILE] \
         [--heartbeat_interval S] [--wandb [--wandb_project P] \
         [--wandb_entity E]] [--dp D] [--ep P [--halo [--halo_max H]]] \
-        [--coordinator HOST:PORT --num_processes W --process_id I] \
-        [--device cuda|cpu]
+        [--chunks K] [--coordinator HOST:PORT --num_processes W \
+        --process_id I] [--device cuda|cpu]
     python -m cartnet_tpu_torch.cli --dataset jarvis --verify_ingest
     python -m cartnet_tpu_torch.cli --dataset ADP --inference|--montecarlo \
         [--checkpoint_path results/NAME/S/ckpt/best.ckpt] \
@@ -63,7 +63,12 @@ summed over them), so ``--dp D --ep P`` runs D·P ranks, dp-major;
 ``--halo`` makes each of the P ranks own a node range and the edges into
 it, exchanging the boundary rows (``--halo_max``: the rows one owner sends
 one member at most); with ``--ep 1`` it runs as plain data parallelism.
-``--chunks`` is accepted and raises: it is not ported yet.
+``--chunks K`` (K > 1, CartNet, one process) lays each batch out in K
+member-major chunks, as the JAX package's chunked execution does (its
+halo layout and its chunk slack on the pads), and trains it with one
+kernel call a layer over all K chunks (parallel/chunk.py says why);
+under ``--dp``/``--ep`` it is ignored with a warning, ``--fused_steps``
+then runs unfused epochs with a warning, and the Comformers raise.
 ``--model`` is case-insensitive; CartNet, the eComformer and the
 iComformer all serve (``--inference`` and
 ``--montecarlo`` need the Cholesky head) and train. Without a checkpoint
@@ -97,8 +102,8 @@ from cartnet_tpu_torch.interop import load_reference_checkpoint
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.parallel import dist as pdist
 from cartnet_tpu_torch.parallel.partition import pad_multiples
-from cartnet_tpu_torch.runner import (check_parallel, inference, montecarlo,
-                                      pipelines, rank0_first, run, world_of)
+from cartnet_tpu_torch.runner import (inference, montecarlo, pipelines,
+                                      rank0_first, run, world_of)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -193,8 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--halo_max", type=int, default=None,
                    help="static per-owner halo row cap (default: nodes/ep)")
     p.add_argument("--chunks", type=int, default=1,
-                   help="chunked single-device execution (not ported yet; "
-                        "the one parallel layout left)")
+                   help="chunked single-device execution: each batch laid "
+                        "out in K member-major chunks (CartNet; ignored "
+                        "under --dp/--ep)")
     p.add_argument("--coordinator", type=str, default=None,
                    help="multi-host: torch.distributed coordinator address "
                         "(host:port); omit on single host")
@@ -298,7 +304,6 @@ def main(argv=None):
     cfg = args_to_config(args)
     if args.verify_ingest:
         return verify_ingest(cfg)
-    check_parallel(cfg)
     dp, ep = cfg.parallel.dp, max(cfg.parallel.ep, 1)
     nprocs = dp * ep
     if args.coordinator is None and nprocs > 1:
@@ -355,10 +360,10 @@ def _serve_or_train(args, cfg: Config, device, group):
         return montecarlo(cfg, model, pipelines(cfg, splits)[2],
                           args.inference_output, device=device)
     # a lazy source streams through its pipeline; a record list is
-    # batched as it is
+    # batched as it is, unless --chunks asks for the pipeline's chunk pads
     batches = (make_batches(splits[2], cfg.data.batch_size,
                             *pad_multiples(cfg.parallel.ep))
-               if isinstance(splits[2], list)
+               if isinstance(splits[2], list) and cfg.parallel.chunks <= 1
                else rank0_first(world_of(group),
                                 lambda: pipelines(cfg, splits))[2])
     return inference(model, batches, args.inference_output, device, group,

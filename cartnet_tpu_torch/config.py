@@ -4,10 +4,10 @@ What the inference sweep and the trainer read: the model hyperparameters,
 the data settings (synthetic, adpfix, CSD ADP and figshare sources,
 hydrogens, the iComformer's cell canonicalization, augmentation, size
 buckets), the optimizer/schedule, the parallel layout (data- and
-edge-parallel ranks, halo partitioning), the step guard (device-side skip, host-side rollback, heartbeat),
-and the run's name and directory
-(``results/<name>/<seed>`` from the CLI: stats.json files and
-checkpoints). Dtypes are torch dtypes.
+edge-parallel ranks, halo partitioning, chunked execution), the step
+guard (device-side skip, host-side rollback, heartbeat), and the run's
+name and directory (``results/<name>/<seed>`` from the CLI: stats.json
+files and checkpoints). Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -88,8 +88,9 @@ class ParallelConfig:
     """The parallel layout (parallel/): ``dp`` data-parallel slices of
     ``ep`` edge-parallel ranks each, one card a rank; ``halo`` shards each
     slice's nodes over its ep ranks too (``halo_max``: the rows one owner
-    sends one member at most, n_per by default). ``chunks`` > 1, the JAX
-    package's chunked single-device layout, is not ported yet."""
+    sends one member at most, n_per by default). ``chunks`` > 1: chunked
+    single-device execution (parallel/chunk.py), each batch laid out in
+    that many member-major chunks."""
 
     dp: int = 1
     ep: int = 1

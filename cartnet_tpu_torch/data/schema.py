@@ -57,6 +57,9 @@ class CrystalBatch:
     halo_send_idx: Optional[Any] = None         # [ep, H] int32
     halo_send_mask: Optional[Any] = None        # [ep, H] bool
     halo_empty: bool = False
+    # chunked execution (parallel/chunk.py): the member-major chunks the
+    # batch is laid out in (1: collate's layout), a host int
+    chunks: int = 1
 
     @property
     def num_nodes(self) -> int:
@@ -90,7 +93,7 @@ class CrystalBatch:
 
 
 # host-side flags: not arrays, never stacked or moved to a device
-STATIC_FIELDS = ("halo_empty",)
+STATIC_FIELDS = ("halo_empty", "chunks")
 
 
 def array_fields(batch: CrystalBatch) -> dict:

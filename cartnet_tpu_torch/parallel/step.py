@@ -34,8 +34,8 @@ stats, which the loggers sum over the world. The fused chunk
 (``--fused_steps``) runs the same forward inside the single-process chunk;
 a micro-step is valid where any rank's batch holds a real graph; on the
 card its collectives are captured in the chunk's CUDA graph, which needs
-NCCL (train/graphs.py). Only chunked execution (``--chunks``) is not
-ported.
+NCCL (train/graphs.py). Chunked execution (``--chunks``) is a
+single-device mode and runs the single-process steps (parallel/chunk.py).
 """
 
 from __future__ import annotations

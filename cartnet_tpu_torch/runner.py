@@ -38,8 +38,15 @@ count, as in the JAX package. The steps are
 (``pdist.make_groups``); the loggers sum the epoch's stats over the world.
 Rank 0 alone writes ``stats.json``, the checkpoints, the heartbeat, the
 profile and the inference pickle; ``resume`` and a rollback restore every
-rank from the same file. Chunked execution (``--chunks``) is the one
-parallel layout of the JAX package not ported (ROADMAP §1).
+rank from the same file.
+
+Chunked execution (``--chunks K`` > 1 in one process, the JAX runner's
+wiring): the pads take the chunk slack (``pipelines``), and the train,
+val and test batches are laid out in K member-major chunks as they are
+reached (parallel/chunk.py), then run through the single-process steps.
+Under dp·ep > 1 chunks are ignored with the JAX warning (the pads keep
+their multiples); with ``--fused_steps`` the epochs run unfused, with the
+JAX warning; a model other than CartNet raises the JAX error.
 
 Fused epochs (``cfg.optim.fused_steps`` K > 1, the JAX runner's wiring):
 each train epoch runs ``loop.train_epoch_fused`` over K micro-steps a
@@ -89,6 +96,7 @@ from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.models.factory import create_model
 from cartnet_tpu_torch.ops.rotations import random_rotation
 from cartnet_tpu_torch.parallel import dist as pdist
+from cartnet_tpu_torch.parallel.chunk import ChunkedPipeline
 from cartnet_tpu_torch.parallel.halo import to_halo
 from cartnet_tpu_torch.parallel.partition import (ep_member, halo_member,
                                                   pad_multiples)
@@ -182,11 +190,32 @@ class ShardedPipeline:
         return (mine for _, mine in self.slices())
 
 
-def check_parallel(cfg: Config) -> None:
-    """Raises for the JAX package's one parallel layout that is not ported
-    yet (chunked execution), rather than running without it."""
-    if cfg.parallel.chunks > 1:
-        raise ValueError("--chunks > 1 is not ported yet (ROADMAP §1)")
+def chunk_count(cfg: Config) -> int:
+    """The chunks a batch is laid out in: ``cfg.parallel.chunks``, or 1
+    on a dp x ep world of more than one rank, where chunked execution,
+    a single-device mode, is ignored."""
+    par = cfg.parallel
+    return 1 if par.dp * max(par.ep, 1) > 1 else max(par.chunks, 1)
+
+
+def chunked(pipes, cfg: Config):
+    """The pipelines of chunked execution (``ChunkedPipeline`` each) when
+    ``cfg.parallel.chunks`` > 1 applies; else ``pipes``, with the JAX
+    runner's warning where a dp x ep world ignores the chunks. Chunked
+    execution supports CartNet only, as in the JAX package."""
+    par, k = cfg.parallel, chunk_count(cfg)
+    if par.chunks > 1 and k == 1:
+        logging.warning("--chunks is a single-device execution mode and is "
+                        "ignored on a %dx%d mesh (the halo layout already "
+                        "bounds per-device kernel tables)", par.dp,
+                        max(par.ep, 1))
+    if k == 1:
+        return pipes
+    if cfg.model.name != "cartnet":
+        raise ValueError("chunked execution supports model 'cartnet' only "
+                         "(the chunk re-layout is the halo layout)")
+    logging.info("chunked execution: %d member-major chunks per batch", k)
+    return tuple(ChunkedPipeline(p, k) for p in pipes)
 
 
 def world_of(group):
@@ -228,15 +257,24 @@ def pipelines(cfg: Config, splits):
     (the ADP ``LazyRecords``) are fetched by a pool of 4 threads. Under
     edge parallelism the pad multiples are the JAX runner's
     (``partition.pad_multiples``), so that each member holds whole edge
-    tiles and 8-aligned node blocks."""
+    tiles and 8-aligned node blocks; with ``cfg.parallel.chunks`` K > 1
+    they are those of max(ep, K), and the pads get the JAX runner's chunk
+    slack, about K half crystals (a chunk packs whole crystals and wastes
+    up to half of one), in every run mode and whether or not the chunks
+    are then ignored (``chunk_count``)."""
     counts = [record_counts(s) for s in splits]
     nodes = np.concatenate([c[0] for c in counts])
     edges = np.concatenate([c[1] for c in counts])
     align = edge_align_for(edges)
-    node_mult, edge_mult = pad_multiples(cfg.parallel.ep)
+    k = cfg.parallel.chunks
+    node_mult, edge_mult = pad_multiples(max(cfg.parallel.ep, 1, k))
     mn, me = choose_pad_sizes_from_counts(nodes, edges, cfg.data.batch_size,
                                           node_mult, edge_mult,
                                           edge_align=align)
+    if k > 1:
+        slack = lambda mean, mult: -(-int(k * mean / 2 + mult) // mult) * mult
+        mn += slack(np.mean(nodes), node_mult)
+        me += slack(np.mean(edges), edge_mult)
     workers = 0 if isinstance(splits[0], list) else 4
     return tuple(BatchPipeline(recs, cfg.data.batch_size, mn, me,
                                shuffle=train, augment=train and
@@ -257,7 +295,6 @@ def run(cfg: Config, splits, device="cuda", state_dict=None,
     (``pdist.make_groups``; None in one process); ``wandb``: the wandb
     project and entity to log to (None: no wandb)."""
     device = resolve_device(device)
-    check_parallel(cfg)
     pipes = rank0_first(world_of(group), lambda: pipelines(cfg, splits))
     model = create_model(cfg.model, device, cfg.seed)
     if state_dict is not None:
@@ -301,7 +338,6 @@ def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
     """Epoch loop -> (state with the best weights, test stats); in
     parallel (``group``, as in ``run``) on this rank's member batches."""
     device = resolve_device(device)
-    check_parallel(cfg)
     world = world_of(group)
     main = pdist.is_main(world)
     pipes = sharded(pipes, cfg, group)
@@ -309,6 +345,7 @@ def train(cfg: Config, state, pipes, device="cuda", resume: bool = False,
         p = pipes[0]
         logging.info("parallel: rank %d, dp %d x ep %d%s", p.rank, p.dp,
                      p.ep, " (halo)" if p.halo else "")
+    pipes = chunked(pipes, cfg)
     train_pipe, val_pipe, test_pipe = pipes
     loggers = create_loggers(cfg.run_dir, device, world)
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -361,7 +398,10 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
     lr_fn = build_lr_fn(cfg, len(train_pipe))
     k = cfg.optim.fused_steps
     run_chunk = None
-    if k > 1:
+    if k > 1 and chunk_count(cfg) > 1:
+        logging.warning("fused_steps with --chunks is not supported yet; "
+                        "running unfused epochs")
+    elif k > 1:
         run_chunk = ChunkRunner(
             make_fused_chunk(cfg, k) if group is None
             else make_parallel_fused_chunk(cfg, group, k), k, device, world)

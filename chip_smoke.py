@@ -167,6 +167,18 @@ Phases, one JSON line each (every line names the card and its power limit):
               member's table) against their plain versions; K1's and
               K5's device time at an ep member's shapes beside the full
               batch's; the halo bytes a layer (comms_bytes_per_layer)
+  8g3. chunks chunked execution (--chunks K, parallel/chunk.py): the main
+              path's crystals through runner.pipelines with K = 2 and 4
+              (the chunk slack on the pads), laid out by to_chunked, and
+              the split batch (one crystal cut across two chunks): K1,
+              K2, K4 and K5 against their plain versions on each layout
+              with bitwise repeats; a micro-step against the flat step on
+              the same crystals and pads (f32 gradients within 1e-4 a
+              layer or 1.5 times the flat step's rounding floor on
+              shifted batches, bf16 through bf16_grad_gate; the flat
+              step's launches), its wall and device busy time beside the
+              flat step's; --dataset ADP --chunks 2 through the CLI for
+              one epoch
   8h. fused   fused epochs (--fused_steps, train/graphs.py: K micro-steps
               one CUDA-graph replay) at the flagship CartNet training
               config on the same two batches: 32 micro-steps with K = 16
@@ -201,7 +213,8 @@ Phases, one JSON line each (every line names the card and its power limit):
               and one profiled forward and micro-step of each model, path
               and dtype (device time by kernel, idle share of the device)
   10. kernels the summary line {"kernels": [...]}, with each kernel's
-              launches on the fused path (at the warm-up and capture, and
+              launches per micro-step in the chunks phase and on the fused
+              path (at the warm-up and capture, and
               in one replay by CUDA name)
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 (exit code != 0). Without a GPU, or without the repository beside this
@@ -2442,6 +2455,342 @@ def ep_phase(card: str, dev, recs, batches) -> dict:
     return launches
 
 
+# 8g3. chunked execution: --chunks K, one kernel call a layer over the K
+# chunks of each batch
+CHUNK_KS = (2, 4)
+CHUNK_TIMED = 5
+# the rounding floor's shifts: the flat batch's edges moved this many
+# places on, which regroups them into other 64-edge BN moment tiles
+CHUNK_SHIFTS = (8, 16, 32, 48)
+
+
+def shifted(batch, s: int):
+    """A host batch with ``s`` masked pad edges (dst = src = 0) in front
+    and ``s`` of its tail pads dropped: the same function, its real edges
+    in other 64-edge tiles."""
+    import numpy as np
+    from cartnet_tpu_torch.parallel.partition import EDGE_FIELDS, src_plan
+    if np.asarray(batch.edge_mask)[-s:].any():
+        fail(f"no {s} tail pad edges to shift")
+    edges = {f: np.concatenate([np.zeros_like(getattr(batch, f)[:s]),
+                                getattr(batch, f)[:-s]])
+             for f in EDGE_FIELDS}
+    n = batch.num_nodes
+    return dataclasses.replace(
+        batch, **edges, dst_rowptr=np.searchsorted(
+            edges["edge_dst"], np.arange(n + 1)).astype(np.int32),
+        **src_plan(edges["edge_src"], edges["edge_mask"], n))
+
+
+def chunk_kernel_checks(card, batch, layout, gen, dev) -> dict:
+    """K1 (training layout: saved residual and moments), K2, K4 and K5 on
+    a chunk layout's batch against their plain versions, in the bf16 and
+    the f32 training dtypes, with bitwise repeats -> their largest abs
+    errors."""
+    import torch
+    from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
+    from cartnet_tpu_torch.ops.kernels import segment_kernels as sk
+    d, n, out = 256, batch.num_nodes, {}
+    idx = (batch.edge_dst, batch.edge_src, batch.edge_mask)
+    sums = ("dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a", "db1a",
+            "dscale", "dshift")
+    for dt in (torch.bfloat16, torch.float32):
+        case = f"{layout}_{str(dt)[6:]}"
+        tol_of = (lambda o: CHECK_TOL["bf16"]) if dt == torch.bfloat16 \
+            else (lambda o: CHECK_TOL["sum" if o in sums else "f32"])
+        args = edge_inputs(batch, dt, dt, d, gen, dev)
+        kw = dict(saved=True, moments=True)
+        sargs = sigma_inputs(batch, dt, dt, d, gen, dev)
+        eargs, bargs = backward_inputs(batch, dt, d, gen, dev)
+        for kname, fn, plain, names in (
+                ("edge_phase_fwd",
+                 lambda: ek.edge_phase_fwd(*args, *idx, **kw),
+                 lambda: ek.edge_phase_fwd_plain(*args, *idx,
+                                                 tile=ek.TILE_EDGES, **kw),
+                 ("gate", "sender", "saved", "s1_w", "M2_w")),
+                ("sigma_segsum_fwd",
+                 lambda: sk.sigma_segsum(*sargs, batch.edge_dst,
+                                         batch.edge_mask, batch.dst_rowptr,
+                                         n),
+                 lambda: sk.sigma_segsum_plain(*sargs, batch.edge_dst,
+                                               batch.edge_mask, n),
+                 ("e_out", "aggr")),
+                ("edge_phase_bwd", lambda: ek.edge_phase_bwd(*eargs),
+                 lambda: edge_bwd_plain(*eargs), EDGE_BWD_OUT),
+                ("sigma_segsum_bwd", lambda: sk.sigma_segsum_bwd(*bargs),
+                 lambda: sk.sigma_segsum_bwd_plain(*bargs), SIGMA_BWD_OUT)):
+            got, again, want = fn(), fn(), plain()
+            torch.cuda.synchronize()
+            out[f"{kname} {case}"] = check_outputs(
+                card, kname, case, names, got, again, want, tol_of,
+                nodes=n, edges=int(batch.num_edges))
+    return out
+
+
+def chunks_phase(card: str, dev, recs) -> dict:
+    """8g3. Chunked single-device execution (``--chunks K``,
+    parallel/chunk.py) at the flagship CartNet training config (dp_config:
+    dim 256, 64 RBF, 4 layers, Cholesky head), bf16 and f32: the main
+    path's eight crystals through ``runner.pipelines`` with K = 1, 2 and 4
+    (the JAX runner's chunk slack on the pads, reported beside the
+    prediction from the crystals' mean counts), the first test batch laid
+    out by ``to_chunked``; one micro-step on the chunk layout against the
+    flat step on the same crystals at the same pads (that batch before
+    ``to_chunked``) from the same weights (loss and BN running stats
+    within 1e-5 in f32, PRED_TOL in bf16; f32 gradients within the dp
+    phase's 1e-4 a layer, or 1.5 times the flat step's own rounding floor
+    where that is larger: its largest distance from the same step on the
+    flat batch shifted by CHUNK_SHIFTS edges, which regroups the BN moment
+    tiles as the chunk layout does; bf16 gradients through bf16_grad_gate)
+    with the flat step's launches (K1, K2, K4, K5 4 each); the f32
+    gradients' distance from the flat step at the flat pads (K = 1), from
+    the chunk layout and from its flat batch; each micro-step's wall
+    (median of CHUNK_TIMED) and device busy time (profile_call) beside the
+    flat step's at the flat pads and at the same pads. K1, K2, K4 and K5
+    against their plain versions on the K = 2 and 4 layouts and on the
+    split batch's (split_batch: one crystal cut across the two chunks,
+    whose src rows cross the chunks' blocks), which also takes the
+    micro-step comparison. Then ``--dataset ADP --chunks 2`` through the
+    CLI for one epoch on the adp phase's files (K1, K2, K4, K5 4 launches
+    a micro-step, K1 and K2 4 an eval forward; finite stats with S12 and
+    the IoU). -> launches per micro-step of each case."""
+    import numpy as np
+    import torch
+    from cartnet_tpu_torch import cli, runner
+    from cartnet_tpu_torch.data.pipeline import record_counts
+    from cartnet_tpu_torch.models.factory import create_model
+    from cartnet_tpu_torch.parallel.chunk import to_chunked
+    from cartnet_tpu_torch.parallel.partition import pad_multiples
+    from cartnet_tpu_torch.train import loop
+    t_phase = time.perf_counter()
+    bad, launches = [], {}
+    micro_want = dict.fromkeys(KERNELS, 0)
+    micro_want.update(dict.fromkeys(CARTNET_KERNELS, 4))
+    splits = (recs, recs, recs)
+    nodes, edges = record_counts(recs)
+
+    def chunked_cfg(cfg, k):
+        return dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, chunks=k))
+
+    def first_test_batch(cfg):
+        pipe = runner.pipelines(cfg, splits)[2]
+        return next(iter(pipe)), (pipe.max_nodes, pipe.max_edges)
+
+    def step(cfg, sd, batch, plain=None) -> dict:
+        """One micro-step from ``sd`` on ``batch`` (``plain``: through
+        the plain versions) with its launches."""
+        model = create_model(cfg.model, dev, 0)
+        launch_counts(reset=True)
+        with (plain() if plain else contextlib.nullcontext()):
+            loss, grads, bn = one_micro(cfg, model, sd, batch)
+        return dict(loss=loss, grads=grads, bn=bn, launches=launch_counts(),
+                    names=[n for n, _ in model.named_parameters()])
+
+    def timed(cfg, sd, batch) -> dict:
+        """The micro-step's wall ms (median of CHUNK_TIMED after a warm
+        one) and one profiled call's device busy ms and kernels."""
+        model = create_model(cfg.model, dev, 0)
+        model.load_state_dict(sd)
+        state = loop.init_train_state(model, loop.build_optimizer(
+            cfg, model.parameters(), 1))
+        micro = loop.make_steps(cfg)[0]
+        run = lambda: micro(state, batch)
+        times = []
+        for _ in range(CHUNK_TIMED + 1):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_call(run)
+        return dict(step_ms=statistics.median(times[1:]),
+                    device_busy_ms=prof["device_busy_ms"],
+                    device_kernels=prof["device_kernels"],
+                    device_idle_share=prof["device_idle_share"])
+
+    def floor_of(cfg, sd, host, flat) -> dict:
+        """The flat step's own rounding floor: each gradient's largest
+        distance (grad_errors) between the flat step and the same step
+        on the batch shifted by CHUNK_SHIFTS edges."""
+        errs = [grad_errors(flat["names"],
+                            step(cfg, sd, shifted(host, n).to(dev))["grads"],
+                            flat["grads"]) for n in CHUNK_SHIFTS]
+        return {n: max(e[n] for e in errs) for n in flat["names"]}
+
+    def compare(cfg, got, flat, alt=None, ref32=None, floor=None) -> tuple:
+        """``got`` (the chunk layout's step) against the flat step: the
+        line's numbers and what failed."""
+        f32 = cfg.model.compute_dtype == torch.float32
+        tol = 1e-5 if f32 else PRED_TOL
+        loss_err = normalized_err(got["loss"], flat["loss"])[1]
+        bn_err = max(normalized_err(x, y)[1]
+                     for x, y in zip(got["bn"], flat["bn"])
+                     if y.is_floating_point())
+        line = dict(loss=float(got["loss"]), loss_flat=float(flat["loss"]),
+                    loss_rel_err=loss_err, bn_stats_max_rel_err=bn_err,
+                    launches_per_micro_step=got["launches"])
+        fails = []
+        if got["launches"] != micro_want or flat["launches"] != micro_want:
+            fails.append(f"launches {got['launches']}, flat "
+                         f"{flat['launches']}")
+        if not (loss_err <= tol and bn_err <= tol):
+            fails.append(f"loss {loss_err}, bn {bn_err}")
+        if f32:
+            g_err = grad_errors(got["names"], got["grads"], flat["grads"])
+            worst = max(floor, key=floor.get)
+            line.update(grads_max_rel_err_per_layer=max(g_err.values()),
+                        grads_worst=max(g_err, key=g_err.get),
+                        grads_over_1e4={n: e for n, e in g_err.items()
+                                        if e > 1e-4},
+                        floor_max=floor[worst], floor_worst=worst,
+                        floor_of_worst=floor[max(g_err, key=g_err.get)])
+            fails += [n for n, e in g_err.items()
+                      if e > max(1e-4, 1.5 * floor[n])]
+        else:
+            gate = bf16_grad_gate(got["names"], got["grads"], flat["grads"],
+                                  alt["grads"], ref32["grads"], PRED_TOL)
+            worst = gate["groups"][gate["worst"]]
+            line.update(grads_gate_worst_group=gate["worst"],
+                        grads_gate_share_of_limit=worst["share"],
+                        grads_vs_flat=worst["kernels_vs_plain"],
+                        grads_flat_vs_plain=worst["plain_vs_alt"])
+            fails += gate["failed"]
+        return line, fails
+
+    def layout_facts(flat, chunked, k) -> dict:
+        n_per = chunked.num_nodes // k
+        real = chunked.edge_mask.astype(bool)
+        cross = int(np.sum(chunked.edge_src[real] // n_per
+                           != chunked.edge_dst[real] // n_per))
+        same = (int(flat.node_mask.sum()) == int(chunked.node_mask.sum())
+                and int(flat.edge_mask.sum()) == int(real.sum()))
+        return dict(flat_nodes=int(flat.num_nodes),
+                    flat_edges=int(flat.num_edges),
+                    nodes=int(chunked.num_nodes),
+                    edges=int(chunked.num_edges),
+                    real_nodes=int(chunked.node_mask.sum()),
+                    real_edges=int(real.sum()), same_crystals=same,
+                    halo_empty=bool(chunked.halo_empty),
+                    edges_across_chunks=cross)
+
+    def references(cfg, sd, host) -> dict:
+        """The flat step on the host batch ``host`` and what a comparison
+        with it needs: in bf16 the same step through the plain versions
+        and in f32, in f32 its rounding floor."""
+        hb = host.to(dev)
+        out = dict(flat=step(cfg, sd, hb), alt=None, ref32=None, floor=None)
+        if cfg.model.compute_dtype == torch.bfloat16:
+            out.update(alt=step(cfg, sd, hb, plain_kernels),
+                       ref32=step(with_dtype(cfg, torch.float32), sd, hb))
+        else:
+            out["floor"] = floor_of(cfg, sd, host, out["flat"])
+        return out
+
+    checks = {}
+    gen = torch.Generator().manual_seed(3)
+    for dt in ("bf16", "f32"):
+        cfg = dp_config("cartnet", dt)
+        sd = {k: v.clone() for k, v in
+              create_model(cfg.model, dev, 0).state_dict().items()}
+        flat_host, flat_pads = first_test_batch(cfg)
+        fb = flat_host.to(dev)
+        flat = step(cfg, sd, fb)
+        flat_t = timed(cfg, sd, fb)
+        for k in CHUNK_KS:
+            host, pads = first_test_batch(chunked_cfg(cfg, k))
+            t0 = time.perf_counter()
+            chunked = to_chunked(host, k)
+            layout_s = time.perf_counter() - t0
+            node_mult, edge_mult = pad_multiples(k)
+            slack = lambda mean, mult: -(-int(k * mean / 2 + mult)
+                                         // mult) * mult
+            predicted = (slack(np.mean(nodes), node_mult),
+                         slack(np.mean(edges), edge_mult))
+            facts = layout_facts(flat_host, chunked, k)
+            b = chunked.to(dev)
+            if dt == "bf16":
+                checks.update(chunk_kernel_checks(card, b, f"chunks{k}",
+                                                  gen, dev))
+            ref = references(cfg, sd, host)
+            got = step(cfg, sd, b)
+            line, fails = compare(cfg, got, ref["flat"], ref["alt"],
+                                  ref["ref32"], ref["floor"])
+            # beside it: the flat step at the flat pads (K = 1), from the
+            # chunk layout and from the same layout's flat batch
+            names = got["names"]
+            line.update(
+                grads_vs_flat_pads=max(grad_errors(
+                    names, got["grads"], flat["grads"]).values()),
+                same_pads_vs_flat_pads=max(grad_errors(
+                    names, ref["flat"]["grads"], flat["grads"]).values()))
+            if not facts["same_crystals"] or not facts["halo_empty"]:
+                fails.append(f"layout {facts}")
+            case = f"chunks{k}_{dt}"
+            launches[case] = line["launches_per_micro_step"]
+            emit(phase="chunks", card=card, case=case, chunks=k,
+                 compute_dtype=dt, **facts, flat_pads=flat_pads, pads=pads,
+                 added=[pads[0] - flat_pads[0], pads[1] - flat_pads[1]],
+                 slack_predicted=predicted, layout_seconds=layout_s, **line,
+                 timing=timed(cfg, sd, b), flat_timing=flat_t,
+                 same_pads_timing=timed(cfg, sd, host.to(dev)),
+                 tol=1e-5 if dt == "f32" else PRED_TOL, failed=fails)
+            bad += [f"{case}: {f}" for f in fails]
+    # the split batch: one crystal cut across the two chunks
+    split = split_batch(recs)
+    chunked = to_chunked(split, 2)
+    facts = layout_facts(split, chunked, 2)
+    b = chunked.to(dev)
+    checks.update(chunk_kernel_checks(card, b, "split", gen, dev))
+    for dt in ("bf16", "f32"):
+        cfg = dp_config("cartnet", dt)
+        sd = {k: v.clone() for k, v in
+              create_model(cfg.model, dev, 0).state_dict().items()}
+        ref = references(cfg, sd, split)
+        line, fails = compare(cfg, step(cfg, sd, b), ref["flat"],
+                              ref["alt"], ref["ref32"], ref["floor"])
+        if facts["halo_empty"] or not facts["edges_across_chunks"] \
+                or not facts["same_crystals"]:
+            fails.append(f"layout {facts}")
+        case = f"split_{dt}"
+        launches[case] = line["launches_per_micro_step"]
+        emit(phase="chunks", card=card, case=case, chunks=2,
+             compute_dtype=dt, **facts, **line,
+             tol=1e-5 if dt == "f32" else PRED_TOL, failed=fails)
+        bad += [f"{case}: {f}" for f in fails]
+    # the CLI: one epoch of the ADP command with --chunks 2 on the adp
+    # phase's files (24 / 4 / 4 crystals: 6 micro-steps, 2 eval forwards)
+    data = os.path.abspath("adp_smoke_data")
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    state, test = cli.main(["--dataset", "ADP", "--dataset_path", data,
+                            "--batch", "4", "--batch_accumulation", "16",
+                            "--augment", "--chunks", "2", "--epochs", "1",
+                            "--name", "adp_smoke_chunks"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    got = launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(CARTNET_KERNELS,
+                              4 * (ADP_SPLITS["train"] // 4)))
+    for k in ("edge_phase_fwd", "sigma_segsum_fwd"):
+        want[k] += 4 * 2
+    with open(os.path.join("results", "adp_smoke_chunks", "0", "train",
+                           "stats.json")) as f:
+        epoch_s = [json.loads(x)["time_epoch"] for x in f if x.strip()]
+    if got != want:
+        bad.append(f"cli: launches {got}, expected {want}")
+    if int(state.bad_steps) or not {"similarity_index", "iou"} <= test.keys() \
+            or not all(math.isfinite(v) for v in test.values()):
+        bad.append(f"cli: bad steps {int(state.bad_steps)}, test {test}")
+    emit(phase="chunks_summary", card=card, check_max_abs_err=checks,
+         cli_launches=got, cli_expected_launches=want, cli_test=test,
+         cli_seconds=round(cli_s, 3), cli_epoch_seconds=epoch_s,
+         seconds=round(time.perf_counter() - t_phase, 3), failed=bad)
+    if bad:
+        fail(f"chunks phase: {bad}")
+    return launches
+
+
 # 8h. fused epochs: K micro-steps a CUDA-graph replay
 FUSED_K = 16  # the main chunk: two replays = the train phase's 32 steps
 FUSED_SMALL_K = 4  # f32, merged and Comformer chunks (one update each)
@@ -4085,6 +4434,8 @@ def phases(_build) -> int:
     launches_dp = dp_phase(card, dev, recs)
     # 8g2. edge parallelism and halo partitioning, ranks on the card
     launches_ep = ep_phase(card, dev, recs, batches)
+    # 8g3. chunked execution (--chunks)
+    launches_chunks = chunks_phase(card, dev, recs)
     # 8h. fused epochs: K micro-steps a CUDA-graph replay
     launches_fused = fused_phase(card, dev, batches)
 
@@ -4153,6 +4504,8 @@ def phases(_build) -> int:
                                      for k, v in launches_dp.items()},
             "launches_ep_per_rank": {k: v[kname]
                                      for k, v in launches_ep.items()},
+            "launches_chunks_per_micro_step": {
+                k: v[kname] for k, v in launches_chunks.items()},
             **fused_rows(kname),
             "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4185,6 +4538,8 @@ def phases(_build) -> int:
                                      for k, v in launches_dp.items()},
             "launches_ep_per_rank": {k: v[kname]
                                      for k, v in launches_ep.items()},
+            "launches_chunks_per_micro_step": {
+                k: v[kname] for k, v in launches_chunks.items()},
             **fused_rows(kname),
             "case": case, "max_abs_err": check_err[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -484,13 +484,17 @@ def test_cli_coordinator_sweep_gathers_on_rank_0(runs):
 
 
 def test_dp_raises_for_what_is_not_ported(runs, tmp_path, monkeypatch):
-    """--chunks, the one parallel layout not ported, raises; --halo with
-    --ep 1 runs as plain data parallelism (here one process: the same
-    run as without it); --dp 2 --ep 2 on the card asks for 4 cards."""
+    """--chunks 2, once the one layout not ported, now runs the same
+    single-process run to finite test stats (tests/test_torch_port_chunked.py
+    holds it against the JAX package); --halo with --ep 1 runs as plain
+    data parallelism (here one process: the same run as without it);
+    --dp 2 --ep 2 on the card asks for 4 cards."""
     _, _, _, _, _, (_, test, _) = runs
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(ValueError, match="not ported yet"):
-        cli.main(CLI_ARGV + ["--chunks", "2"])
+    _, chunk_test = cli.main(CLI_ARGV + ["--name", "chunks", "--chunks",
+                                         "2"])
+    assert chunk_test.keys() == test.keys()
+    assert all(np.isfinite(v) for v in chunk_test.values()), chunk_test
     _, halo_test = cli.main(CLI_ARGV + ["--batch", "4", "--name", "halo",
                                         "--halo"])
     for k in ("MAE", "MSE", "loss"):
