@@ -30,6 +30,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from cartnet_tpu_torch import tracing
 from cartnet_tpu_torch.data.adp import augment_record
 from cartnet_tpu_torch.data.batching import (EDGE_ALIGN, bandwidth_reorder,
                                              collate)
@@ -162,13 +163,21 @@ class BatchPipeline:
         bs = self.batch_size
         stop = (len(order) // bs) * bs if self.drop_last else len(order)
         for i in range(0, stop, bs):
-            recs = self._fetch(order[i:i + bs])
-            if self.augment:
-                recs = [augment_record(r, self.rng, self.rotate_targets)
-                        for r in recs]
-            if self.edge_align:  # RCM only where edges are window-aligned
-                recs = [bandwidth_reorder(r) for r in recs]
-            yield collate(recs, mn, me, bs, edge_align=self.edge_align)
+            with tracing.span("data.batch"):
+                with tracing.span("data.fetch"):
+                    recs = self._fetch(order[i:i + bs])
+                if self.augment:
+                    with tracing.span("data.augment"):
+                        recs = [augment_record(r, self.rng,
+                                               self.rotate_targets)
+                                for r in recs]
+                if self.edge_align:  # RCM only where edges are aligned
+                    with tracing.span("data.reorder"):
+                        recs = [bandwidth_reorder(r) for r in recs]
+                with tracing.span("data.collate"):
+                    batch = collate(recs, mn, me, bs,
+                                    edge_align=self.edge_align)
+            yield batch
 
     def _make_batches(self) -> Iterator[tuple]:
         """(bucket_id, batch) pairs; a bucket's id is stable across epochs
@@ -222,7 +231,8 @@ class BatchPipeline:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("data.wait"):
+                    item = q.get()
                 if item is done:
                     break
                 if isinstance(item, Exception):

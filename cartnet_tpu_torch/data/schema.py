@@ -18,6 +18,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from cartnet_tpu_torch import tracing
+
 
 @dataclasses.dataclass
 class CrystalBatch:
@@ -83,13 +85,23 @@ class CrystalBatch:
         return self.halo_send_idx is not None
 
     def to(self, device) -> "CrystalBatch":
-        """Copy with every array field as a torch tensor on ``device``."""
+        """Copy with every array field as a torch tensor on ``device``
+        (the span ``batch.to_device``; the counters
+        ``batch.to_device.copies``, one a field, and
+        ``batch.to_device.bytes``, their ``nbytes``)."""
         def move(a):
             if isinstance(a, torch.Tensor):
                 return a.to(device)
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return dataclasses.replace(self, **{
-            k: move(a) for k, a in array_fields(self).items()})
+        with tracing.span("batch.to_device"):
+            fields = array_fields(self)
+            moved = dataclasses.replace(self, **{
+                k: move(a) for k, a in fields.items()})
+        if tracing.recording():
+            tracing.count("batch.to_device.copies", len(fields))
+            tracing.count("batch.to_device.bytes",
+                          sum(a.nbytes for a in fields.values()))
+        return moved
 
 
 # host-side flags: not arrays, never stacked or moved to a device

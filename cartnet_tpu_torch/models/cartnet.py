@@ -55,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cartnet_tpu_torch import tracing
 from cartnet_tpu_torch.config import ModelConfig, resolve_device
 from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.nn.core import (embedding, linear, mlp_silu,
@@ -350,10 +351,15 @@ class CartNet(nn.Module):
                                      self.cfg.radius)
 
     def forward(self, batch: CrystalBatch, groups: Groups = SINGLE):
-        x, e = self.encoder(batch, self.cast)
-        env = self.envelope(batch, x.dtype)
-        for layer in self.layers:
-            x, e = layer(x, e, batch, env, self.cast, groups)
-        if self.cfg.cholesky:
-            return self.head(x, self.cast), batch.non_h_mask
-        return self.head(x, batch, self.cast, groups), batch.graph_mask
+        with tracing.span("model.forward"):
+            with tracing.span("model.encoder"):
+                x, e = self.encoder(batch, self.cast)
+                env = self.envelope(batch, x.dtype)
+            for layer in self.layers:
+                with tracing.span("model.layer"):
+                    x, e = layer(x, e, batch, env, self.cast, groups)
+            with tracing.span("model.head"):
+                if self.cfg.cholesky:
+                    return self.head(x, self.cast), batch.non_h_mask
+                return (self.head(x, batch, self.cast, groups),
+                        batch.graph_mask)

@@ -55,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cartnet_tpu_torch import tracing
 from cartnet_tpu_torch.config import ModelConfig, resolve_device
 from cartnet_tpu_torch.data.schema import CrystalBatch
 from cartnet_tpu_torch.models.cartnet import CholeskyHead, ScalarHead
@@ -360,9 +361,10 @@ class _Comformer(nn.Module):
         return p, x, torch.clamp(batch.cart_dist.to(dt), min=1e-6)
 
     def _head(self, x, batch: CrystalBatch, groups: Groups):
-        if self.cfg.cholesky:
-            return self.head(x, self.cast), batch.non_h_mask
-        return self.head(x, batch, self.cast, groups), batch.graph_mask
+        with tracing.span("model.head"):
+            if self.cfg.cholesky:
+                return self.head(x, self.cast), batch.non_h_mask
+            return self.head(x, batch, self.cast, groups), batch.graph_mask
 
 
 class EComformer(_Comformer):
@@ -395,13 +397,20 @@ class EComformer(_Comformer):
         self.eval()
 
     def forward(self, batch: CrystalBatch, groups: Groups = SINGLE):
-        p, x, dist = self._encode(batch)
-        e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
-        x = self.conv0(x, e, batch, p.sub("conv0"), groups)
-        x = self.equi(x, e, batch, p.sub("equi"), groups)
-        x = self.conv1(x, e, batch, p.sub("conv1"), groups)
-        x = self.conv2(x, e, batch, p.sub("conv2"), groups)
-        return self._head(x, batch, groups)
+        with tracing.span("model.forward"):
+            with tracing.span("model.encoder"):
+                p, x, dist = self._encode(batch)
+                e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers",
+                              "rbf_gamma")
+            with tracing.span("model.layer"):
+                x = self.conv0(x, e, batch, p.sub("conv0"), groups)
+            with tracing.span("model.equivariant"):
+                x = self.equi(x, e, batch, p.sub("equi"), groups)
+            for i in (1, 2):
+                with tracing.span("model.layer"):
+                    x = getattr(self, f"conv{i}")(x, e, batch,
+                                                  p.sub(f"conv{i}"), groups)
+            return self._head(x, batch, groups)
 
 
 class IComformer(_Comformer):
@@ -434,18 +443,25 @@ class IComformer(_Comformer):
         self.eval()
 
     def forward(self, batch: CrystalBatch, groups: Groups = SINGLE):
-        p, x, dist = self._encode(batch)
-        e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers", "rbf_gamma")
-        nei_len_feat, cosang = lattice_features(batch, self.cfg.compute_dtype)
-        # channel-major [3E] features -> [3E, d] heads (rows i*E + e)
-        nei_len = _rbf_head(p, "rbf", nei_len_feat.t().reshape(-1),
-                            "rbf_centers", "rbf_gamma")
-        nei_ang = _rbf_head(p, "rbf_angle", cosang.t().reshape(-1),
-                            "rbfa_centers", "rbfa_gamma")
-        x = self.conv0(x, e, batch, p.sub("conv0"), groups)
-        e = self.edge_update(e, nei_len, nei_ang, batch.edge_mask,
-                             p.sub("edge_update"), groups.edge)
-        for i in (1, 2, 3):
-            x = getattr(self, f"conv{i}")(x, e, batch, p.sub(f"conv{i}"),
-                                          groups)
-        return self._head(x, batch, groups)
+        with tracing.span("model.forward"):
+            with tracing.span("model.encoder"):
+                p, x, dist = self._encode(batch)
+                e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers",
+                              "rbf_gamma")
+                nei_len_feat, cosang = lattice_features(
+                    batch, self.cfg.compute_dtype)
+                # channel-major [3E] features -> [3E, d] heads (rows i*E + e)
+                nei_len = _rbf_head(p, "rbf", nei_len_feat.t().reshape(-1),
+                                    "rbf_centers", "rbf_gamma")
+                nei_ang = _rbf_head(p, "rbf_angle", cosang.t().reshape(-1),
+                                    "rbfa_centers", "rbfa_gamma")
+            with tracing.span("model.layer"):
+                x = self.conv0(x, e, batch, p.sub("conv0"), groups)
+            with tracing.span("model.layer"):
+                e = self.edge_update(e, nei_len, nei_ang, batch.edge_mask,
+                                     p.sub("edge_update"), groups.edge)
+            for i in (1, 2, 3):
+                with tracing.span("model.layer"):
+                    x = getattr(self, f"conv{i}")(x, e, batch,
+                                                  p.sub(f"conv{i}"), groups)
+            return self._head(x, batch, groups)

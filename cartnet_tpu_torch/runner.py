@@ -19,8 +19,10 @@ heartbeat file at startup, every epoch, on a rollback and at the end
 the epoch with the shuffle the train pipeline's generator gives next;
 past ``max_retries`` rollbacks it raises. ``profile`` traces the first
 train epoch with ``torch.profiler`` (host and, on the card, CUDA
-activities) into ``cfg.run_dir/profile``. ``wandb`` logs each epoch's
-stats and the test stats to a wandb run (``train/logger.WandbLogger``).
+activities) into ``cfg.run_dir/profile`` and logs the port's host spans
+and counters of that epoch (``tracing.format_table``). ``wandb`` logs
+each epoch's stats and the test stats to a wandb run
+(``train/logger.WandbLogger``).
 
 Data and edge parallelism (a ``torch.distributed`` world of
 ``cfg.parallel.dp`` x ``cfg.parallel.ep`` ranks, one card each, dp-major;
@@ -87,6 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cartnet_tpu_torch import tracing
 from cartnet_tpu_torch.config import Config, resolve_device
 from cartnet_tpu_torch.data.batching import all_masked
 from cartnet_tpu_torch.data.pipeline import (BatchPipeline,
@@ -426,9 +429,13 @@ def _epochs(cfg: Config, state, pipes, device, loggers, hb, epoch: int,
     first, epoch_times = epoch, []
     while epoch < cfg.optim.max_epoch:
         t0 = time.perf_counter()
-        with (_profiled(cfg.run_dir, device) if profile and epoch == first
+        profiled = profile and epoch == first
+        with (_profiled(cfg.run_dir, device) if profiled
               else contextlib.nullcontext()):
             state, _ = train_pass(state)
+        if profiled:
+            logging.info("host spans of the profiled epoch:\n%s",
+                         tracing.format_table())
         train_stats = loggers[0].write_epoch(epoch)
         eval_epoch(state, val_pipe, evals, device, logger=loggers[1])
         val_stats = loggers[1].write_epoch(epoch)

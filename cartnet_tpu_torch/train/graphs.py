@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cartnet_tpu_torch import tracing
 from cartnet_tpu_torch.data.schema import CrystalBatch, array_fields
 from cartnet_tpu_torch.train.loop import bn_buffers, stack_batches
 from cartnet_tpu_torch.train.state import TrainState
@@ -86,12 +87,16 @@ class _Graph:
     def load(self, batches: List[CrystalBatch]) -> None:
         """The batches into the static inputs, through the pinned copy
         (which the previous chunk's copy must have left)."""
-        self.copied.synchronize()
-        for k, out in self.host.items():
-            np.stack([np.asarray(getattr(b, k)) for b in batches], out=out)
-        for k, t in self.static.items():
-            t.copy_(self.pinned[k], non_blocking=True)
-        self.copied.record()
+        with tracing.span("chunk.wait"):
+            self.copied.synchronize()
+        with tracing.span("chunk.stack"):
+            for k, out in self.host.items():
+                np.stack([np.asarray(getattr(b, k)) for b in batches],
+                         out=out)
+        with tracing.span("chunk.copy"):
+            for k, t in self.static.items():
+                t.copy_(self.pinned[k], non_blocking=True)
+            self.copied.record()
 
 
 class ChunkRunner:
@@ -115,9 +120,14 @@ class ChunkRunner:
         if len(batches) != self.num_steps:
             raise ValueError(f"a chunk takes {self.num_steps} batches, got "
                              f"{len(batches)}")
-        if self.device.type != "cuda":
-            return self.chunk_fn(state, stack_batches(batches).to(
-                self.device))
+        with tracing.span("chunk.run"):
+            if self.device.type != "cuda":
+                with tracing.span("chunk.stack"):
+                    stacked = stack_batches(batches)
+                return self.chunk_fn(state, stacked.to(self.device))
+            return self._replay(state, batches)
+
+    def _replay(self, state: TrainState, batches: List[CrystalBatch]):
         # a halo chunk captures its exchange unless every halo is empty
         empty = all(b.halo_empty for b in batches)
         key = (tuple((k, a.shape, a.dtype.str)
@@ -132,8 +142,10 @@ class ChunkRunner:
                     batches[0], halo_empty=empty))
         else:
             g.load(batches)
-        g.graph.replay()
-        return {k: v.clone() for k, v in g.outputs.items()}
+        with tracing.span("chunk.replay"):
+            g.graph.replay()
+        with tracing.span("chunk.clone"):
+            return {k: v.clone() for k, v in g.outputs.items()}
 
     def _capture(self, state: TrainState, batches, key,
                  template: CrystalBatch) -> _Graph:

@@ -11,6 +11,7 @@ everything on the CPU.
 
 import glob
 import json
+import logging
 import math
 import os
 import time
@@ -216,10 +217,18 @@ def test_no_guard(tmp_path, monkeypatch):
     assert len(lines) == 2 and all(math.isnan(r["MAE"]) for r in lines)
 
 
-def test_profile_writes_a_trace(tmp_path, monkeypatch):
+def test_profile_writes_a_trace(tmp_path, monkeypatch, caplog):
     monkeypatch.chdir(tmp_path)
-    cli.main(SMALL + ["--profile", "--name", "prof", "--heartbeat",
-                      "hb.json"])
+    with caplog.at_level(logging.INFO):
+        cli.main(SMALL + ["--profile", "--name", "prof", "--heartbeat",
+                          "hb.json"])
+    # the port's host spans of the profiled epoch, logged after it
+    table = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("host spans of the profiled")]
+    assert len(table) == 1
+    rows = {ln.split()[0]: ln.split()[1:] for ln in table[0].splitlines()[2:]}
+    assert {"data.batch", "model.forward", "batch.to_device"} <= set(rows)
+    assert int(rows["data.batch"][0]) >= 1
     traces = glob.glob(str(tmp_path / "results" / "prof" / "0" / "profile"
                            / "*.pt.trace.json"))
     assert len(traces) == 1
