@@ -110,6 +110,26 @@
 //   3. the reduce pass above.
 // Elementwise steps use explicitly rounded operations so nvcc contracts
 // nothing into an FMA that the plain PyTorch version does not have.
+//
+// The live edge counts (f32 only; the bf16 passes compute every tile).
+// ``live`` points at two int32 on the device: [0] one past the batch's last
+// masked-in edge (rounded up to the 64-edge tile here as well), [1] one past
+// the last masked-in position of the src-sorted order. Every edge or
+// position at or past them is a masked-out pad; the blocks read them, so
+// the grids stay static (a CUDA graph replays any batch of its shape):
+//   1. a tile past [0] writes de = deres + 0 (what its all-zero dpre gives:
+//      pads carry zero cotangents, so dg = ds = dh = dpre = 0 there) and
+//      zero bias partials (a sum of zeros from 0 is +0), and nothing else:
+//      dg, ds, dpre_c and h of its rows are never read;
+//   2. the KSPLIT edge ranges cut the live tiles alone, so the blocks stay
+//      balanced and the pass shortens; a range past the count sums nothing
+//      (zero partials). The split differs from the one over every edge, so
+//      the weight gradients agree with a call without the count to f32
+//      rounding, not bitwise;
+//   3. the dst row walks stop at [0], the src row walks at [1]: they sum
+//      masked-in edges only, so dxi / dxj are bitwise those without them.
+// de, dxi, dxj and the bias gradients are bitwise those of a call without
+// the counts. A null ``live`` is every edge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,8 +195,22 @@ struct Args {
   float* dbias; // [4 d]    db [2d] | db1g [d] | db1a [d]
   float* bias_part;  // [n_tiles, 4d]
   float* w_part;     // [ksplit, 4 d^2]
+  const int* live;   // f32: the live edge counts on the device, or null
   int E, N, Ns, d, ksplit;
 };
+
+// the live edges (rounded up to the 64-edge tile) and the live src-sorted
+// positions of a call, within [0, E]
+__device__ __forceinline__ int live_edges(const int* live, int E) {
+  if (live == nullptr) return E;
+  const long long n = ((long long)live[0] + MOM - 1) / MOM * MOM;
+  return n < 0 ? 0 : n > E ? E : (int)n;
+}
+__device__ __forceinline__ int live_src(const int* live, int E) {
+  if (live == nullptr) return E;
+  const int n = live[1];
+  return n < 0 ? 0 : n > E ? E : n;
+}
 
 // ===================================================== f32: CUDA cores (FMA)
 // Every product is a run of simt_gemm.cuh's 64 x 128 tiles (128 threads,
@@ -196,7 +230,8 @@ constexpr int TILE_BLOCKS_F32 = 3, WEIGHT_BLOCKS_F32 = 3;
 // epilogue dpre = dh (sig + h (1 - sig)) -> dpre_out and db's column sums;
 // (3) de = deres + dpre @ We^T, A read back from dpre_out (this block's own
 // rows, in L2). A barrier orders each step's stores before the next
-// step's loads, as they are this block's.
+// step's loads, as they are this block's. A tile past the live count
+// writes de = deres + 0 and zero bias partials alone.
 template <bool MERGED>
 __global__ void __launch_bounds__(simt::THREADS, TILE_BLOCKS_F32)
     edge_bwd_tile_f32(const __grid_constant__ Args<float> p) {
@@ -205,6 +240,17 @@ __global__ void __launch_bounds__(simt::THREADS, TILE_BLOCKS_F32)
   const int d = p.d, d2 = 2 * d;
   const size_t e0 = (size_t)blockIdx.x * simt::BM;
   float* bpart = p.bias_part + (size_t)blockIdx.x * 4 * d;
+  if ((long long)e0 >= live_edges(p.live, p.E)) {
+    for (int c = threadIdx.x; c < 4 * d; c += simt::THREADS) bpart[c] = 0.f;
+    const float4* r4 = reinterpret_cast<const float4*>(p.deres + e0 * d);
+    float4* de4 = reinterpret_cast<float4*>(p.de + e0 * d);
+    for (int i = threadIdx.x; i < simt::BM * d / 4; i += simt::THREADS) {
+      const float4 r = r4[i];  // + 0 turns -0 into +0, as the sum does
+      de4[i] = make_float4(__fadd_rn(r.x, 0.f), __fadd_rn(r.y, 0.f),
+                           __fadd_rn(r.z, 0.f), __fadd_rn(r.w, 0.f));
+    }
+    return;
+  }
 
   for (int c = threadIdx.x; c < d; c += simt::THREADS) {
     const size_t w = (size_t)blockIdx.x * d + c;  // the tile's window
@@ -361,17 +407,19 @@ __device__ __forceinline__ WTile weight_tile(int t, int d, int rows,
 }
 
 // block (tile, split): the KSPLIT partial of one 64 x 128 tile of dWe
-// (A = e) | dW1g | dW1a (A = h) over one edge range, B = dpre_c | dg | ds
+// (A = e) | dW1g | dW1a (A = h) over one edge range, B = dpre_c | dg | ds;
+// the ranges cut the live tiles into KSPLIT runs of whole tiles
 template <bool MERGED>
 __global__ void __launch_bounds__(simt::THREADS, WEIGHT_BLOCKS_F32)
-    edge_bwd_weights_f32(const __grid_constant__ Args<float> p,
-                         int per_split) {
+    edge_bwd_weights_f32(const __grid_constant__ Args<float> p) {
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   const int d = p.d;
   const WTile w = weight_tile(blockIdx.x, d, simt::BM, simt::BN);
+  const int live = live_edges(p.live, p.E);
+  const int per_split = (live / MOM + p.ksplit - 1) / p.ksplit * MOM;
   const int ebeg = blockIdx.y * per_split;
-  const int eend = ebeg + per_split < p.E ? ebeg + per_split : p.E;
+  const int eend = ebeg + per_split < live ? ebeg + per_split : live;
   const int nk = eend > ebeg ? (eend - ebeg) / simt::BK : 0;
   const float* bsrc = w.mat == 0 ? p.dpre_out
                     : w.mat == 1 ? p.dg_out : MERGED ? p.ds_out : p.dsender;
@@ -950,7 +998,10 @@ __global__ void __launch_bounds__(NTHREADS)
   const int row = src_side ? b - p.N : b;
   const int* rowptr = src_side ? p.src_rowptr : p.dst_rowptr;
   float* out = src_side ? p.dxj : p.dxi;
-  const int beg = rowptr[row], end = rowptr[row + 1];
+  // past the live counts every edge is masked out: the walk stops there
+  const int cap = src_side ? live_src(p.live, p.E) : live_edges(p.live, p.E);
+  const int beg = rowptr[row];
+  const int end = rowptr[row + 1] < cap ? rowptr[row + 1] : cap;
   float acc[MAXF];
 #pragma unroll
   for (int q = 0; q < MAXF; ++q) acc[q] = 0.f;
@@ -1008,7 +1059,7 @@ int ksplit_of(int E, int d, int is_bf16) {
 struct Ptrs {
   const void *e, *we, *w1g, *w1a, *saved, *gate, *meanw, *ds1w, *dm2w,
       *dgate, *dsender, *deres, *sender, *env, *scale, *shift, *daggr, *dst,
-      *emask, *dst_rowptr, *src_perm, *src_rowptr;
+      *emask, *dst_rowptr, *src_perm, *src_rowptr, *live;
   void *de, *dg_buf, *ds_buf, *dpre_buf, *h_buf, *dxi, *dxj, *dw, *dbias,
       *work;
 };
@@ -1016,6 +1067,7 @@ struct Ptrs {
 template <typename T>
 Args<T> make_args(const Ptrs& q, int E, int N, int Ns, int d, int te) {
   Args<T> p{};
+  p.live = sizeof(T) == 2 ? nullptr : (const int*)q.live;  // bf16: all
   p.e = (const T*)q.e;
   p.we = (const T*)q.we;
   p.w1g = (const T*)q.w1g;
@@ -1084,10 +1136,9 @@ cudaError_t launch_f32(const Ptrs& q, int E, int N, int Ns, int d,
       p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int per_split = (n_tiles + p.ksplit - 1) / p.ksplit * TE;
   edge_bwd_weights_f32<MERGED>
       <<<dim3(n_weight_tiles(d, 0), p.ksplit), simt::THREADS, simt::SMEM,
-         stream>>>(p, per_split);
+         stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(p, n_tiles, stream);
@@ -1138,7 +1189,9 @@ cudaError_t launch_bf16(const Ptrs& q, int E, int N, int Ns, int d,
 // moments/meanw are f32 [E / 64, d]; index tensors int32; emask bool.
 // dg_buf [E, d] and dpre_buf [E, 2d] (T), h_buf [E, 2d] (bf16 only; null in
 // f32) and work (edge_phase_bwd_workspace floats) are scratch. dw receives
-// dWe | dW1g | dW1a, dbias db | db1g | db1a. Three launches each; they
+// dWe | dW1g | dW1a, dbias db | db1g | db1a. live: the two live counts (two
+// int32 on the device; null: every edge), which the f32 passes read and
+// the bf16 ones ignore. Three launches each; they
 // return cudaGetLastError() after them (cudaErrorInvalidValue when a
 // tensor map cannot be made). N is dxi's row count (dst_rowptr has N + 1
 // entries), Ns dxj's (src_rowptr has Ns + 1): they differ where the src
@@ -1153,7 +1206,8 @@ extern "C" int edge_phase_bwd(
     const void* deres, const void* emask, const void* dst_rowptr,
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
     void* dpre_buf, void* h_buf, void* dxi, void* dxj, void* dw, void* dbias,
-    void* work, int E, int N, int Ns, int d, int is_bf16, void* stream) {
+    void* work, const void* live, int E, int N, int Ns, int d, int is_bf16,
+    void* stream) {
   Ptrs q{};
   q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = saved;
   q.gate = gate; q.meanw = meanw; q.ds1w = ds1w; q.dm2w = dm2w;
@@ -1161,7 +1215,7 @@ extern "C" int edge_phase_bwd(
   q.dst_rowptr = dst_rowptr; q.src_perm = src_perm;
   q.src_rowptr = src_rowptr; q.de = de; q.dg_buf = dg_buf;
   q.dpre_buf = dpre_buf; q.h_buf = h_buf; q.dxi = dxi; q.dxj = dxj;
-  q.dw = dw; q.dbias = dbias; q.work = work;
+  q.dw = dw; q.dbias = dbias; q.work = work; q.live = live;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch_bf16<false>(q, E, N, Ns, d, s)
                  : launch_f32<false>(q, E, N, Ns, d, s);
@@ -1178,8 +1232,8 @@ extern "C" int edge_phase_merged_bwd(
     const void* dst, const void* emask, const void* dst_rowptr,
     const void* src_perm, const void* src_rowptr, void* de, void* dg_buf,
     void* ds_buf, void* dpre_buf, void* h_buf, void* dxi, void* dxj,
-    void* dw, void* dbias, void* work, int E, int N, int Ns, int d,
-    int is_bf16, void* stream) {
+    void* dw, void* dbias, void* work, const void* live, int E, int N, int Ns,
+    int d, int is_bf16, void* stream) {
   Ptrs q{};
   q.e = e; q.we = we; q.w1g = w1g; q.w1a = w1a; q.saved = pre;
   q.gate = gate; q.sender = sender; q.env = env; q.scale = scale;
@@ -1188,7 +1242,7 @@ extern "C" int edge_phase_merged_bwd(
   q.dst_rowptr = dst_rowptr; q.src_perm = src_perm;
   q.src_rowptr = src_rowptr; q.de = de; q.dg_buf = dg_buf;
   q.ds_buf = ds_buf; q.dpre_buf = dpre_buf; q.h_buf = h_buf; q.dxi = dxi;
-  q.dxj = dxj; q.dw = dw; q.dbias = dbias; q.work = work;
+  q.dxj = dxj; q.dw = dw; q.dbias = dbias; q.work = work; q.live = live;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch_bf16<true>(q, E, N, Ns, d, s)
                  : launch_f32<true>(q, E, N, Ns, d, s);

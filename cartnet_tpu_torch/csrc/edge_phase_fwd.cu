@@ -45,7 +45,8 @@
 //
 // f32 edges (the all-f32 configuration; full f32, no TF32), two launches of
 // the 64 x 128 SIMT GEMM tiles of simt_gemm.cuh (128 threads, 8 x 8 register
-// micro-tiles, double-buffered k-slabs), four blocks an SM:
+// micro-tiles, double-buffered k-slabs), four blocks an SM, bounded by the
+// batch's live edge count (below):
 //  (1) pre tiles, 2 (E / 64) (d / 128) blocks: e @ We over K = d with the
 //      gather + silu epilogue; h = pre sig goes to device memory in f32
 //      ([E, 2d] scratch, 43 MB at d = 256), the saved residual beside it;
@@ -57,6 +58,20 @@
 // per 64-edge tile, doing both phases in turn, left 328 blocks of serial
 // work in the slots at E = 20992). The round trip of h through device
 // memory (twice 43 MB, mostly in L2) buys that parallelism.
+//
+// The live edge count (f32 edges only): ``live`` points at the batch's live
+// counts on the device (int32; K5/K6 take the same two), whose first is one
+// past the last masked-in edge (rounded up to the 64-edge tile here as
+// well). Every block reads it, so the grids stay static and a CUDA graph
+// replays any batch of its shape. Every edge at or past the count is a
+// masked-out pad (the batch's tail), so a tile that starts there
+// spends no arithmetic: its pre block leaves at once (its rows of h and of
+// the saved residual stay unwritten: the backward's passes skip the same
+// tiles and read neither), and its output block writes zeros to gate and
+// sender (which K2 reads at every edge) and, on the window's gate tile,
+// zero moments. The live tiles' rows are bitwise what a call without the
+// count writes. A null ``live`` is every edge; the bf16-edge kernel
+// computes every tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,9 +125,24 @@ struct Args {
   TT* saved;
   float* s1w;
   float* m2w;
+  const int* live;  // the live edge counts on the device, or null (all)
   int d;
   int save_sig;  // saved row: [pre | sig] (1) or pre alone (0)
 };
+
+// whether the 64-edge tile ``tile`` lies past the live edge count (the
+// count rounded up to the tile: the tile that holds the last live edge is
+// live). The f32 passes test it first thing, on the tile index alone, and
+// leave through PTX's exit (all the block's threads at once, before any
+// barrier), which nvcc does not take for a return: so ptxas allocates the
+// live tiles' registers as without the test (128 a thread at four blocks
+// an SM). A test on the tile's first edge after the tile's offsets, with
+// a return, spilled 68 bytes in the pre tile and cost both passes 5-13%
+// at every tile live, on an H100.
+__device__ __forceinline__ bool dead_tile(const int* live, int tile) {
+  return live != nullptr && tile >= (*live + TE - 1) / TE;
+}
+__device__ __forceinline__ void exit_block() { asm volatile("exit;"); }
 
 // --------------------------------------------------- f32 edges: CUDA cores
 
@@ -165,6 +195,8 @@ __global__ void __launch_bounds__(simt::THREADS, F32_BLOCKS)
   extern __shared__ float4 smem_f32[];
   float* smem = reinterpret_cast<float*>(smem_f32);
   const int d = p.d, d2 = 2 * d, nct = d2 / simt::BN;
+  // pads only: nothing reads its rows
+  if (dead_tile(p.live, (int)(blockIdx.x / nct))) exit_block();
   const size_t e0 = (size_t)(blockIdx.x / nct) * simt::BM;
   const int c0 = (blockIdx.x % nct) * simt::BN;
   float acc[8][8];
@@ -202,18 +234,50 @@ __global__ void __launch_bounds__(simt::THREADS, F32_BLOCKS)
   }
 }
 
+// The zeros of an output tile past the live count: its 64 rows x 128
+// columns of gate or sender (K2 reads them at every edge) and, on a gate
+// tile, its window's moments (no edge of it is masked in).
+template <typename TT>
+__device__ __forceinline__ void zero_out_tile(const Args<TT, float>& p,
+                                              int tile) {
+  const int d = p.d, nct = d / simt::BN;
+  const int half = (blockIdx.x / nct) % 2, c0 = (blockIdx.x % nct) * simt::BN;
+  const size_t e0 = (size_t)tile * simt::BM;
+  TT* out = half ? p.sender : p.gate;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      store4(out + (e0 + simt::row_of(i)) * d + c0 + simt::col_of(4 * hh),
+             zero);
+  if (half == 0 && p.s1w != nullptr) {  // THREADS == BN: one a column
+    p.s1w[(size_t)tile * d + c0 + threadIdx.x] = 0.f;
+    p.m2w[(size_t)tile * d + c0 + threadIdx.x] = 0.f;
+  }
+}
+
 // Pass 2, output tile: 64 edges x 128 columns of gate (half 0: h_g @ W1g)
 // or sender (half 1: h_a @ W1a) over K = d (A = hw's half, B = W1's
 // columns); out = acc + b1 rounded to the table dtype. A gate tile with
 // moments is one 64-edge window: the masked Welford partials of the
 // rounded gate over its 64 rows, each a fixed-order column sum
 // (simt::column_sums): s1 = sum m g, then M2 = sum (m (g - s1 / n))^2.
+// A tile past the live count skips the product and stores zeros
+// (zero_out_tile).
 template <typename TT>
 __global__ void __launch_bounds__(simt::THREADS, F32_BLOCKS)
     edge_fwd_out_f32(const __grid_constant__ Args<TT, float> p,
                      const float* __restrict__ hw) {
   extern __shared__ float4 smem_f32[];
   float* smem = reinterpret_cast<float*>(smem_f32);
+  {  // the test first, on the tile index alone (dead_tile)
+    const int tile = blockIdx.x / (2 * (p.d / simt::BN));
+    if (dead_tile(p.live, tile)) {
+      zero_out_tile(p, tile);
+      exit_block();
+    }
+  }
   const int d = p.d, nct = d / simt::BN;
   const int ct = blockIdx.x % nct, half = (blockIdx.x / nct) % 2;
   const int tile = blockIdx.x / (2 * nct), c0 = ct * simt::BN;
@@ -629,14 +693,18 @@ cudaError_t run(const void* xi, const void* xj, const void* e, const void* we,
                 const void* b, const void* w1g, const void* b1g,
                 const void* w1a, const void* b1a, const void* dst,
                 const void* src, const void* emask, void* gate, void* sender,
-                void* saved, void* s1w, void* m2w, void* work, int E, int d,
-                int save_sig, cudaStream_t stream) {
+                void* saved, void* s1w, void* m2w, void* work,
+                const void* live, int E, int d, int save_sig,
+                cudaStream_t stream) {
+  // the bf16-edge kernel computes every tile: no count
   const Args<TT, ET> p{(const TT*)xi,  (const TT*)xj,  (const ET*)e,
                        (const ET*)we,  (const ET*)b,   (const ET*)w1g,
                        (const ET*)b1g, (const ET*)w1a, (const ET*)b1a,
                        (const int*)dst, (const int*)src,
                        (const uint8_t*)emask, (TT*)gate, (TT*)sender,
-                       (TT*)saved, (float*)s1w, (float*)m2w, d, save_sig};
+                       (TT*)saved, (float*)s1w, (float*)m2w,
+                       sizeof(ET) == 2 ? nullptr : (const int*)live, d,
+                       save_sig};
   if constexpr (sizeof(ET) == 2)
     return launch_tc(p, E, stream);
   else
@@ -652,30 +720,34 @@ cudaError_t run(const void* xi, const void* xj, const void* e, const void* we,
 // table_bf16 / edge_bf16 select bf16 (1) or f32 (0) node tables / edge
 // activations and weights; save_sig selects the saved residual's layout
 // ([pre | sig] [E, 4d] or pre [E, 2d]); work: edge_phase_fwd_workspace
-// floats. One launch for bf16 edges, two for f32 edges. Returns
-// cudaGetLastError() after the launches.
+// floats; live: the live edge counts (int32 on the device, the first read
+// here; null: every edge), which the f32-edge passes read and the
+// bf16-edge kernel ignores.
+// One launch for bf16 edges, two for f32 edges. Returns cudaGetLastError()
+// after the launches.
 extern "C" int edge_phase_fwd(const void* xi, const void* xj, const void* e,
                               const void* we, const void* b, const void* w1g,
                               const void* b1g, const void* w1a,
                               const void* b1a, const void* dst,
                               const void* src, const void* emask, void* gate,
                               void* sender, void* saved, void* s1w, void* m2w,
-                              void* work, int E, int d, int table_bf16,
-                              int edge_bf16, int save_sig, void* stream) {
+                              void* work, const void* live, int E, int d,
+                              int table_bf16, int edge_bf16, int save_sig,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (table_bf16 && edge_bf16)
     return run<bf16, bf16>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                           emask, gate, sender, saved, s1w, m2w, work, E, d,
-                           save_sig, s);
+                           emask, gate, sender, saved, s1w, m2w, work, live,
+                           E, d, save_sig, s);
   if (edge_bf16)
     return run<float, bf16>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                            emask, gate, sender, saved, s1w, m2w, work, E, d,
-                            save_sig, s);
+                            emask, gate, sender, saved, s1w, m2w, work, live,
+                            E, d, save_sig, s);
   if (table_bf16)
     return run<bf16, float>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                            emask, gate, sender, saved, s1w, m2w, work, E, d,
-                            save_sig, s);
+                            emask, gate, sender, saved, s1w, m2w, work, live,
+                            E, d, save_sig, s);
   return run<float, float>(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
-                           emask, gate, sender, saved, s1w, m2w, work, E, d,
-                           save_sig, s);
+                           emask, gate, sender, saved, s1w, m2w, work, live,
+                           E, d, save_sig, s);
 }

@@ -13,10 +13,14 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from cartnet_tpu_torch import tracing
 from cartnet_tpu_torch.data.schema import CrystalBatch
 
 # per-graph edge alignment of ADP-scale batches (the reference's edge window)
 EDGE_ALIGN = 512
+# the edge kernels' tile (ops/kernels/edge_kernels.TILE_EDGES), the unit of
+# collate's tile counters
+EDGE_TILE = 64
 
 
 def bandwidth_reorder(record: dict) -> dict:
@@ -62,6 +66,11 @@ def collate(records: Sequence[dict], max_nodes: int, max_edges: int,
     multiple of edge_align with masked edges pointing at the graph's last
     node, so the dst ids stay monotone. Tail pad edges point at the last
     node for the same reason.
+
+    While the tracer records, counts the batch's ``EDGE_TILE``-edge tiles
+    (``batch.edge_tiles``) and those up to its tail of pads
+    (``batch.edge_tiles_live``: through the last masked-in edge, the tiles
+    the edge kernels compute; ``edge_kernels.live_edges``).
     """
     g = len(records)
     if g > max_graphs:
@@ -146,6 +155,11 @@ def collate(records: Sequence[dict], max_nodes: int, max_edges: int,
     edist[:e] = dist
     edir[:e] = dire
     emask[:e] = mask
+    if tracing.recording():
+        real = np.flatnonzero(mask)
+        n_live = int(real[-1]) + 1 if real.size else 0
+        tracing.count("batch.edge_tiles", -(-max_edges // EDGE_TILE))
+        tracing.count("batch.edge_tiles_live", -(-n_live // EDGE_TILE))
     src_perm = np.argsort(esrc, kind="stable").astype(np.int32)
     rows = np.arange(max_nodes + 1)
     rowptr = np.searchsorted(edst, rows, side="left").astype(np.int32)

@@ -14,7 +14,10 @@ and f32 ones after (see ops/kernels/).
 
 Each layer's edge work runs through two kernels: the fused edge phase
 (gathers + both edge MLPs) and the fused sigma chain + segment sum. The
-per-node projections xi = x @ Wi and xj = x @ Wj stay plain matmuls.
+per-node projections xi = x @ Wi and xj = x @ Wj stay plain matmuls. The
+forward derives the batch's live edge counts from its masks once
+(``live_edges``) and every layer's edge phase, forward and backward, skips
+the tail of pad edges past them.
 
 In training (``model.train()``) a layer is the JAX package's flagship
 train path (``fused_edge_sigma`` -> ``_fes_plain``): the edge phase as an
@@ -67,7 +70,8 @@ from cartnet_tpu_torch.nn.norm import (bn_scale_shift_from_window_moments,
 from cartnet_tpu_torch.ops import rbf as rbf_ops
 from cartnet_tpu_torch.ops.kernels.edge_kernels import (TILE_EDGES, EdgePhase,
                                                         FusedEdgeSigma,
-                                                        edge_phase_fwd)
+                                                        edge_phase_fwd,
+                                                        live_edges)
 from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
                                                            sigma_segsum)
 from cartnet_tpu_torch.ops.linalg3 import assemble_cholesky_upper
@@ -192,11 +196,12 @@ class CartNetLayer(nn.Module):
 
     def forward(self, x, e, batch: CrystalBatch,
                 env: Optional[torch.Tensor], cast: Cast,
-                groups: Groups = SINGLE):
+                groups: Groups = SINGLE, live=None):
         """One message-passing layer -> (x_out, e_out); train mode when
-        ``self.training`` (sync BN over ``groups``, module docstring)."""
+        ``self.training`` (sync BN over ``groups``, module docstring);
+        ``live``: the batch's ``live_edges`` (None: every edge)."""
         if self.training:
-            return self._train_forward(x, e, batch, env, cast, groups)
+            return self._train_forward(x, e, batch, env, cast, groups, live)
         eps = self.cfg.bn_eps
         wi, wj, we, b, w1g, b1g, w1a, b1a = self._weights(cast)
         pdt = torch.promote_types(x.dtype, wi.dtype)
@@ -204,7 +209,7 @@ class CartNetLayer(nn.Module):
         xj = torch.matmul(_src_table(x, batch, groups).to(pdt), wj.to(pdt))
         gate, sender, _, _, _ = edge_phase_fwd(
             xi, xj, e, we, b, w1g, b1g, w1a, b1a,
-            batch.edge_dst, batch.edge_src, batch.edge_mask)
+            batch.edge_dst, batch.edge_src, batch.edge_mask, live=live)
         scale, shift = masked_bn_scale_shift(
             cast(self.norm.weight), cast(self.norm.bias),
             self.norm.running_mean, self.norm.running_var, eps)
@@ -222,7 +227,7 @@ class CartNetLayer(nn.Module):
 
     def _train_forward(self, x, e, batch: CrystalBatch,
                        env: Optional[torch.Tensor], cast: Cast,
-                       groups: Groups = SINGLE):
+                       groups: Groups = SINGLE, live=None):
         """The train-mode layer (the JAX package's ``fused_edge_sigma``:
         the ``_fes_plain`` composition, or ``_fes_op`` under
         ``CARTNET_MERGED=1``); advances norm/norm2's running stats."""
@@ -239,11 +244,11 @@ class CartNetLayer(nn.Module):
         if os.environ.get("CARTNET_MERGED", "0") == "1":
             e_out, aggr, mean, var, n = FusedEdgeSigma.apply(
                 xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env_col,
-                *idx, eps, groups.edge)
+                *idx, eps, groups.edge, live)
             bn_state_update(self.norm, mean, var, n, mom)
         else:
             gate, sender, e_res, s1w, m2w = EdgePhase.apply(
-                xi, xj, e, we, b, w1g, b1g, w1a, b1a, *idx)
+                xi, xj, e, we, b, w1g, b1g, w1a, b1a, *idx, True, live)
             scale, shift = bn_scale_shift_from_window_moments(
                 self.norm, gamma, beta, s1w, m2w, batch.edge_mask,
                 TILE_EDGES, mom, eps, groups.edge)
@@ -355,9 +360,10 @@ class CartNet(nn.Module):
             with tracing.span("model.encoder"):
                 x, e = self.encoder(batch, self.cast)
                 env = self.envelope(batch, x.dtype)
+                live = live_edges(batch.edge_mask, batch.edge_mask_src_sorted)
             for layer in self.layers:
                 with tracing.span("model.layer"):
-                    x, e = layer(x, e, batch, env, self.cast, groups)
+                    x, e = layer(x, e, batch, env, self.cast, groups, live)
             with tracing.span("model.head"):
                 if self.cfg.cholesky:
                     return self.head(x, self.cast), batch.non_h_mask

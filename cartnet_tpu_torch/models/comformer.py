@@ -68,7 +68,8 @@ from cartnet_tpu_torch.nn.norm import (bn_state_update, masked_batch_norm,
                                        masked_bn_scale_shift_train)
 from cartnet_tpu_torch.ops import rbf as rbf_ops
 from cartnet_tpu_torch.ops.kernels.edge_kernels import (EdgePhase,
-                                                        edge_phase_fwd)
+                                                        edge_phase_fwd,
+                                                        live_edges)
 from cartnet_tpu_torch.ops.kernels.segment_kernels import (SigmaSegsum,
                                                            sigma_segsum)
 from cartnet_tpu_torch.ops.segment import gather_sorted
@@ -117,13 +118,14 @@ class ComformerConv(nn.Module):
                                      momentum=cfg.bn_momentum, dtype=dt)
 
     def forward(self, x, edge_attr, batch: CrystalBatch, p: Params,
-                groups: Groups = SINGLE):
+                groups: Groups = SINGLE, live=None):
         """x [N, d], edge_attr [E, d] -> x [N, d]; train mode when
         ``self.training`` (advances bn/bn_att's running stats; sync BN
         over ``groups``). Under halo partitioning the key and value
         projections run over the table [x ‖ received rows] (the sources'
         rows), and dst, the query, the aggregation and the node BN touch
-        the member's own rows only."""
+        the member's own rows only. ``live``: the batch's ``live_edges``
+        (None: every edge), which bounds the edge phase."""
         d, eps, mom = x.shape[1], self.cfg.bn_eps, self.cfg.bn_momentum
         n = x.shape[0]
         table = halo_table(x, batch, groups) if batch.halo else x
@@ -148,9 +150,9 @@ class ComformerConv(nn.Module):
         if self.training:
             key_j, msg, _, _, _ = EdgePhase.apply(
                 *args, batch.dst_rowptr, batch.edge_src_perm,
-                batch.src_rowptr, False)
+                batch.src_rowptr, False, live)
         else:
-            key_j, msg, _, _, _ = edge_phase_fwd(*args)
+            key_j, msg, _, _, _ = edge_phase_fwd(*args, live=live)
         q_dst = gather_sorted(q, batch.edge_dst, batch.dst_rowptr,
                               batch.edge_mask)
         alpha = q_dst * key_j / math.sqrt(d)
@@ -402,14 +404,16 @@ class EComformer(_Comformer):
                 p, x, dist = self._encode(batch)
                 e = _rbf_head(p, "rbf", _inv_len(dist), "rbf_centers",
                               "rbf_gamma")
+                live = live_edges(batch.edge_mask, batch.edge_mask_src_sorted)
             with tracing.span("model.layer"):
-                x = self.conv0(x, e, batch, p.sub("conv0"), groups)
+                x = self.conv0(x, e, batch, p.sub("conv0"), groups, live)
             with tracing.span("model.equivariant"):
                 x = self.equi(x, e, batch, p.sub("equi"), groups)
             for i in (1, 2):
                 with tracing.span("model.layer"):
                     x = getattr(self, f"conv{i}")(x, e, batch,
-                                                  p.sub(f"conv{i}"), groups)
+                                                  p.sub(f"conv{i}"), groups,
+                                                  live)
             return self._head(x, batch, groups)
 
 
@@ -455,13 +459,15 @@ class IComformer(_Comformer):
                                     "rbf_centers", "rbf_gamma")
                 nei_ang = _rbf_head(p, "rbf_angle", cosang.t().reshape(-1),
                                     "rbfa_centers", "rbfa_gamma")
+                live = live_edges(batch.edge_mask, batch.edge_mask_src_sorted)
             with tracing.span("model.layer"):
-                x = self.conv0(x, e, batch, p.sub("conv0"), groups)
+                x = self.conv0(x, e, batch, p.sub("conv0"), groups, live)
             with tracing.span("model.layer"):
                 e = self.edge_update(e, nei_len, nei_ang, batch.edge_mask,
                                      p.sub("edge_update"), groups.edge)
             for i in (1, 2, 3):
                 with tracing.span("model.layer"):
                     x = getattr(self, f"conv{i}")(x, e, batch,
-                                                  p.sub(f"conv{i}"), groups)
+                                                  p.sub(f"conv{i}"), groups,
+                                                  live)
             return self._head(x, batch, groups)

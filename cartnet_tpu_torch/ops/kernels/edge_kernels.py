@@ -24,6 +24,26 @@ the CUDA cores, one output tile a block: the pre tiles write h in f32 to a
 [E, 2d] scratch allocated here (``edge_phase_fwd_workspace``), the output
 tiles read it for gate and sender and the window moments.
 
+The live edge counts (``live_edges``): the f32-edge passes of K1 and of
+K5/K6 take the batch's live counts, an int32 tensor on the device derived
+from the masks once a forward, and spend no arithmetic on the 64-edge tiles
+of the batch's tail of pads past them (the grids stay static, so a CUDA
+graph replays any batch of its shape). K1 writes zero gate, sender and
+moment rows there and leaves h and the saved residual unwritten (the
+backward skips the same tiles); K5/K6 write de = deres there, cut their
+weight-gradient edge ranges over the live tiles alone and stop their node
+row walks at the counts. Every live row, de, dxi, dxj and the bias
+gradients are bitwise those of a call without the counts; the weight
+gradients agree with them to f32 rounding (another split of the same
+sums). ``live=None`` is every edge; the bf16-edge routes and the plain
+versions compute every edge whatever the counts say. The backward's
+precondition: the cotangents of the edge rows at or past the first count
+are zero (K5's dgate and dsender, K6's deout), so that the plain
+versions' sums over every edge add only zeros there; the models'
+cotangents are (``tests/test_torch_port_live_edges.py`` holds CartNet,
+the eComformer and the iComformer to it). A caller whose pads carry
+cotangents passes ``live=None``.
+
 Widths: the wrappers of K1, K5 and K6 take every 1 <= d <= 512
 (``MAX_WIDTH``). The kernels tile d in 64-column wgmma/TMA slabs shared by
 two warpgroups, 128 columns a pair (and the f32 paths in 128-column
@@ -88,6 +108,26 @@ bwd_launches = 0  # backward kernel launches (CUDA path only)
 merged_launches = 0  # merged backward (K6) launches (CUDA path only)
 
 
+def live_edges(edge_mask, src_sorted_mask=None):
+    """The batch's live edge counts, an int32 tensor [2] on the masks'
+    device (no host sync, no copy): [0] one past the last masked-in edge
+    and [1] one past the last masked-in position of the src-sorted order
+    (``edge_mask_src_sorted``; E without it), each rounded up to the
+    ``TILE_EDGES``-edge tile. Every edge and position at or past them is a
+    masked-out pad, wherever the others lie (the per-graph ``EDGE_ALIGN``
+    pads, an ep member's slice, a halo member's table), so the edge
+    kernels may skip them; a batch with no tail gives E, an all-masked one
+    0."""
+    E = edge_mask.shape[0]
+    if not E:
+        return torch.zeros(2, dtype=torch.int32, device=edge_mask.device)
+    idx = torch.arange(1, E + 1, dtype=torch.int32, device=edge_mask.device)
+    masks = torch.stack((edge_mask, torch.ones_like(edge_mask)
+                         if src_sorted_mask is None else src_sorted_mask))
+    last = torch.where(masks, idx, 0).amax(dim=1)
+    return torch.bitwise_and(last + (TILE_EDGES - 1), -TILE_EDGES)
+
+
 def window_moments(gate, emask, tile: int):
     """Per-window masked Welford partials of the (rounded) gate, f32:
     s1_w = sum(m*g), M2_w = sum((m*(g - s1_w/n_w))^2) per ``tile`` edges."""
@@ -103,9 +143,12 @@ def window_moments(gate, emask, tile: int):
 
 def edge_phase_fwd_plain(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src,
                          emask, *, saved: bool = False, pre_only: bool = False,
-                         moments: bool = False, tile: int = TILE_EDGES):
+                         moments: bool = False, tile: int = TILE_EDGES,
+                         live=None):
     """The kernel's function in plain PyTorch (same casts and rounding).
-    Returns (gate, sender, saved | None, s1_w | None, M2_w | None)."""
+    Returns (gate, sender, saved | None, s1_w | None, M2_w | None).
+    ``live`` is taken and ignored: the plain version computes every edge,
+    so it stands in for the wrapper wherever a caller passes the counts."""
     cdt = xi.dtype
     d = w1g.shape[0]
     gi = xi.index_select(0, dst).float()
@@ -153,6 +196,18 @@ def _check(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask):
         raise TypeError("dst/src must be int32")
     if emask.dtype != torch.bool:
         raise TypeError("emask must be bool")
+
+
+def _check_live(live, e) -> None:
+    """``live`` is None or the int32 [2] counts of ``live_edges`` on e's
+    device."""
+    if live is None:
+        return
+    if live.dtype != torch.int32 or tuple(live.shape) != (2,):
+        raise ValueError(f"live must be int32 [2] (live_edges), got "
+                         f"{live.dtype} {tuple(live.shape)}")
+    if live.device != e.device or not live.is_contiguous():
+        raise ValueError(f"live must be contiguous on {e.device}")
 
 
 MAX_WIDTH = 512  # the widest d the edge kernels take
@@ -244,7 +299,7 @@ def _lib():
     lib = _build.load("edge_phase_fwd")
     fn = lib.edge_phase_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.edge_phase_fwd_smem.argtypes = [ctypes.c_int] * 2
@@ -256,10 +311,12 @@ def _lib():
 
 def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
                    saved: bool = False, pre_only: bool = False,
-                   moments: bool = False):
+                   moments: bool = False, live=None):
     """Fused gather + edge MLPs -> (gate, sender, saved | None,
-    s1_w | None, M2_w | None); see the module docstring."""
+    s1_w | None, M2_w | None); see the module docstring (``live``: the
+    batch's ``live_edges``, or None for every edge)."""
     _check(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
+    _check_live(live, e)
     if e.device.type == "cpu":
         return edge_phase_fwd_plain(xi, xj, e, we, b, w1g, b1g, w1a, b1a,
                                     dst, src, emask, saved=saved,
@@ -276,13 +333,13 @@ def edge_phase_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
                          f" (E={E})")
     dp = padded_width(d)
     outs = _launch_fwd(**_pad.pad_named(ops, FWD_PAD, d, dp), saved=saved,
-                       pre_only=pre_only, moments=moments)
+                       pre_only=pre_only, moments=moments, live=live)
     return tuple(_pad.cut_named(outs, FWD_OUT_PAD_PRE if pre_only
                                 else FWD_OUT_PAD, d, dp).values())
 
 
 def _launch_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
-                saved: bool, pre_only: bool, moments: bool) -> dict:
+                saved: bool, pre_only: bool, moments: bool, live) -> dict:
     """One call of csrc/edge_phase_fwd.cu at the padded width -> the
     outputs by name (``FWD_OUT_PAD``)."""
     # TMA and the f32 tiles' float4 loads read e and the weights (16-byte
@@ -315,7 +372,7 @@ def _launch_fwd(xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask, *,
     args = (xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask)
     err = lib.edge_phase_fwd(
         *(ptr(t) for t in args), ptr(gate), ptr(sender), ptr(res), ptr(s1w),
-        ptr(m2w), ptr(work), E, d, int(cdt == torch.bfloat16),
+        ptr(m2w), ptr(work), ptr(live), E, d, int(cdt == torch.bfloat16),
         int(edge_bf16), int(not pre_only),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "edge_phase_fwd")
@@ -433,10 +490,10 @@ def _lib_bwd():
     lib = _build.load("edge_phase_bwd")
     fn = lib.edge_phase_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.edge_phase_merged_bwd.argtypes = [ctypes.c_void_p] * 30 \
+        lib.edge_phase_merged_bwd.argtypes = [ctypes.c_void_p] * 31 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.edge_phase_merged_bwd.restype = ctypes.c_int
         lib.edge_phase_bwd_workspace.argtypes = [ctypes.c_int] * 3
@@ -446,9 +503,10 @@ def _lib_bwd():
     return lib
 
 
-def _launch_bwd(entry: str, ops: dict, specs: dict, N: int, Ns: int):
+def _launch_bwd(entry: str, ops: dict, specs: dict, N: int, Ns: int, live):
     """Launch ``entry`` of csrc/edge_phase_bwd.cu (dxi over the ``N`` dst
-    rows, dxj over the ``Ns`` src rows) on the operands ``ops``
+    rows, dxj over the ``Ns`` src rows; ``live`` the live counts or None)
+    on the operands ``ops``
     (name -> tensor in the entry point's order; contiguous; zero-padded to
     the kernels' granule by their ``specs``; an operand that is not
     16-byte aligned, as the kernel's vector and TMA loads need, is copied
@@ -480,7 +538,7 @@ def _launch_bwd(entry: str, ops: dict, specs: dict, N: int, Ns: int):
     dbias = torch.empty(4 * d, dtype=f32, device=dev)
     work = torch.empty(lib.edge_phase_bwd_workspace(E, d, is_bf16),
                        dtype=f32, device=dev)
-    outs = (de, *scratch, h, dxi, dxj, dw, dbias, work)
+    outs = (de, *scratch, h, dxi, dxj, dw, dbias, work, live)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = getattr(lib, entry)(*(ptr(t) for t in tuple(args) + outs),
                               E, N, Ns, d, is_bf16,
@@ -496,15 +554,19 @@ def _launch_bwd(entry: str, ops: dict, specs: dict, N: int, Ns: int):
 
 def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
                    dsender, deres, dst, src, emask, dst_rowptr, src_perm,
-                   src_rowptr):
+                   src_rowptr, *, live=None):
     """The edge-phase backward -> (de, dxi, dxj, dwe, db, dw1g, db1g, dw1a,
-    db1a), as ``edge_phase_bwd_plain``; see the module docstring."""
+    db1a), as ``edge_phase_bwd_plain``; see the module docstring (``live``:
+    the counts the forward took; dgate and dsender must be zero on the
+    edge rows at or past its first count, or the result is not the plain
+    version's)."""
     E, d = e.shape
     tensors = _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst,
                              src, emask, dst_rowptr, src_perm, src_rowptr)
     tensors.update(saved=(saved, (E, 4 * d)), dgate=(dgate, (E, d)),
                    dsender=(dsender, (E, d)), deres=(deres, (E, d)))
     _check_bwd(e, tensors)
+    _check_live(live, e)
     N, Ns = dst_rowptr.shape[0] - 1, src_rowptr.shape[0] - 1
     if e.device.type == "cpu":
         return edge_phase_bwd_plain(e, we, w1g, w1a, saved, gate, meanw,
@@ -516,7 +578,7 @@ def edge_phase_bwd(e, we, w1g, w1a, saved, gate, meanw, ds1w, dm2w, dgate,
         e=e, we=we, w1g=w1g, w1a=w1a, saved=saved, gate=gate, meanw=meanw,
         ds1w=ds1w, dm2w=dm2w, dgate=dgate, dsender=dsender, deres=deres,
         emask=emask, dst_rowptr=dst_rowptr, src_perm=src_perm,
-        src_rowptr=src_rowptr), BWD_PAD, N, Ns)
+        src_rowptr=src_rowptr), BWD_PAD, N, Ns, live)
     global bwd_launches
     bwd_launches += 1
     return grads
@@ -554,11 +616,13 @@ def merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env, scale, shift,
 
 def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
                ds1w, dm2w, deout, daggr, dst, src, emask, dst_rowptr,
-               src_perm, src_rowptr):
+               src_perm, src_rowptr, *, live=None):
     """The merged sigma + edge backward -> (de, dxi, dxj, dwe, db, dw1g,
     db1g, dw1a, db1a), as ``merged_bwd_plain``; see the module docstring.
     pre [E, 2d], gate, sender, deout [E, d], env [E, 1] and daggr [N, d]
-    share e's dtype; scale/shift [d] and the window rows are f32."""
+    share e's dtype; scale/shift [d] and the window rows are f32; ``live``
+    the counts the forward took (deout must be zero on the edge rows at or
+    past its first count, or the result is not the plain version's)."""
     E, d = e.shape
     N, Ns = dst_rowptr.shape[0] - 1, src_rowptr.shape[0] - 1
     tensors = _shared_shapes(e, we, w1g, w1a, gate, meanw, ds1w, dm2w, dst,
@@ -568,6 +632,7 @@ def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
                    shift=(shift, (d,)), deout=(deout, (E, d)),
                    daggr=(daggr, (N, d)))
     _check_bwd(e, tensors, ("meanw", "ds1w", "dm2w", "scale", "shift"))
+    _check_live(live, e)
     if e.device.type == "cpu":
         return merged_bwd_plain(e, we, w1g, w1a, pre, gate, sender, env,
                                 scale, shift, meanw, ds1w, dm2w, deout,
@@ -579,7 +644,7 @@ def merged_bwd(e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
         env=env, scale=scale, shift=shift, meanw=meanw, ds1w=ds1w,
         dm2w=dm2w, deout=deout, daggr=daggr, dst=dst, emask=emask,
         dst_rowptr=dst_rowptr, src_perm=src_perm, src_rowptr=src_rowptr),
-        MERGED_PAD, N, Ns)
+        MERGED_PAD, N, Ns, live)
     global merged_launches
     merged_launches += 1
     return grads
@@ -596,16 +661,17 @@ class EdgePhase(torch.autograd.Function):
     K5 gets zero moment cotangents, so its correction term vanishes. xi and
     xj may have different row counts (halo partitioning: xj spans the src
     table [local ‖ received rows]); ``dst_rowptr`` and ``src_rowptr`` are
-    over xi's and xj's rows, and dxi/dxj come back with them."""
+    over xi's and xj's rows, and dxi/dxj come back with them. ``live`` (the
+    batch's ``live_edges``, or None) bounds K1 and K5 alike."""
 
     @staticmethod
     def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
-                dst_rowptr, src_perm, src_rowptr, moments=True):
+                dst_rowptr, src_perm, src_rowptr, moments=True, live=None):
         gate, sender, saved, s1w, m2w = edge_phase_fwd(
             xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
-            saved=True, moments=moments)
+            saved=True, moments=moments, live=live)
         ctx.save_for_backward(e, we, w1g, w1a, dst, src, emask, dst_rowptr,
-                              src_perm, src_rowptr, saved, gate, s1w)
+                              src_perm, src_rowptr, saved, gate, s1w, live)
         ctx.dtypes = [t.dtype for t in (xi, xj, e, we, b, w1g, b1g, w1a,
                                         b1a)]
         return gate, sender, e, s1w, m2w
@@ -613,7 +679,7 @@ class EdgePhase(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dgate, dsender, deres, ds1w, dm2w):
         (e, we, w1g, w1a, dst, src, emask, dst_rowptr, src_perm, src_rowptr,
-         saved, gate, s1w) = ctx.saved_tensors
+         saved, gate, s1w, live) = ctx.saved_tensors
         c = lambda t, dt: t.to(dt).contiguous()
         if s1w is None:
             meanw = torch.zeros((e.shape[0] // TILE_EDGES, e.shape[1]),
@@ -628,12 +694,12 @@ class EdgePhase(torch.autograd.Function):
             e, we, w1g, w1a, saved, gate, meanw, c(ds1w, torch.float32),
             c(dm2w, torch.float32), c(dgate, gate.dtype),
             c(dsender, gate.dtype), c(deres, e.dtype), dst, src, emask,
-            dst_rowptr, src_perm, src_rowptr)
+            dst_rowptr, src_perm, src_rowptr, live=live)
         de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a = grads
         # in the primal order: xi, xj, e, we, b, w1g, b1g, w1a, b1a
         primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
         return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
-            + (None,) * 7
+            + (None,) * 8
 
 
 class FusedEdgeSigma(torch.autograd.Function):
@@ -650,15 +716,16 @@ class FusedEdgeSigma(torch.autograd.Function):
     in the primal dtypes, denv only when autograd asks for it (the model's
     env has no gradient). env [E, 1] is in gate's dtype. With a process
     ``group`` the merge is sync BN (nn/norm.py), and the backward runs it
-    again, its all-reduces included, on every rank of the group."""
+    again, its all-reduces included, on every rank of the group. ``live``
+    (the batch's ``live_edges``, or None) bounds K1 and K6 alike."""
 
     @staticmethod
     def forward(ctx, xi, xj, e, we, b, w1g, b1g, w1a, b1a, gamma, beta, env,
                 dst, src, emask, dst_rowptr, src_perm, src_rowptr,
-                eps: float, group=None):
+                eps: float, group=None, live=None):
         gate, sender, pre, s1w, m2w = edge_phase_fwd(
             xi, xj, e, we, b, w1g, b1g, w1a, b1a, dst, src, emask,
-            saved=True, pre_only=True, moments=True)
+            saved=True, pre_only=True, moments=True, live=live)
         nt = s1w.shape[0]
         n_w = emask.reshape(nt, -1).sum(dim=1, dtype=torch.float32)[:, None]
         (scale, shift), (mean, var, n) = combine_window_moments(
@@ -669,7 +736,7 @@ class FusedEdgeSigma(torch.autograd.Function):
                                       dst_rowptr.shape[0] - 1)
         ctx.save_for_backward(e, we, w1g, w1a, gamma, beta, env, dst, src,
                               emask, dst_rowptr, src_perm, src_rowptr, pre,
-                              gate, sender, s1w, m2w, scale, shift)
+                              gate, sender, s1w, m2w, scale, shift, live)
         ctx.eps, ctx.group = eps, group
         ctx.dtypes = [t.dtype for t in (xi, xj, e, we, b, w1g, b1g, w1a,
                                         b1a)]
@@ -680,7 +747,7 @@ class FusedEdgeSigma(torch.autograd.Function):
     def backward(ctx, deout, daggr, _dmean, _dvar, _dn):
         (e, we, w1g, w1a, gamma, beta, env, dst, src, emask, dst_rowptr,
          src_perm, src_rowptr, pre, gate, sender, s1w, m2w, scale,
-         shift) = ctx.saved_tensors
+         shift, live) = ctx.saved_tensors
         deout = deout.to(e.dtype).contiguous()
         daggr = daggr.to(gate.dtype).contiguous()
         # phase A'
@@ -707,8 +774,9 @@ class FusedEdgeSigma(torch.autograd.Function):
         de, dxi, dxj, dwe, db, dw1g, db1g, dw1a, db1a = merged_bwd(
             e, we, w1g, w1a, pre, gate, sender, env, scale, shift, meanw,
             ds1w.float().contiguous(), dm2w.float().contiguous(), deout,
-            daggr, dst, src, emask, dst_rowptr, src_perm, src_rowptr)
+            daggr, dst, src, emask, dst_rowptr, src_perm, src_rowptr,
+            live=live)
         # in the primal order: xi, xj, e, we, b, w1g, b1g, w1a, b1a
         primal = (dxi, dxj, de, dwe, db, dw1g, db1g, dw1a, db1a)
         return tuple(g.to(dt) for g, dt in zip(primal, ctx.dtypes)) \
-            + (dgamma, dbeta, denv) + (None,) * 8
+            + (dgamma, dbeta, denv) + (None,) * 9

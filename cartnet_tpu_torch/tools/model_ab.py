@@ -11,7 +11,8 @@ mean_atoms=atoms, adp=True, seed=0)`` in batches of 4 (the main path's
 data at the defaults); every output, loss, gradient and BN buffer is
 saved under ``cartnet_tpu_torch/_build/model_ab/``. Prints one JSON line:
 the tensors that differ between the trees, and those that differ between
-two runs of one tree (atomics), which say how far "bitwise" can go.
+two runs of one tree (atomics), which say how far "bitwise" can go, and
+each such tensor's largest gap over its largest magnitude.
 """
 
 from __future__ import annotations
@@ -83,11 +84,21 @@ def main(argv=None) -> dict:
     def differ(a, b):
         return sorted(k for k in a if not torch.equal(a[k], b[k]))
 
+    def gaps(a, b):
+        """Each differing tensor's largest gap over b's largest magnitude,
+        the largest first."""
+        rel = {k: float((a[k].float() - b[k].float()).abs().max()
+                        / b[k].float().abs().max().clamp_min(1e-30))
+               for k in differ(a, b)}
+        return dict(sorted(rel.items(), key=lambda kv: -kv[1]))
+
     line = {"model": args.model, "device": args.device, "dim": args.dim,
             "tensors": len(runs[0]),
             "differ_between_trees": differ(runs[0], runs[1]),
             "differ_between_runs_of_this_tree": differ(runs[1], runs[2]),
-            "differ_between_runs_of_dir": differ(runs[0], runs[3])}
+            "differ_between_runs_of_dir": differ(runs[0], runs[3]),
+            "gap_between_trees": gaps(runs[1], runs[0]),
+            "gap_between_runs_of_this_tree": gaps(runs[2], runs[1])}
     print(json.dumps(line), flush=True)
     return line
 

@@ -26,7 +26,10 @@ and the latest ``RAW_SPANS`` spans themselves. ``table()`` returns them;
 
 The spans cover the host layers: the data layer (``data.batch`` and its
 ``data.fetch`` / ``data.augment`` / ``data.reorder`` / ``data.collate``
-on the producer, ``data.wait`` where the consumer waits for it), the
+on the producer, ``data.wait`` where the consumer waits for it; collate
+counts each batch's 64-edge tiles, ``batch.edge_tiles``, and those up to
+its tail of pads, ``batch.edge_tiles_live``, the tiles the edge kernels
+compute), the
 hand-off (``batch.to_device`` with the counters
 ``batch.to_device.copies`` and ``batch.to_device.bytes``), the model's
 host side (``model.forward`` and its ``model.encoder``, ``model.layer``,

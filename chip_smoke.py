@@ -674,17 +674,18 @@ EDGE_BWD_OUT = ("de", "dxi", "dxj", "dwe", "db", "dw1g", "db1g", "dw1a",
 SIGMA_BWD_OUT = ("dgate", "dscale", "dshift", "denv", "dsender")
 
 
-def edge_bwd_plain(*a):
+def edge_bwd_plain(*a, live=None):
     """K5's plain version with the wrapper's arguments (its dst and src
-    row counts from the two rowptrs)."""
+    row counts from the two rowptrs); ``live`` is ignored, as by
+    ``edge_phase_fwd_plain``: the plain version sums every edge."""
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     return ek.edge_phase_bwd_plain(*a[:15], a[15].shape[0] - 1,
                                    a[17].shape[0] - 1)
 
 
-def merged_bwd_plain(*a):
+def merged_bwd_plain(*a, live=None):
     """K6's plain version with the wrapper's arguments (its src row count
-    from src_rowptr)."""
+    from src_rowptr); ``live`` is ignored, as by ``edge_bwd_plain``."""
     from cartnet_tpu_torch.ops.kernels import edge_kernels as ek
     return ek.merged_bwd_plain(*a[:18], a[20].shape[0] - 1)
 
@@ -3379,6 +3380,26 @@ def phases(_build) -> int:
             check_err["edge_phase_merged_bwd"] = err
         timing_inputs[("merged_bwd", case)] = margs
         timing_inputs[("merged_fwd", case)] = kargs
+
+    # the f32 passes of K1, K5 and K6 bounded by a batch's live edge counts
+    # (edge_kernels.live_edges) at the training cell's pads, with a tail of
+    # pads past 41,472 edges, against the plain versions on the same
+    # inputs: K1's live rows (its tail is zero, kernel_ab.live_compare),
+    # every output of K5 and K6
+    from cartnet_tpu_torch.tools import kernel_ab as kab
+    n_live = kab.LIVE_COUNTS[1]
+    lay = kab.tail_layout(n_live, dev)
+    live = ek.live_edges(lay.edge_mask, lay.edge_mask_src_sorted)
+    for name, (wrapper, _, fn, plain) in kab.live_calls(lay, gen, d).items():
+        got, again, want = (kab.live_rows(name, o, n_live)
+                            for o in (fn(live), fn(live), plain()))
+        torch.cuda.synchronize()
+        check_outputs(card, wrapper, "f32_live_" + name.replace(" ", "_"),
+                      list(want), list(got.values()), list(again.values()),
+                      list(want.values()),
+                      lambda o, k=name: kab.live_tol(k, o),
+                      live=[int(v) for v in live], edges=lay.num_edges)
+    del lay, live
 
     # K3 and K7 in the dtype cases of the eComformer forward (calls per
     # bf16 forward); K3's bf16 [E, 128] case is the JAX package's padded

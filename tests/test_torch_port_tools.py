@@ -66,3 +66,5 @@ def test_model_ab_holds_a_tree_bitwise_to_itself(model, capsys):
     assert line["differ_between_trees"] == []
     assert line["differ_between_runs_of_this_tree"] == []
     assert line["differ_between_runs_of_dir"] == []
+    assert line["gap_between_trees"] == {}
+    assert line["gap_between_runs_of_this_tree"] == {}
