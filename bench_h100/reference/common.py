@@ -26,6 +26,9 @@ def plain_precision(tf32: bool = False) -> None:
 
 @dataclasses.dataclass
 class Graphs:
+    """One unpadded batch, as a reference's ``forward(g)`` receives it.
+    Edge e runs src[e] -> dst[e] and belongs to crystal graph[dst[e]],
+    whose lattice rows are cell[graph[dst[e]]]."""
     z: torch.Tensor           # [N] atom numbers
     graph: torch.Tensor       # [N] crystal of each atom
     src: torch.Tensor         # [E]
@@ -35,12 +38,14 @@ class Graphs:
     temperature: torch.Tensor  # [G]
     y: torch.Tensor           # [N, 3, 3]
     non_h: torch.Tensor       # [N] bool
+    cell: torch.Tensor        # [G, 3, 3] lattice rows of each crystal
 
 
 def graphs(records: Sequence[dict], device,
            dtype: torch.dtype = torch.float32) -> Graphs:
     """The records as one unpadded batch on ``device``, its real-valued
-    fields in ``dtype``."""
+    fields in ``dtype``; the crystals in the records' order (each record's
+    ``cell`` as ``training_batches`` left it, rotated where it augments)."""
     off, parts = 0, {k: [] for k in ("z", "graph", "src", "dst", "dist",
                                      "dir", "y")}
     for g, r in enumerate(records):
@@ -59,9 +64,11 @@ def graphs(records: Sequence[dict], device,
          for k, v in t.items()}
     temp = torch.tensor([float(r["temperature"]) for r in records],
                         dtype=dtype, device=device)
+    cell = torch.from_numpy(np.stack([np.asarray(r["cell"], np.float32)
+                                      for r in records])).to(device, dtype)
     return Graphs(z=t["z"], graph=t["graph"], src=t["src"], dst=t["dst"],
                   dist=t["dist"], cart_dir=t["dir"], temperature=temp,
-                  y=t["y"], non_h=t["z"] != 1)
+                  y=t["y"], non_h=t["z"] != 1, cell=cell)
 
 
 def cholesky_upper(diag, off):
